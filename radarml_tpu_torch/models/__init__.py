@@ -1,0 +1,27 @@
+from radarml_tpu_torch.models.linear import (
+    LinearModel,
+    SigmoidCalibration,
+    calibrated_from_decision,
+    decision_function,
+    from_numpy,
+    predict,
+    predict_proba_calibrated,
+    predict_proba_log_loss,
+    proba_from_decision,
+)
+from radarml_tpu_torch.models.pipeline import UNKNOWN, RadarPredictor, pad_targets
+
+__all__ = [
+    "LinearModel",
+    "SigmoidCalibration",
+    "calibrated_from_decision",
+    "decision_function",
+    "from_numpy",
+    "predict",
+    "predict_proba_calibrated",
+    "predict_proba_log_loss",
+    "proba_from_decision",
+    "UNKNOWN",
+    "RadarPredictor",
+    "pad_targets",
+]

@@ -1,0 +1,194 @@
+"""Port parity: models/pipeline.RadarPredictor against the JAX package's.
+
+The same model, cubes and targets (made with numpy from a seed) go
+through both predictors on the CPU. Tolerances, with their reasons:
+
+* exact and fast float32 modes sum float32 products in another order
+  than XLA: probabilities within 1e-5, and decisions equal wherever the
+  reference's top-2 probability margin exceeds 1e-4;
+* fast int8 and fused compute exact integer tables and the same float32
+  dequantize ops: probabilities within 1e-6, decisions equal where the
+  margin exceeds 1e-4;
+* the port's fused split decisions equal the port's fast int8 decisions
+  exactly (the JAX package's own contract), probabilities within 1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from radarml_tpu.core.arena import Arena as JArena, ProjMask as JMask
+from radarml_tpu.models import linear as jlin
+from radarml_tpu.models import pipeline as jpipe
+from radarml_tpu_torch.core.arena import Arena, ProjMask
+from radarml_tpu_torch.models import linear as tlin
+from radarml_tpu_torch.models import pipeline as tpipe
+
+torch.set_num_threads(1)
+
+SCAN = dict(r_min=10.0, r_max=60.0, r_res=2.0, theta_min=-12.0,
+            theta_max=12.0, theta_res=4.0, phi_min=-6.0, phi_max=6.0,
+            phi_res=2.0)  # (7, 7, 26) cube
+TRAIN = dict(SCAN, theta_res=3.0, r_res=2.5)  # (9, 7, 21): zooms differ
+
+
+def _fixture(rng, train=SCAN, mask=(True, True, True), calibrated=True,
+             B=5, T=3):
+    """Both packages' predictor kwargs + one batch of numpy inputs."""
+    jt, js = JArena(**train), JArena(**SCAN)
+    shapes = (jt.xz_shape, jt.yz_shape, jt.xy_shape)
+    F = sum(h * w for (h, w), k in zip(shapes, mask) if k)
+    coef = (rng.normal(size=(3, F)) * 0.05).astype(np.float32)
+    intercept = rng.normal(size=(3,)).astype(np.float32)
+    a = -rng.uniform(0.5, 2.0, size=3).astype(np.float32)
+    b = rng.normal(size=3).astype(np.float32) * 0.1
+    jkw = dict(
+        train_arena=jt, scan_arena=js, proj_mask=JMask(*mask), min_proba=0.5,
+        model=jlin.LinearModel(jnp.asarray(coef), jnp.asarray(intercept)),
+        calibration=(jlin.SigmoidCalibration(jnp.asarray(a), jnp.asarray(b))
+                     if calibrated else None),
+    )
+    model, calib = tlin.from_numpy(
+        coef, intercept, *((a, b) if calibrated else ()), device="cpu"
+    )
+    tkw = dict(
+        train_arena=Arena(**train), scan_arena=Arena(**SCAN),
+        proj_mask=ProjMask(*mask), min_proba=0.5, model=model,
+        calibration=calib,
+    )
+    cubes = np.rint(rng.random((B,) + js.grid_shape) * 255).astype(np.float32)
+    cells = np.stack([rng.integers(0, n, size=(B, T)) for n in js.grid_shape], -1)
+    xyz = np.stack(js.grid_to_cartesian_np(*cells.T.astype(np.float64)), -1)
+    xyz = xyz.transpose(1, 0, 2) + rng.normal(scale=0.3, size=(B, T, 3))
+    xyz[0, 0] = (0.0, 0.0, 5000.0)  # out-of-arena sentinels clamp
+    xyz[1, 1] = (-900.0, 900.0, -10.0)
+    valid = rng.random((B, T)) < 0.8
+    return jkw, tkw, (cubes, xyz.astype(np.float32), valid)
+
+
+def _check(jout, tout, atol):
+    jp, jb, jproba = (np.asarray(o) for o in jout)
+    tp, tb, tproba = (o.numpy() for o in tout)
+    assert tp.dtype == np.int32 and tproba.dtype == np.float32
+    assert tproba.shape == jproba.shape and tp.shape == jp.shape
+    np.testing.assert_allclose(tproba, jproba, atol=atol, rtol=0)
+    np.testing.assert_allclose(tb, jb, atol=atol, rtol=0)
+    top2 = np.sort(jproba, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0] > 1e-4) & (
+        np.abs(jb - 0.5) > 1e-4
+    )
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(tp[clear], jp[clear])
+
+
+@pytest.mark.parametrize(
+    "train,mask,calibrated",
+    [
+        (SCAN, (True, True, True), True),
+        (TRAIN, (True, True, True), True),
+        (TRAIN, (True, False, True), False),
+    ],
+)
+def test_exact_mode_matches_jax(rng, train, mask, calibrated):
+    jkw, tkw, (cubes, xyz, valid) = _fixture(rng, train, mask, calibrated)
+    j = jpipe.RadarPredictor(mode="exact", **jkw)
+    t = tpipe.RadarPredictor(mode="exact", **tkw)
+    _check(j(cubes, xyz, valid), t(cubes, xyz, valid), atol=1e-5)
+
+
+@pytest.mark.parametrize("cube_dtype", ["float32", "bfloat16", "uint8", "int8"])
+@pytest.mark.parametrize("train", [SCAN, TRAIN])
+def test_fast_mode_matches_jax(rng, cube_dtype, train):
+    jkw, tkw, (cubes, xyz, valid) = _fixture(rng, train)
+    j = jpipe.RadarPredictor(mode="fast", cube_dtype=cube_dtype, **jkw)
+    t = tpipe.RadarPredictor(mode="fast", cube_dtype=cube_dtype, **tkw)
+    atol = 1e-6 if cube_dtype == "int8" else 1e-5
+    _check(j(cubes, xyz, valid), t(cubes, xyz, valid), atol=atol)
+    # host-encoded stream input scores the same as raw float cubes
+    enc = t.encode_host(cubes)
+    np.testing.assert_array_equal(
+        np.asarray(jpipe.encode_host_cubes(cubes, cube_dtype)).astype(np.float32),
+        enc.to(torch.float32).numpy(),
+    )
+    for a, b in zip(t(enc, xyz, valid), t(cubes, xyz, valid)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("levels", [2, 1])
+@pytest.mark.parametrize("mask", [(True, True, True), (True, False, True)])
+def test_quantized_templates_equal_jax_bytes(rng, levels, mask):
+    jkw, tkw, _ = _fixture(rng, TRAIN, mask)
+    j = jpipe.RadarPredictor(mode="fast", **jkw)
+    t = tpipe.RadarPredictor(mode="fast", **tkw)
+    for jq, tq in zip(
+        j._quantized_split_templates(levels),
+        t._quantized_split_templates(levels),
+    ):
+        assert (jq is None) == (tq is None)
+        if jq is None:
+            continue
+        assert tq[0].dtype == np.int8
+        assert np.asarray(jq[0]).tobytes() == tq[0].tobytes()
+        for a, b in zip(jq[1:], tq[1:]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.asarray(a).tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("quant", ["split", "single"])
+@pytest.mark.parametrize("mask", [(True, True, True), (False, True, True)])
+def test_fused_mode_matches_jax(rng, quant, mask):
+    """Port fused (plain version on the CPU) against JAX fused combo
+    (interpret mode): the same tables feed the same tail."""
+    jkw, tkw, (cubes, xyz, valid) = _fixture(rng, SCAN, mask)
+    j = jpipe.RadarPredictor(mode="fused", fused_quant=quant, **jkw)
+    t = tpipe.RadarPredictor(mode="fused", fused_quant=quant, **tkw)
+    assert t.cube_dtype == "int8"
+    _check(j(j.pack_host(cubes), xyz, valid),
+           t(t.pack_host(cubes), xyz, valid), atol=1e-6)
+
+
+def test_fused_split_decisions_equal_fast_int8(rng):
+    """The JAX package's contract, held on the port: packed and 4-D
+    ingest paths, decisions equal, probabilities within 1e-6."""
+    _, tkw, (cubes, xyz, valid) = _fixture(rng, TRAIN, B=7, T=4)
+    fast = tpipe.RadarPredictor(mode="fast", cube_dtype="int8", **tkw)
+    fused = tpipe.RadarPredictor(mode="fused", **tkw)
+    pf, bf, qf = fast(cubes, xyz, valid)
+    pk, bk, qk = fused(fused.pack_host(cubes), xyz, valid)
+    p4, b4, q4 = fused(cubes, xyz, valid)
+    assert torch.equal(pk, pf) and torch.equal(p4, pf)
+    np.testing.assert_allclose(qk.numpy(), qf.numpy(), atol=1e-6, rtol=0)
+    assert torch.equal(qk, q4)
+
+
+def test_pad_targets_and_defaults_match_jax(rng):
+    lists = [[(1.0, 2.0, 30.0)], [], [(0.0, 0.0, 50.0)] * 6]
+    for a, b in zip(jpipe.pad_targets(lists, 4), tpipe.pad_targets(lists, 4)):
+        np.testing.assert_array_equal(a, b)
+    assert tpipe.UNKNOWN == jpipe.UNKNOWN
+    jkw, tkw, (cubes, xyz, _) = _fixture(rng)
+    j = jpipe.RadarPredictor(mode="fast", **jkw)(cubes, xyz)
+    t = tpipe.RadarPredictor(mode="fast", **tkw)(cubes, xyz)
+    np.testing.assert_array_equal(np.asarray(j[0]) == -1, t[0].numpy() == -1)
+
+
+@pytest.mark.parametrize(
+    "kw,item",
+    [
+        (dict(mode="pallas"), "B7"),
+        (dict(mode="fused", fused_tail="lookup"), "B3"),
+        (dict(mode="fused", fused_tail="glookup"), "B2"),
+        (dict(mode="fused", fused_tail="sel"), "B4"),
+        (dict(mode="fused", fused_tail="sel3"), "B5"),
+        (dict(mesh=object()), "A15"),
+    ],
+)
+def test_unported_parts_raise(rng, kw, item):
+    _, tkw, _ = _fixture(rng)
+    with pytest.raises(NotImplementedError, match=item):
+        tpipe.RadarPredictor(**kw, **tkw)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tpipe.NeuralClassifier(apply=None, rescale=(8, 8), n_classes=3)

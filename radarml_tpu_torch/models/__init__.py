@@ -9,6 +9,7 @@ from radarml_tpu_torch.models.linear import (
     predict_proba_log_loss,
     proba_from_decision,
 )
+from radarml_tpu_torch.models.svc import SVCConfig, SVCModel, svc_fit
 from radarml_tpu_torch.models.pipeline import UNKNOWN, RadarPredictor, pad_targets
 
 __all__ = [
@@ -21,6 +22,9 @@ __all__ = [
     "predict_proba_calibrated",
     "predict_proba_log_loss",
     "proba_from_decision",
+    "SVCConfig",
+    "SVCModel",
+    "svc_fit",
     "UNKNOWN",
     "RadarPredictor",
     "pad_targets",

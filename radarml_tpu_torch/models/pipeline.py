@@ -17,6 +17,11 @@ calibrated linear model, then thresholded. Three modes compute that:
   that dequantizes, looks up, calibrates and thresholds. Its split
   decisions equal ``fast`` + int8's.
 
+A kernel SVM (models/svc.SVCModel) has no linear fold: ``exact`` and
+``fast`` both score its exact features with its Platt-coupled
+``predict_proba`` (the fused RBF Gram kernel, ops/rbf.py), and ``fused``
+refuses it, as in the JAX package.
+
 Dynamic target counts are a static ``max_targets`` axis with a validity
 mask, as in the JAX package. Results are tensors on the predictor's
 ``device``.
@@ -25,7 +30,7 @@ mask, as in the JAX package. Results are tensors on the predictor's
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +45,7 @@ from radarml_tpu_torch.models.linear import (
     predict_proba_log_loss,
     proba_from_decision,
 )
+from radarml_tpu_torch.models.svc import SVCModel, predict_proba as svc_predict_proba
 from radarml_tpu_torch.ops.features import predict_zoom
 from radarml_tpu_torch.ops.i8_score import (
     build_combined_weights,
@@ -115,7 +121,7 @@ class RadarPredictor:
 
     Args mirror the reference CLI (predict.py:133-157): a training
     arena (fixes feature geometry), a scan arena (may differ → zoom),
-    projection mask, calibrated linear model, and the min_proba
+    projection mask, calibrated linear model or SVC, and the min_proba
     threshold below which a target is 'Unknown'. `device` is where the
     predictor computes (default: where the model's parameters lie);
     inputs are moved there, and results come back there.
@@ -123,7 +129,7 @@ class RadarPredictor:
 
     train_arena: Arena
     scan_arena: Arena
-    model: LinearModel
+    model: Union[LinearModel, SVCModel]
     calibration: Optional[SigmoidCalibration] = None
     proj_mask: ProjMask = ProjMask(True, True, True)
     min_proba: float = 0.7
@@ -157,18 +163,22 @@ class RadarPredictor:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet (ROADMAP A15)"
             )
-        if not isinstance(self.model, LinearModel):
+        is_svc = isinstance(self.model, SVCModel)
+        if not (is_svc or isinstance(self.model, LinearModel)):
             raise NotImplementedError(
                 f"{type(self.model).__name__} serving is not ported yet "
-                "(ROADMAP A9 for SVC, A12 for the neural families)"
+                "(ROADMAP A12 for the neural families)"
             )
         if self.mode not in ("exact", "fast", "fused"):
             raise ValueError(f"unknown mode {self.mode!r}")
+        if self.mode == "fused" and is_svc:
+            raise ValueError("fused mode folds linear models only")
         if self.cube_dtype not in _CUBE_DTYPES:
             raise ValueError(f"unknown cube_dtype {self.cube_dtype!r}")
-        dev = torch.device(
-            self.device if self.device is not None else self.model.coef.device
-        )
+        if self.device is not None:
+            dev = torch.device(self.device)
+        else:
+            dev = self.model.device if is_svc else self.model.coef.device
         object.__setattr__(self, "device", dev)
         full_f32()
         if self.mode == "fused":
@@ -188,9 +198,9 @@ class RadarPredictor:
             # dtype resolves to it, losslessly for 8-bit radar cubes.
             object.__setattr__(self, "cube_dtype", "int8")
             object.__setattr__(self, "_fn", self._build_fused())
-        elif self.mode == "fast":
+        elif self.mode == "fast" and not is_svc:
             object.__setattr__(self, "_fn", self._build_folded())
-        else:
+        else:  # exact, and fast for an SVC (nothing to fold)
             object.__setattr__(self, "_fn", self._build())
 
     # -- host-side template folding (float64 numpy, as in the JAX package) --
@@ -461,6 +471,9 @@ class RadarPredictor:
             )
         # int8 wire format carries value-128; decode restores 0..255.
         shift = 128.0 if self.cube_dtype == "int8" else 0.0
+        # An SVC scores on the predictor's device (its Platt-coupled
+        # probabilities; a calibration is not applied to it).
+        svc = self.model.to(self.device) if isinstance(self.model, SVCModel) else None
 
         def predict_batch(cubes, target_xyz, target_valid):
             B, T = target_xyz.shape[:2]
@@ -478,7 +491,9 @@ class RadarPredictor:
                 out = torch.einsum("btow,pw->btop", out, mat[1])
                 parts.append(out.reshape(B * T, -1))
             feats = torch.cat(parts, dim=1) / RADAR_MAX
-            if self.calibration is not None:
+            if svc is not None:
+                proba = svc_predict_proba(svc, feats)
+            elif self.calibration is not None:
                 proba = predict_proba_calibrated(self.model, self.calibration, feats)
             else:
                 proba = predict_proba_log_loss(self.model, feats)

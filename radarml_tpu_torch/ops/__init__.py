@@ -5,7 +5,14 @@ from radarml_tpu_torch.ops.resample import (
     spline_zoom_pair,
     zoom_output_size,
 )
-from radarml_tpu_torch.ops.features import FeatureSpec, predict_zoom
+from radarml_tpu_torch.ops.features import (
+    FeatureSpec,
+    make_feature_fn,
+    predict_zoom,
+    process_samples,
+    process_views,
+)
+from radarml_tpu_torch.ops.rbf import rbf_gram, rbf_gram_ref
 
 __all__ = [
     "bicubic_pair",
@@ -14,5 +21,10 @@ __all__ = [
     "spline_zoom_pair",
     "zoom_output_size",
     "FeatureSpec",
+    "make_feature_fn",
     "predict_zoom",
+    "process_samples",
+    "process_views",
+    "rbf_gram",
+    "rbf_gram_ref",
 ]

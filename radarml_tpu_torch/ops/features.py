@@ -1,18 +1,24 @@
-"""Feature-vector geometry of the radar projections.
+"""Batched feature-vector construction from radar projections.
 
-Port of the predict-path half of radarml_tpu/ops/features.py: the
-`FeatureSpec` that fixes the (xz | yz | xy) feature layout and
-`predict_zoom`, the per-plane zoom from a scan arena into the training
-arena. The batched featurizers (`process_samples`, `make_feature_fn`)
-belong to the training path and are not ported yet.
+Port of radarml_tpu/ops/features.py: the `FeatureSpec` that fixes the
+(xz | yz | xy) feature layout, `predict_zoom` (the per-plane zoom from a
+scan arena into the training arena), and the batched featurizers: select
+the projections named by the mask, zoom each to the training arena with
+the exact ndimage cubic B-spline semantics (two float32 matrix products
+per plane, ops/resample.py), flatten, concatenate in xz | yz | xy order
+and optionally scale to [0, 1] by RADAR_MAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Callable, Sequence, Tuple
 
-from radarml_tpu_torch.core.arena import Arena, ProjMask, ProjZoom
+import numpy as np
+import torch
+
+from radarml_tpu_torch.core.arena import RADAR_MAX, Arena, ProjMask, ProjZoom
 from radarml_tpu_torch.ops.resample import spline_zoom_pair
 
 
@@ -75,3 +81,105 @@ def predict_zoom(train_arena: Arena, scan_arena: Arena) -> ProjZoom:
     zz = train_arena.size_z / scan_arena.size_z
     return ProjZoom(xz=(zx, zz), yz=(zy, zz), xy=(zx, zy))
 
+
+@functools.lru_cache(maxsize=64)
+def _zoom_mats(spec: FeatureSpec):
+    """Per-plane (row_mat, col_mat) float64 numpy zoom operators, None
+    for a masked plane. Cached per FeatureSpec (hashable, and it fully
+    determines them)."""
+    mats = []
+    for shape, zoom, keep in zip(
+        (spec.xz_shape, spec.yz_shape, spec.xy_shape), spec.proj_zoom, spec.proj_mask
+    ):
+        if not keep:
+            mats.append(None)
+            continue
+        row_mat, col_mat, _ = spline_zoom_pair(tuple(shape), tuple(zoom))
+        mats.append((np.asarray(row_mat), np.asarray(col_mat)))
+    return tuple(mats)
+
+
+def make_feature_fn(
+    spec: FeatureSpec,
+) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Build a (xz, yz, xy) batch → (B, F) feature function.
+
+    Inputs are (B, H, W) float32 stacks of each projection at its native
+    scan shape, on one device; the output is the (B, feature_length)
+    matrix the classifiers consume, on that device, in the JAX
+    package's layout. The zoom operators are built once per spec and
+    moved to the batch's device at the call.
+    """
+    mats = _zoom_mats(spec)
+    scale = spec.scale
+
+    def feature_fn(xz: torch.Tensor, yz: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+        # models.linear.full_f32, inlined: ops/ must not import models/
+        torch.backends.cuda.matmul.allow_tf32 = False
+        planes = []
+        for batch, mat in zip((xz, yz, xy), mats):
+            if mat is None:
+                continue
+            row_mat = torch.as_tensor(mat[0], dtype=batch.dtype, device=batch.device)
+            col_mat = torch.as_tensor(mat[1], dtype=batch.dtype, device=batch.device)
+            out = torch.einsum("oh,bhw->bow", row_mat, batch)
+            out = torch.einsum("bow,pw->bop", out, col_mat)
+            planes.append(out.reshape(out.shape[0], -1))
+        feats = torch.cat(planes, dim=1)
+        if scale:
+            feats = feats / RADAR_MAX
+        return feats
+
+    return feature_fn
+
+
+def process_samples(
+    samples: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+    proj_mask: ProjMask = ProjMask(True, True, True),
+    proj_zoom: ProjZoom = ProjZoom((1.0, 1.0), (1.0, 1.0), (1.0, 1.0)),
+    scale: bool = False,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """Batched equivalent of the reference's common.process_samples.
+
+    Accepts the reference's list-of-(xz, yz, xy) sample format and
+    returns the (N, F) float32 feature matrix on `device`. All samples
+    must share plane shapes (true for any single-arena dataset).
+    """
+    xz = np.stack([np.asarray(s[0], dtype=np.float32) for s in samples])
+    yz = np.stack([np.asarray(s[1], dtype=np.float32) for s in samples])
+    xy = np.stack([np.asarray(s[2], dtype=np.float32) for s in samples])
+    return process_views(
+        xz, yz, xy,
+        proj_mask=proj_mask, proj_zoom=proj_zoom, scale=scale, device=device,
+    )
+
+
+def process_views(
+    xz,
+    yz,
+    xy,
+    proj_mask: ProjMask = ProjMask(True, True, True),
+    proj_zoom: ProjZoom = ProjZoom((1.0, 1.0), (1.0, 1.0), (1.0, 1.0)),
+    scale: bool = False,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """`process_samples` for already-batched (B, H, W) view stacks (numpy
+    or tensors), featurized on `device`."""
+    norm_zoom = ProjZoom(*[
+        tuple(float(v) for v in np.atleast_1d(z)[:2]) if np.ndim(z)
+        else (float(z), float(z))
+        for z in proj_zoom
+    ])
+    spec = FeatureSpec(
+        xz_shape=tuple(int(s) for s in xz.shape[1:]),
+        yz_shape=tuple(int(s) for s in yz.shape[1:]),
+        xy_shape=tuple(int(s) for s in xy.shape[1:]),
+        proj_mask=ProjMask(*(bool(m) for m in proj_mask)),
+        proj_zoom=norm_zoom,
+        scale=bool(scale),
+    )
+    dev = torch.device(device)
+    return make_feature_fn(spec)(
+        *(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (xz, yz, xy))
+    )

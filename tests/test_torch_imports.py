@@ -1,5 +1,5 @@
-"""The port's import rule: radarml_tpu_torch imports neither jax nor
-radarml_tpu, and importing it builds nothing.
+"""The port's import rule: radarml_tpu_torch imports neither jax,
+radarml_tpu nor sklearn, and importing it builds nothing.
 
 Checked in a fresh interpreter where `import jax` fails outright.
 """
@@ -23,7 +23,7 @@ for m in pkgutil.walk_packages(radarml_tpu_torch.__path__, "radarml_tpu_torch.")
 leaked = sorted(
     m for m in sys.modules
     if m == "radarml_tpu" or m.startswith("radarml_tpu.")
-    or m.split(".")[0] in ("jaxlib", "flax", "optax", "triton")
+    or m.split(".")[0] in ("jaxlib", "flax", "optax", "triton", "sklearn")
 )
 from radarml_tpu_torch.ops import _cuda_build
 print(json.dumps({"modules": names, "leaked": leaked,
@@ -44,6 +44,9 @@ def test_port_imports_without_jax_or_reference():
     for name in (
         "radarml_tpu_torch.core.arena",
         "radarml_tpu_torch.ops.i8_score",
+        "radarml_tpu_torch.ops.rbf",
+        "radarml_tpu_torch.models.svc",
+        "radarml_tpu_torch.apps.common_cli",
         "radarml_tpu_torch.ops._cuda_build",
         "radarml_tpu_torch.models.pipeline",
         "radarml_tpu_torch.serving.stream",

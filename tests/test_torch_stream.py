@@ -55,11 +55,14 @@ def test_stream_answers_every_scan_like_a_direct_call(rng):
         on_detection=got.append,
     )
     svc.start(source)
-    deadline = time.monotonic() + 60.0
+    # Generous waits: the assertions below, not these limits, decide the
+    # test; a host loaded by parallel test workers may starve a thread
+    # for seconds, which the default 5 s join in stop() did not allow for.
+    deadline = time.monotonic() + 300.0
     n_targets = sum(len(t) for t in targets)
     while len(got) < n_targets and time.monotonic() < deadline:
         time.sleep(0.01)
-    svc.stop()
+    svc.stop(timeout=60.0)
     stats = svc.stats()
     assert stats["predict_errors"] == 0 and stats["dropped"] == 0
     assert stats["processed"] == N and len(got) == n_targets

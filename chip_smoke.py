@@ -5,30 +5,46 @@
 Phases, one line of findings each; any failure raises (non-zero exit):
 
 1. device  — a CUDA card is present; its name and power limit.
-2. build   — both hand-written kernels (radarml_tpu_torch/ops/csrc/
-             i8_score.cu and rbf_gram.cu) are compiled from the
-             checkout's sources by nvcc, one process per source, all
+2. build   — every hand-written kernel (radarml_tpu_torch/ops/csrc/
+             i8_score.cu, i8_tails.cu and rbf_gram.cu) is compiled from
+             the checkout's sources by nvcc, one process per source, all
              started together.
-3. kernel  — the int8 table kernel's tables equal its plain PyTorch
-             version (torch.equal) at the default arena: random int8
-             cubes at B=256 and B=4096, levels 2 and 1, one masked plane.
+3. kernel  — each int8 kernel equals its plain PyTorch version
+             (torch.equal) on random int8 cubes. The combo kernel (B1) at
+             the default arena, B=256 and B=4096, levels 2 and 1, one
+             masked plane. The z-split (B3), y-split (B2), sel (B4) and
+             sel3 (B5) kernels at levels 2: B 1 / 7 / 64 / 4096 at the
+             default arena, each plane masked in turn, an odd arena
+             (9, 13, 180) and a small one (5, 7, 9); at levels 1 (C2 = 3):
+             B 64 / 4096 at the default arena and the small one with a
+             masked plane; the y-split at y-groups 16 / 8 / 31 / 5; sel and
+             sel3 with 4 slots holding -1 indices, an index past the end
+             and (sel3) invalid slots.
 4. slice   — the demo linear model (radarml_tpu_torch/assets/
              demo_linear.npz) scores 512 synthetic scans (4 target slots
              each) through RadarPredictor in exact, fast f32, fast int8,
-             fused split and fused single modes. Fused split decisions
-             equal fast int8's (probabilities within 1e-6); the first 64
-             scans agree with the JAX package's golden outputs (decisions
-             equal where the top-2 margin exceeds 1e-4, probabilities
-             within 1e-5; fast f32 within 2e-4 of exact, the JAX
-             package's own fast-vs-exact bar). The cube indices of 40,000
-             targets computed on the card are compared with the CPU's,
-             and the count that differ is reported.
-5. serving — a StreamingClassifier over the fused predictor answers every
-             scan of a synthetic source with predict_errors == 0 and the
+             fused split under every fused_tail (combo, lookup, glookup,
+             sel, sel3) and fused single. Each fused split tail's
+             decisions equal fast int8's (probabilities within 1e-6); the
+             first 64 scans agree with the JAX package's golden outputs
+             (decisions equal where the top-2 margin exceeds 1e-4,
+             probabilities within 1e-5; fast f32 within 2e-4 of exact, the
+             JAX package's own fast-vs-exact bar). The cube indices of
+             40,000 targets computed on the card are compared with the
+             CPU's, and the count that differ is reported.
+5. serving — a StreamingClassifier over the fused combo predictor answers
+             every scan of a synthetic source, and one over the fused sel3
+             predictor 128 scans, with predict_errors == 0 and the
              detections of a direct call.
-6. timing  — CUDA events, warm-up, median of rounds, batch tiled to 4096:
-             the int8 kernel against its plain version, and fused / fast
-             int8 / exact scans per second with inputs resident on the card.
+6. timing  — CUDA events, warm-up, interleaved rounds, medians: each int8
+             kernel (B1-B5) against its plain version and its bound at
+             B=4096 (the demo scans tiled) and B=64, with the kernel's own
+             device time from a torch.profiler trace beside it (at B=64 the
+             wrapper's host dispatch can outlast the kernel); the y-split
+             kernel's device time over y-groups 5 / 8 / 16 / 31; and fused
+             (every tail) / fast int8 /
+             exact scans per second at B=4096 with inputs resident on the
+             card.
 7. rbf     — the RBF Gram kernel against its plain version and a float64
              oracle, on scaled features of the SVC dataset (process_samples
              (scale=True) of make_dataset(1824, hardness=1.0)) and on
@@ -57,9 +73,15 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              goes, and svc_fit seconds (warm).
 
 Each kernel's launch count is reset just before its main path and read
-just after: the int8 kernel over phases 4-5, the RBF kernel over phase 9
-(and, reported apart, over the fit of phase 8). The line before last is
-the kernel record as JSON; the last line is {"ok": true, "device": {...}}.
+just after: the int8 kernels over phases 4-5 (each fused tail's kernel on
+its own tail's path), the RBF kernel over phase 9 (and, reported apart,
+over the fit of phase 8). bound_ms is the larger of the bytes each kernel
+must move (every input read once, every output written once) over 3.35
+TB/s and the operations its function needs over the card's peak for their
+type (int8 1,979 TOP/s; float32 67 TFLOP/s), computed from this run's
+shapes. No single PyTorch call computes any of these functions, so
+library_ms is null. The line before last is the kernel record as JSON;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,7 +106,7 @@ from radarml_tpu_torch.models import svc  # noqa: E402
 from radarml_tpu_torch.models.linear import from_numpy  # noqa: E402
 from radarml_tpu_torch.models.pipeline import RadarPredictor, pad_targets  # noqa: E402
 from radarml_tpu_torch.ops import _cuda_build  # noqa: E402
-from radarml_tpu_torch.ops import i8_score, rbf  # noqa: E402
+from radarml_tpu_torch.ops import i8_score, i8_tails, rbf  # noqa: E402
 from radarml_tpu_torch.ops.features import process_samples  # noqa: E402
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
 
@@ -95,7 +117,24 @@ KERNEL_SOURCE = "radarml_tpu_torch/ops/csrc/i8_score.cu"
 REPLACES = "radarml_tpu/ops/pallas_i8_score.py:804"
 RBF_SOURCE = "radarml_tpu_torch/ops/csrc/rbf_gram.cu"
 RBF_REPLACES = "radarml_tpu/ops/pallas_rbf.py:29"
-N_SLICE, BIG = 512, 4096
+TAILS_SOURCE = "radarml_tpu_torch/ops/csrc/i8_tails.cu"
+# Entry point -> its CUDA kernel's function name, as a profiler trace shows it.
+KERNEL_SYMBOLS = {
+    "onepass_tables_combined_i8": "onepass_tables_kernel",
+    "onepass_tables_i8": "tables_zsplit_kernel",
+    "onepass_tables_grouped_i8": "tables_ysplit_kernel",
+    "onepass_tables_sel_i8": "tables_sel_kernel",
+    "onepass_scores_i8": "scores_kernel",
+}
+# The four other int8 kernels: entry point -> (fused_tail, TPU kernel body).
+TAIL_KERNELS = {
+    "onepass_tables_i8": ("lookup", "radarml_tpu/ops/pallas_i8_score.py:376"),
+    "onepass_tables_grouped_i8": ("glookup", "radarml_tpu/ops/pallas_i8_score.py:556"),
+    "onepass_tables_sel_i8": ("sel", "radarml_tpu/ops/pallas_i8_score.py:250"),
+    "onepass_scores_i8": ("sel3", "radarml_tpu/ops/pallas_i8_score.py:998"),
+}
+HBM_BYTES_S, INT8_OPS_S, FP32_FLOPS_S = 3.35e12, 1.979e15, 67e12  # H100 SXM peaks
+N_SLICE, BIG, SMALL_B, N_STREAM_SEL3 = 512, 4096, 64, 128
 GOLDEN_DECISION_MARGIN = 1e-4
 # The SVC's probabilities go through a 1823-term Gram row, the pair
 # product and the coupling loop, each summed in another order on the card
@@ -162,6 +201,82 @@ def random_quant(rng, dims, levels, masked=None, C=3):
     return out
 
 
+def slots(rng, dims, B, T, dev):
+    """(B, T, 3) int32 cube indices on `dev`: random cells, the last slot
+    of every third scan padded (-1) and one z index past the end."""
+    ijk = np.stack([rng.integers(0, n, (B, T)) for n in dims], -1).astype(np.int32)
+    ijk[::3, -1] = -1
+    ijk[-1, 0, 2] = dims[2]
+    return torch.from_numpy(ijk).to(dev)
+
+
+def tail_fns(name, w, cube, ijk, valid):
+    """(kernel call, plain call) of one of the four tail entry points; w
+    is GroupedWeights, which every one of them takes."""
+    kidx = ijk[..., 2]
+    t = i8_tails
+    return {
+        "onepass_tables_i8": (lambda: t.onepass_tables_i8(cube, w),
+                              lambda: t.onepass_tables_i8_ref(cube, w)),
+        "onepass_tables_grouped_i8": (lambda: t.onepass_tables_grouped_i8(cube, w),
+                                      lambda: t.onepass_tables_grouped_i8_ref(cube, w)),
+        "onepass_tables_sel_i8": (lambda: t.onepass_tables_sel_i8(cube, w, kidx),
+                                  lambda: t.onepass_tables_sel_i8_ref(cube, w, kidx)),
+        "onepass_scores_i8": (lambda: t.onepass_scores_i8(cube, w, ijk, valid),
+                              lambda: t.onepass_scores_i8_ref(cube, w, ijk, valid)),
+    }[name]
+
+
+def device_ms(fns: dict, symbols: dict, reps: int) -> dict:
+    """Mean device time of one launch of each kernel, from a torch.profiler
+    (CUPTI) trace of `reps` rounds of the calls in `fns`: kernel name ->
+    ms, None where the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name, symbol in symbols.items():
+        hits = [e for e in events if symbol in e.key]
+        us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+        n = sum(e.count for e in hits)
+        out[name] = us / n / 1e3 if n and us > 0 else None
+    return out
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(ms, "bytes" | "operations"): the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_bound(name: str, B: int, dims, C2: int, T: int):
+    """Bound of an int8 kernel over B scans with T slots, as the pipeline
+    calls it (sel3 without a valid mask): cubes and templates read once,
+    outputs written once; int8 operations = 2 x the MACs its outputs need
+    (the tables in full; for sel3 only the slots' rows)."""
+    X, Y, Z = dims
+    vox = X * Y * Z
+    nbytes = B * vox + C2 * (X * Z + Y * Z + X * Y)
+    if name == "onepass_tables_sel_i8":
+        nbytes += 4 * B * (C2 * (Y + X) + T * C2 + T)
+        macs = B * C2 * (2 * vox + T * X * Y)
+    elif name == "onepass_scores_i8":
+        nbytes += 4 * B * T * (3 * C2 + 3)
+        macs = B * T * C2 * (X * Z + Y * Z + X * Y)
+    else:  # the three tables
+        nbytes += 4 * B * C2 * (Y + X + Z)
+        macs = 3 * B * C2 * vox
+    return bound(nbytes, 2 * macs, INT8_OPS_S)
+
+
 def drive_stream(predictor, u8, targets, n: int):
     """Serve the first n scans (one target each) through a
     StreamingClassifier; returns (detections, stats, wall seconds)."""
@@ -225,7 +340,7 @@ def main() -> None:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 2. build ---------------------------------------------------------
-    sources = ("i8_score", "rbf_gram")
+    sources = ("i8_score", "i8_tails", "rbf_gram")
     for name in sources:
         stale = _cuda_build.library_path(name)
         if stale.exists():
@@ -234,8 +349,9 @@ def main() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = list(pool.map(_cuda_build.build, sources))
     i8_score._library()
+    i8_tails._library()
     rbf._library()
-    say("build", " and ".join(p.name for p in built) + " by nvcc sm_90a, "
+    say("build", ", ".join(p.name for p in built) + " by nvcc sm_90a, "
         f"in parallel, in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernel vs plain -----------------------------------------------
@@ -260,9 +376,45 @@ def main() -> None:
                   f"masked={masked}")
         if masked is not None:
             check(not got[masked].any(), "masked plane gave a non-zero table")
-    say("kernel", f"tables equal the plain version in {len(cases)} cases "
+    say("kernel", f"combo tables equal the plain version in {len(cases)} cases "
         f"(B 256/4096, levels 2/1, masked yz plane); max_abs_err {max_err}; "
         f"x-slab {i8_score.slab_width(w)} of {dims[0]}")
+    tail_err = dict.fromkeys(TAIL_KERNELS, 0)
+    n_tail = 0
+    tail_cases = ([(dims, B, None, 2) for B in (1, 7, SMALL_B, BIG)]
+                  + [(dims, SMALL_B, m, 2) for m in (0, 1, 2)]
+                  + [((9, 13, 180), 33, None, 2), ((5, 7, 9), 5, 1, 2)]
+                  + [(dims, SMALL_B, None, 1), (dims, BIG, None, 1), ((5, 7, 9), 5, 0, 1)])
+    for tdims, B, masked, levels in tail_cases:
+        quant = random_quant(rng, tdims, levels, masked)
+        cube = torch.from_numpy(rng.integers(-128, 128, (B,) + tdims, dtype=np.int8)).to(dev)
+        ijk = slots(rng, tdims, B, 4, dev)
+        valid = torch.from_numpy(rng.random((B, 4)) < 0.75).to(dev)
+        runs = []
+        for yg in (16, 8, 31, 5):
+            w = i8_tails.build_grouped_weights(quant, tdims, min(yg, tdims[1]),
+                                               levels=levels, device=dev)
+            runs.append(("onepass_tables_grouped_i8",
+                         tail_fns("onepass_tables_grouped_i8", w, cube, ijk, None)))
+        for name, v in (("onepass_tables_i8", None), ("onepass_tables_sel_i8", None),
+                        ("onepass_scores_i8", None), ("onepass_scores_i8", valid)):
+            runs.append((name, tail_fns(name, w, cube, ijk, v)))
+        for name, (kernel, plain) in runs:
+            got = kernel()
+            torch.cuda.synchronize()
+            for g, r in zip(got, plain()):
+                check(g.shape == r.shape and g.dtype == torch.int32, f"{name} shape/dtype")
+                tail_err[name] = max(tail_err[name], int((g.long() - r.long()).abs().max()))
+                check(torch.equal(g, r), f"{name} != plain at dims={tdims} B={B} "
+                      f"masked={masked} levels={levels}")
+            if masked is not None:  # each output reads one plane's table
+                check(not got[masked].any(), f"{name}: masked plane gave non-zero")
+            n_tail += 1
+    say("kernel", f"z-split, y-split, sel and sel3 equal their plain versions in "
+        f"{n_tail} runs ({len(tail_cases)} cases: B 1/7/64/4096, each plane masked, "
+        f"dims (9, 13, 180) and (5, 7, 9), levels 2 and (C2 = 3) 1; y-groups "
+        f"16/8/31/5; 4 slots with -1, past-the-end and invalid ones); "
+        f"max_abs_err {tail_err}")
 
     # -- 4. the slice -----------------------------------------------------
     g = dict(np.load(ASSET))
@@ -282,7 +434,11 @@ def main() -> None:
         "fused": RadarPredictor(mode="fused", **kw),
         "fused_single": RadarPredictor(mode="fused", fused_quant="single", **kw),
     }
+    for name, (tail, _) in TAIL_KERNELS.items():
+        preds[f"fused_{tail}"] = RadarPredictor(mode="fused", fused_tail=tail, **kw)
     i8_score.KERNEL_LAUNCHES = 0  # count the main path's launches only
+    for name in i8_tails.LAUNCHES:
+        i8_tails.LAUNCHES[name] = 0
     out = {}
     for name, p in preds.items():
         src = p.pack_host(cubes.astype(np.uint8)) if p.mode == "fused" else cubes
@@ -294,13 +450,17 @@ def main() -> None:
               f"{name} shapes")
         check(np.isfinite(proba).all() and np.isfinite(best).all(), f"{name} finite")
         check((pr[~valid] == -1).all(), f"{name} padded slots not UNKNOWN")
-    check(np.array_equal(out["fused"][0], out["fast_i8"][0]),
-          "fused split decisions != fast int8 decisions")
-    d_fused_fast = float(np.abs(out["fused"][2] - out["fast_i8"][2]).max())
-    check(d_fused_fast <= 1e-6, f"fused vs fast int8 proba delta {d_fused_fast}")
+    split = ["fused"] + [f"fused_{tail}" for tail, _ in TAIL_KERNELS.values()]
+    d_fused_fast = {}
+    for name in split:
+        check(np.array_equal(out[name][0], out["fast_i8"][0]),
+              f"{name} split decisions != fast int8 decisions")
+        d_fused_fast[name] = float(np.abs(out[name][2] - out["fast_i8"][2]).max())
+        check(d_fused_fast[name] <= 1e-6,
+              f"{name} vs fast int8 proba delta {d_fused_fast[name]}")
     n = int(g["n_scans"])
     golden = []
-    for name, ref, atol in (("exact", "exact", 1e-5), ("fused", "fused", 1e-5),
+    for name, ref, atol in (("exact", "exact", 1e-5), *((f, "fused", 1e-5) for f in split),
                             ("fast_i8", "fused", 1e-5), ("fast", "exact", 2e-4)):
         pr, _, proba = (a[:n] for a in out[name])
         ok = margin_ok(g[f"{ref}_proba"], g[f"{ref}_best"], min_proba)
@@ -311,9 +471,11 @@ def main() -> None:
         golden.append(f"{name}~{ref} {delta:.2e} "
                       f"({int((ok & valid[:n]).sum())} of {int(valid[:n].sum())} decided)")
     d_single = float(np.abs(out["fused_single"][2] - out["fused"][2]).max())
-    say("slice", f"{N_SLICE} scans x 4 slots through exact/fast/fast_i8/fused/"
-        f"fused_single on {dev}; fused==fast_i8 decisions, proba delta "
-        f"{d_fused_fast:.2e}; golden (first {n}): " + ", ".join(golden)
+    say("slice", f"{N_SLICE} scans x 4 slots through exact/fast/fast_i8/fused "
+        f"(combo, lookup, glookup, sel, sel3)/fused_single on {dev}; every fused "
+        f"split tail == fast_i8 decisions, proba delta "
+        + ", ".join(f"{k} {v:.2e}" for k, v in d_fused_fast.items())
+        + f"; golden (first {n}): " + ", ".join(golden)
         + f"; fused_single vs split proba delta {d_single:.2e}")
     # float32 trig on the card may round differently from the CPU: count
     # the truncated cube indices that differ (reported, not fatal).
@@ -340,39 +502,84 @@ def main() -> None:
         check(d.label_index == pr[d.seq, 0], f"stream label differs at scan {d.seq}")
         check(abs(d.proba - best[d.seq, 0]) <= 1e-6, f"stream proba differs at {d.seq}")
     check(launches > 0, "the main path launched the kernel no time")
-    say("serving", f"stream answered {len(dets)}/{N_SLICE} scans in {wall:.2f} s, "
+    sel3 = preds["fused_sel3"]
+    dets3, st3, wall3 = drive_stream(sel3, u8, targets, N_STREAM_SEL3)
+    tail_launches = dict(i8_tails.LAUNCHES)
+    check(st3["predict_errors"] == 0, f"sel3 predict_errors {st3['predict_errors']}")
+    check(st3["processed"] == N_STREAM_SEL3 and len(dets3) == N_STREAM_SEL3,
+          f"sel3 stream answered {len(dets3)} of {N_STREAM_SEL3} scans")
+    pr3, best3, _ = out["fused_sel3"]
+    for d in dets3:
+        check(d.label_index == pr3[d.seq, 0], f"sel3 stream label differs at {d.seq}")
+        check(abs(d.proba - best3[d.seq, 0]) <= 1e-6, f"sel3 stream proba at {d.seq}")
+    for name, (tail, _) in TAIL_KERNELS.items():
+        check(tail_launches[name] > 0, f"the {tail} path launched {name} no time")
+    say("serving", f"combo stream answered {len(dets)}/{N_SLICE} scans in {wall:.2f} s, "
         f"predict_errors 0, dropped {st['dropped']}, mean batch "
-        f"{st['mean_batch']:.1f}, detections == direct call; kernel launches "
-        f"in phases 4-5: {launches}")
+        f"{st['mean_batch']:.1f}; sel3 stream {len(dets3)}/{N_STREAM_SEL3} in "
+        f"{wall3:.2f} s, predict_errors 0, mean batch {st3['mean_batch']:.1f}; "
+        f"detections == direct call; launches in phases 4-5: combo {launches}, "
+        + ", ".join(f"{k} {v}" for k, v in tail_launches.items()))
 
     # -- 6. timing --------------------------------------------------------
     tiled = np.tile(cubes, (BIG // N_SLICE, 1, 1, 1))
     txyz = torch.from_numpy(np.tile(xyz, (BIG // N_SLICE, 1, 1))).to(dev)
     tvalid = torch.from_numpy(np.tile(valid, (BIG // N_SLICE, 1))).to(dev)
     packed = fused.pack_host(tiled.astype(np.uint8)).to(dev)
-    kernel_ms = {}
-    for levels, name in ((2, "fused"), (1, "fused_single")):
-        w = i8_score.build_combined_weights(
-            preds[name]._quantized_split_templates(levels), dims,
-            levels=levels, device=dev,
-        )
-        kernel_ms[levels] = interleaved({
-            "plain": lambda w=w: i8_score.onepass_tables_combined_i8_ref(packed, w),
-            "kernel": lambda w=w: i8_score.onepass_tables_combined_i8(packed, w),
-        }, inner=5, rounds=5)
-    inputs = {
-        "fused": packed,
-        "fast_i8": packed,
-        "exact": torch.from_numpy(tiled.astype(np.float32)).to(dev),
-    }
+    w_single = i8_score.build_combined_weights(
+        preds["fused_single"]._quantized_split_templates(1), dims, levels=1, device=dev)
+    kernel_single = interleaved({
+        "plain": lambda: i8_score.onepass_tables_combined_i8_ref(packed, w_single),
+        "kernel": lambda: i8_score.onepass_tables_combined_i8(packed, w_single),
+    }, inner=5, rounds=5)
+    # Every int8 kernel at levels 2 on the demo model's templates and the
+    # tiled demo scans' clamped target indices, at B=4096 and B=64.
+    quant2 = preds["fused"]._quantized_split_templates(2)
+    w_combo = i8_score.build_combined_weights(quant2, dims, levels=2, device=dev)
+    w_tails = i8_tails.build_grouped_weights(quant2, dims, 16, device=dev)
+    tijk = torch.stack(fused._indices(txyz), -1).to(torch.int32)
+    int8_ms = {}
+    for B, inner in ((BIG, 5), (SMALL_B, 50)):
+        cube_b, ijk_b = packed[:B], tijk[:B]
+        fns = {"onepass_tables_combined_i8": (
+            lambda c=cube_b: i8_score.onepass_tables_combined_i8(c, w_combo),
+            lambda c=cube_b: i8_score.onepass_tables_combined_i8_ref(c, w_combo))}
+        for name in TAIL_KERNELS:
+            fns[name] = tail_fns(name, w_tails, cube_b, ijk_b, None)
+        ms = interleaved({(name, kind): f for name, pair in fns.items()
+                          for kind, f in zip(("kernel", "plain"), pair)},
+                         inner=inner, rounds=5)
+        dev_ms = device_ms({name: pair[0] for name, pair in fns.items()},
+                           KERNEL_SYMBOLS, reps=20)
+        int8_ms[B] = {name: {kind: ms[name, kind] for kind in ("kernel", "plain")}
+                      | {"device": dev_ms[name]}
+                      | dict(zip(("bound", "bound_by"), int8_bound(name, B, dims, 6, 4)))
+                      for name in fns}
+    # How the y-split kernel's device time moves with the y-group.
+    sweep = {}
+    for B in (BIG, SMALL_B):
+        for yg in (5, 8, 16, 31):
+            wy = i8_tails.build_grouped_weights(quant2, dims, yg, device=dev)
+            sweep[B, yg] = device_ms(
+                {"y": lambda c=packed[:B], wy=wy: i8_tails.onepass_tables_grouped_i8(c, wy)},
+                {"y": KERNEL_SYMBOLS["onepass_tables_grouped_i8"]}, reps=10)["y"]
+    for B in (BIG, SMALL_B):
+        say("timing", f"B={B} y-split device ms by y_group: "
+            + ", ".join(f"{yg}: {v:.4f}" for (b, yg), v in sweep.items() if b == B))
+    inputs = {name: packed for name in split + ["fast_i8"]}
+    inputs["exact"] = torch.from_numpy(tiled.astype(np.float32)).to(dev)
     step_ms = interleaved(
         {k: (lambda k=k: preds[k](inputs[k], txyz, tvalid)) for k in inputs},
         inner=3, rounds=5,
     )
     rates = {k: BIG / (v / 1e3) for k, v in step_ms.items()}
-    say("timing", f"B={BIG} on {smi}: kernel split {kernel_ms[2]['kernel']:.4f} ms "
-        f"vs plain {kernel_ms[2]['plain']:.4f} ms; kernel single "
-        f"{kernel_ms[1]['kernel']:.4f} ms vs plain {kernel_ms[1]['plain']:.4f} ms; "
+    for B in (BIG, SMALL_B):
+        say("timing", f"B={B} on {smi}: " + "; ".join(
+            f"{name} {t['kernel']:.4f} ms (device {t['device']}) vs plain "
+            f"{t['plain']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']})"
+            for name, t in int8_ms[B].items()))
+    say("timing", f"B={BIG} on {smi}: combo kernel single {kernel_single['kernel']:.4f} "
+        f"ms vs plain {kernel_single['plain']:.4f} ms; "
         + "; ".join(f"{k} {rates[k]:.0f} scans/s ({step_ms[k]:.4f} ms/batch)"
                     for k in inputs))
 
@@ -574,19 +781,33 @@ def main() -> None:
         f"stop {parts['couple_100']:.4f}) + features and the rest {rest:.4f}); "
         f"svc_fit {fit_warm_s:.2f} s warm")
 
-    print(json.dumps({"kernels": [{
-        "name": "onepass_tables_combined_i8",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms[2]["kernel"],
-        "plain_ms": kernel_ms[2]["plain"],
-        "ms_single": kernel_ms[1]["kernel"],
-        "plain_ms_single": kernel_ms[1]["plain"],
-        "scans_per_s": rates,
-    }, {
+    def int8_record(name, source, replaces, n_launched, err):
+        big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launched, "max_abs_err": err,
+            "ms": big["kernel"], "plain_ms": big["plain"],
+            "bound_ms": big["bound"], "bound_by": big["bound_by"], "library_ms": None,
+            "device_ms": big["device"],
+            "ms_b64": small["kernel"], "plain_ms_b64": small["plain"],
+            "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
+        }
+
+    def rbf_bound(A, B_):
+        n, F = A.shape
+        m = B_.shape[0]
+        return bound(4 * (n * F + m * F + n * m), 2 * n * m * F, FP32_FLOPS_S)
+
+    records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
+                           launches, max_err)
+               | {"ms_single": kernel_single["kernel"],
+                  "plain_ms_single": kernel_single["plain"], "scans_per_s": rates}]
+    for name, (tail, replaces) in TAIL_KERNELS.items():
+        records.append(int8_record(name, TAILS_SOURCE, replaces, tail_launches[name],
+                                   tail_err[name])
+                       | {"fused_tail": tail, "scans_per_s": rates[f"fused_{tail}"]})
+    rbf_b, rbf_by = rbf_bound(queries, S)
+    records.append({
         "name": "rbf_gram",
         "route": "cuda",
         "source": RBF_SOURCE,
@@ -595,12 +816,17 @@ def main() -> None:
         "max_abs_err": rbf_err,
         "ms": rbf_ms["serving"]["kernel"],
         "plain_ms": rbf_ms["serving"]["plain"],
+        "bound_ms": rbf_b,
+        "bound_by": rbf_by,
+        "library_ms": None,
         "ms_training": rbf_ms["training"]["kernel"],
         "plain_ms_training": rbf_ms["training"]["plain"],
+        "bound_ms_training": rbf_bound(X, X)[0],
         "fit_launches": fit_launches,
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,
-    }]}), flush=True)
+    })
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

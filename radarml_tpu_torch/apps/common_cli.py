@@ -88,9 +88,10 @@ def load_model_meta(path: str) -> dict:
 
 
 def load_model(
-    path: str, device: torch.device | str = "cpu"
+    path: str, device: torch.device | str | None = None
 ) -> Tuple[Union[LinearModel, SVCModel], Optional[SigmoidCalibration]]:
-    """Load a scoring model onto `device`: (model, calibration or None)."""
+    """Load a scoring model onto `device` (default: the CUDA card; pass
+    "cpu" for the CPU): (model, calibration or None)."""
     obj = _load(path)
     if not (isinstance(obj, dict) and obj.get("format") == FORMAT):
         raise NotImplementedError(

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from radarml_tpu_torch.core.device import resolve_device
+
 __all__ = [
     "LinearModel",
     "SigmoidCalibration",
@@ -59,20 +61,20 @@ def from_numpy(
     intercept,
     calib_a=None,
     calib_b=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Tuple[LinearModel, Optional[SigmoidCalibration]]:
     """The JAX package's (coef, intercept[, calibration a, b]) as numpy
     arrays → the port's float32 LinearModel and SigmoidCalibration
-    (None when no calibration is given) on `device`."""
-
-    def f32(v):
-        return torch.as_tensor(
-            np.asarray(v, np.float32), device=torch.device(device)
-        )
-
-    model = LinearModel(coef=f32(coef), intercept=f32(intercept))
+    (None when no calibration is given) on `device` (default: the CUDA
+    card; pass "cpu" for the CPU)."""
     if (calib_a is None) != (calib_b is None):
         raise ValueError("calib_a and calib_b come together")
+    dev = resolve_device(device)
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    model = LinearModel(coef=f32(coef), intercept=f32(intercept))
     calib = None
     if calib_a is not None:
         calib = SigmoidCalibration(a=f32(calib_a), b=f32(calib_b))

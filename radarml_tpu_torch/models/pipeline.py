@@ -12,10 +12,13 @@ calibrated linear model, then thresholded. Three modes compute that:
   three whole-cube contractions; with ``cube_dtype="int8"`` the
   contractions run exactly in integers against error-compensated int8
   templates;
-* ``fused`` — the same int8 tables from ONE read of each cube by the
-  hand-written CUDA kernel (ops/i8_score.py), then a plain-PyTorch tail
-  that dequantizes, looks up, calibrates and thresholds. Its split
-  decisions equal ``fast`` + int8's.
+* ``fused`` — the same int8 tables from ONE read of each cube by a
+  hand-written CUDA kernel, then a plain-PyTorch tail that dequantizes,
+  looks up, calibrates and thresholds. ``fused_tail`` picks the kernel:
+  ``combo`` (ops/i8_score.py), ``lookup``, ``glookup``, ``sel`` or
+  ``sel3`` (ops/i8_tails.py; the last two select the target reads in
+  the kernel). Its split decisions equal ``fast`` + int8's under every
+  tail.
 
 A kernel SVM (models/svc.SVCModel) has no linear fold: ``exact`` and
 ``fast`` both score its exact features with its Platt-coupled
@@ -52,6 +55,14 @@ from radarml_tpu_torch.ops.i8_score import (
     encode_int8_cubes,
     onepass_tables_combined_i8,
     pack_cubes_i8,
+)
+from radarml_tpu_torch.ops.i8_tails import (
+    build_grouped_weights,
+    build_onepass_weights,
+    onepass_scores_i8,
+    onepass_tables_grouped_i8,
+    onepass_tables_i8,
+    onepass_tables_sel_i8,
 )
 from radarml_tpu_torch.ops.resample import spline_zoom_pair
 
@@ -112,7 +123,7 @@ class NeuralClassifier:
         )
 
 
-_TAIL_ITEMS = {"lookup": "B3", "glookup": "B2", "sel": "B4", "sel3": "B5"}
+_FUSED_TAILS = ("lookup", "glookup", "combo", "sel", "sel3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,8 +147,10 @@ class RadarPredictor:
     # "exact" | "fast" | "fused". "fused" is the bulk path: the one-pass
     # int8 kernel over pack_host batches, decisions equal to fast+int8.
     mode: str = "exact"
-    # Fused-mode lookup tail. Only "combo" (raw tables from the one-pass
-    # kernel, dequantized and read in PyTorch) is ported.
+    # Fused-mode kernel and tail: "combo", "lookup" (z-split kernel) and
+    # "glookup" (y-split kernel) emit the raw tables, which PyTorch
+    # dequantizes and reads; "sel" selects the z-table reads in the
+    # kernel, "sel3" all three. Same decisions under every tail.
     fused_tail: str = "combo"
     # Template quantization of the fused path:
     #   "split"  — error-compensated hi/lo int8 pair (C2 = 2C), decisions
@@ -182,18 +195,17 @@ class RadarPredictor:
         object.__setattr__(self, "device", dev)
         full_f32()
         if self.mode == "fused":
-            if self.fused_tail in _TAIL_ITEMS:
-                raise NotImplementedError(
-                    f"fused_tail={self.fused_tail!r} is not ported yet "
-                    f"(ROADMAP {_TAIL_ITEMS[self.fused_tail]})"
-                )
-            if self.fused_tail != "combo":
+            if self.fused_tail not in _FUSED_TAILS:
                 raise ValueError(
                     "fused_tail must be 'lookup', 'glookup', 'combo', "
                     "'sel' or 'sel3'"
                 )
             if self.fused_quant not in ("split", "single"):
                 raise ValueError("fused_quant must be 'split' or 'single'")
+            if self.fused_quant == "single" and self.fused_tail != "combo":
+                raise ValueError(
+                    "fused_quant='single' applies to fused_tail='combo' only"
+                )
             # The kernel's wire format IS int8 (value-128); every stream
             # dtype resolves to it, losslessly for 8-bit radar cubes.
             object.__setattr__(self, "cube_dtype", "int8")
@@ -383,23 +395,42 @@ class RadarPredictor:
         return predict_batch
 
     def _build_fused(self) -> Callable:
-        """One-read int8 kernel + raw-table lookup tail.
+        """One-read int8 kernel + its tail, per fused_tail.
 
-        ops/i8_score.onepass_tables_combined_i8 reads each int8 cube once
-        and emits the raw int32 tables m1 (C2, Y, B), m2 (C2, X, B),
-        m3 (Z, C2, B); the tail mirrors the JAX package's combo tail
-        (pipeline.py:619-737): dequantize each table before the lookup
+        combo / lookup / glookup: the kernel (onepass_tables_combined_i8,
+        onepass_tables_i8, onepass_tables_grouped_i8) reads each int8 cube
+        once and emits the raw int32 tables m1 (C2, Y, B), m2 (C2, X, B),
+        m3 (Z, C2, B); the tail mirrors the JAX package's
+        (pipeline.py:713-726): dequantize each table before the lookup
         (s1·hi [+ s2·lo]), read each target's row, add the per-plane
-        constant, in the order m3, m1, m2; then calibrate, argmax and
-        threshold. Split decisions equal mode="fast" + int8's (same
-        quantized templates, exact integer tables on both sides).
+        constant, in the order m3, m1, m2.
+        sel: onepass_tables_sel_i8 returns the selected z-table reads d3,
+        which go first as s1·hi + s2·lo + const (pipeline.py:688-693),
+        then m1 and m2 as above.
+        sel3: onepass_scores_i8 returns all three planes' reads, each
+        added as s1·hi + s2·lo + const in the order xz, yz, xy
+        (pipeline.py:678-686).
+        Each tail keeps its JAX twin's float order. sel and sel3 select on
+        every slot's clamped indices; target_valid masks afterwards. Then
+        calibrate, argmax and threshold. Split decisions equal
+        mode="fast" + int8's under every tail (same quantized templates,
+        exact integer tables on both sides).
         """
         scan = self.scan_arena
+        tail = self.fused_tail
         levels = 1 if self.fused_quant == "single" else 2
         quant = self._quantized_split_templates(levels=levels)
-        weights = build_combined_weights(
-            quant, scan.grid_shape, levels=levels, device=self.device
-        )
+        dims = scan.grid_shape
+        if tail == "combo":
+            weights = build_combined_weights(quant, dims, levels, device=self.device)
+        elif tail == "glookup":  # y-groups of 16 rows, or one group of Y
+            weights = build_grouped_weights(
+                quant, dims, y_group=min(16, dims[1]), device=self.device
+            )
+        else:
+            weights = build_onepass_weights(quant, dims, device=self.device)
+        tables = {"combo": onepass_tables_combined_i8, "lookup": onepass_tables_i8,
+                  "glookup": onepass_tables_grouped_i8}.get(tail)
         scales = [
             None if q is None else tuple(self._tensor(a) for a in q[1:])
             for q in quant
@@ -435,13 +466,30 @@ class RadarPredictor:
             g = m_dcb.gather(0, idx.T[:, None, :].expand(T, C, -1))  # (T, C, B)
             return g.permute(2, 0, 1)
 
+        def combine(s_c2tb, sc):
+            """(C2, T, B) selected int32 reads → (B, T, C) s1·hi + s2·lo + const."""
+            r = s_c2tb.permute(2, 1, 0).to(torch.float32)
+            s1, s2, const = sc
+            return r[..., :C] * s1 + r[..., C:] * s2 + const
+
         def predict_packed(cube, target_xyz, target_valid):
             B, T = target_xyz.shape[:2]
             i, j, k = self._indices(target_xyz)
-            m1, m2, m3 = onepass_tables_combined_i8(cube, weights)
             dec = intercept[None, None, :].expand(B, T, C)
-            if scales[2] is not None:
-                dec = dec + lookup_dc(dequant_dc(m3, scales[2]), k) + scales[2][2]
+            if tail == "sel3":
+                ijk = torch.stack((i, j, k), -1).to(torch.int32)
+                for s, sc in zip(onepass_scores_i8(cube, weights, ijk), scales):
+                    if sc is not None:
+                        dec = dec + combine(s, sc)
+                return self._finish(dec, target_valid)
+            if tail == "sel":
+                m1, m2, d3 = onepass_tables_sel_i8(cube, weights, k.to(torch.int32))
+                if scales[2] is not None:
+                    dec = dec + combine(d3, scales[2])
+            else:
+                m1, m2, m3 = tables(cube, weights)
+                if scales[2] is not None:
+                    dec = dec + lookup_dc(dequant_dc(m3, scales[2]), k) + scales[2][2]
             if scales[0] is not None:
                 dec = dec + lookup_cd(dequant_cd(m1, scales[0]), j) + scales[0][2]
             if scales[1] is not None:

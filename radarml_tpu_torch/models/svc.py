@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from radarml_tpu_torch.core.device import resolve_device
 from radarml_tpu_torch.models.linear import full_f32
 from radarml_tpu_torch.ops.rbf import rbf_gram
 
@@ -159,19 +160,20 @@ def from_numpy(
     gamma: float = 0.01,
     probA=None,
     probB=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> SVCModel:
     """A JAX-fitted SVC's parameters (numpy arrays, as the JAX package's
-    artifacts store them) → the port's float32 SVCModel on `device`."""
-    dev = torch.device(device)
+    artifacts store them) → the port's float32 SVCModel on `device`
+    (default: the CUDA card; pass "cpu" for the CPU)."""
+    if (probA is None) != (probB is None):
+        raise ValueError("probA and probB come together")
+    dev = resolve_device(device)
 
     def f32(v):
         return None if v is None else torch.tensor(
             np.asarray(v, np.float32), device=dev
         )
 
-    if (probA is None) != (probB is None):
-        raise ValueError("probA and probB come together")
     return SVCModel(
         support_vectors=f32(support_vectors),
         dual_coef=f32(dual_coef),
@@ -547,12 +549,13 @@ def svc_fit(
     balanced C, libsvm SV layout, rho→intercept sign, optional Platt
     probability calibration on deterministic stratified folds. X (numpy
     or tensor) is moved to `device` (default: where a tensor X lies, else
-    the CPU) and stays there with the Gram matrix and the solvers; only
-    the dual solutions and held-out decisions come back to the host.
+    the CUDA card; pass "cpu" for the CPU) and stays there with the Gram
+    matrix and the solvers; only the dual solutions and held-out
+    decisions come back to the host.
     """
-    if device is None:
-        device = X.device if isinstance(X, torch.Tensor) else "cpu"
-    Xd = torch.as_tensor(X, dtype=torch.float32, device=torch.device(device))
+    if device is None and isinstance(X, torch.Tensor):
+        device = X.device
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=resolve_device(device))
     y = np.asarray(y)
     classes = np.unique(y)
     k = len(classes)

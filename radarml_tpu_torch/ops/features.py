@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from radarml_tpu_torch.core.arena import RADAR_MAX, Arena, ProjMask, ProjZoom
+from radarml_tpu_torch.core.device import resolve_device
 from radarml_tpu_torch.ops.resample import spline_zoom_pair
 
 
@@ -138,20 +139,22 @@ def process_samples(
     proj_mask: ProjMask = ProjMask(True, True, True),
     proj_zoom: ProjZoom = ProjZoom((1.0, 1.0), (1.0, 1.0), (1.0, 1.0)),
     scale: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Batched equivalent of the reference's common.process_samples.
 
     Accepts the reference's list-of-(xz, yz, xy) sample format and
-    returns the (N, F) float32 feature matrix on `device`. All samples
-    must share plane shapes (true for any single-arena dataset).
+    returns the (N, F) float32 feature matrix on `device` (default: the
+    CUDA card; pass "cpu" for the CPU). All samples must share plane
+    shapes (true for any single-arena dataset).
     """
+    dev = resolve_device(device)
     xz = np.stack([np.asarray(s[0], dtype=np.float32) for s in samples])
     yz = np.stack([np.asarray(s[1], dtype=np.float32) for s in samples])
     xy = np.stack([np.asarray(s[2], dtype=np.float32) for s in samples])
     return process_views(
         xz, yz, xy,
-        proj_mask=proj_mask, proj_zoom=proj_zoom, scale=scale, device=device,
+        proj_mask=proj_mask, proj_zoom=proj_zoom, scale=scale, device=dev,
     )
 
 
@@ -162,10 +165,12 @@ def process_views(
     proj_mask: ProjMask = ProjMask(True, True, True),
     proj_zoom: ProjZoom = ProjZoom((1.0, 1.0), (1.0, 1.0), (1.0, 1.0)),
     scale: bool = False,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """`process_samples` for already-batched (B, H, W) view stacks (numpy
-    or tensors), featurized on `device`."""
+    or tensors), featurized on `device` (default: the CUDA card; pass
+    "cpu" for the CPU)."""
+    dev = resolve_device(device)
     norm_zoom = ProjZoom(*[
         tuple(float(v) for v in np.atleast_1d(z)[:2]) if np.ndim(z)
         else (float(z), float(z))
@@ -179,7 +184,6 @@ def process_views(
         proj_zoom=norm_zoom,
         scale=bool(scale),
     )
-    dev = torch.device(device)
     return make_feature_fn(spec)(
         *(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (xz, yz, xy))
     )

@@ -203,6 +203,24 @@ def _check(cube: torch.Tensor, weights: CombinedWeights) -> None:
         )
 
 
+def launches_kernel(cube: torch.Tensor, weights: CombinedWeights) -> bool:
+    """Check a one-pass kernel's operands: False for a CPU cube (the
+    plain version runs), True for a CUDA cube the kernels take; raises on
+    anything else (another device, C2 > MAX_C2, a non-contiguous cube)."""
+    _check(cube, weights)
+    if cube.device.type == "cpu":
+        return False
+    if cube.device.type != "cuda":
+        raise ValueError(f"no one-pass kernel for device {cube.device}")
+    if weights.c2 > MAX_C2:
+        raise ValueError(
+            f"the kernels take at most {MAX_C2} class rows, got {weights.c2}"
+        )
+    if not cube.is_contiguous():
+        raise ValueError("the kernels take a contiguous (B, X, Y, Z) cube")
+    return True
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.i8_score_onepass_tables.argtypes = [p] * 7 + [i] * 5 + [p]
@@ -237,18 +255,11 @@ def onepass_tables_combined_i8(
     permuted views of them; on a CPU tensor this is the plain version.
     """
     global KERNEL_LAUNCHES
-    _check(cube, weights)
-    if cube.device.type == "cpu":
+    if not launches_kernel(cube, weights):
         return onepass_tables_combined_i8_ref(cube, weights)
-    if cube.device.type != "cuda":
-        raise ValueError(f"no one-pass kernel for device {cube.device}")
     X, Y, Z, _ = weights.dims
     B = cube.shape[0]
     C2 = weights.c2
-    if C2 > MAX_C2:
-        raise ValueError(f"the kernel takes at most {MAX_C2} class rows, got {C2}")
-    if not cube.is_contiguous():
-        raise ValueError("the kernel takes a contiguous (B, X, Y, Z) cube")
     lib = _library()
     dev = cube.device
     t1 = torch.empty((B, C2, Y), dtype=torch.int32, device=dev)

@@ -95,7 +95,7 @@ def test_port_artifact_loads_in_the_jax_package(rng, tmp_path):
     tcli.save_model(str(path), "linear", coef=rng.normal(size=(3, 8)).astype(np.float32),
                     intercept=np.zeros(3, np.float32), calib_a=None, calib_b=None)
     jm, jcal = jcli.load_model(str(path))
-    tm, _ = tcli.load_model(str(path))
+    tm, _ = tcli.load_model(str(path), device="cpu")
     assert jcal is None
     np.testing.assert_array_equal(np.asarray(jm.coef), tm.coef.numpy())
     tmeta, jmeta = tcli.load_model_meta(str(path)), jcli.load_model_meta(str(path))
@@ -110,10 +110,10 @@ def test_neural_artifacts_are_not_ported(tmp_path, kind, item):
     tcli.save_model(str(path), kind, params={"w": np.zeros(3)}, classes=["a"],
                     rescale=(8, 8))
     with pytest.raises(NotImplementedError, match=item):
-        tcli.load_model(str(path))
+        tcli.load_model(str(path), device="cpu")
     tcli.save_model(str(path), "forest")
     with pytest.raises(ValueError, match="unknown model kind"):
-        tcli.load_model(str(path))
+        tcli.load_model(str(path), device="cpu")
 
 
 def test_sklearn_pickles_are_refused_before_import(tmp_path, monkeypatch):
@@ -128,14 +128,14 @@ def test_sklearn_pickles_are_refused_before_import(tmp_path, monkeypatch):
     for name in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
         monkeypatch.delitem(sys.modules, name)
     with pytest.raises(NotImplementedError, match="A4"):
-        tcli.load_model(str(path))
+        tcli.load_model(str(path), device="cpu")
     assert not any(m.split(".")[0] == "sklearn" for m in sys.modules)
     with open(path, "wb") as fp:
         pickle.dump({"format": "other"}, fp)
     assert tcli.load_model_meta(str(path)) == {}
     with pytest.raises(NotImplementedError, match="A4"):
-        tcli.load_model(str(path))
+        tcli.load_model(str(path), device="cpu")
     with open(path, "wb") as fp:
         pickle.dump(tmp_path, fp)  # any class outside the allow-list
     with pytest.raises(pickle.UnpicklingError, match="refusing"):
-        tcli.load_model(str(path))
+        tcli.load_model(str(path), device="cpu")

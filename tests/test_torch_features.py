@@ -28,7 +28,8 @@ SMALL = Arena(r_min=10.0, r_max=60.0, r_res=2.0, theta_min=-12.0,
 @pytest.mark.parametrize("mask", [(True, True, True), (True, False, True)])
 def test_process_samples_matches_jax(scale, mask):
     samples, _ = make_dataset(6, seed=3, hardness=1.0)
-    got = tfeat.process_samples(samples, proj_mask=ProjMask(*mask), scale=scale)
+    got = tfeat.process_samples(samples, proj_mask=ProjMask(*mask), scale=scale,
+                                device="cpu")
     want = jfeat.process_samples(samples, proj_mask=JMask(*mask), scale=scale)
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
     assert got.shape == want.shape
@@ -44,7 +45,8 @@ def test_process_views_matches_jax(rng, zoom):
     yz = rng.random((5, 7, 26), dtype=np.float32) * 255
     xy = rng.random((5, 7, 7), dtype=np.float32) * 255
     got = tfeat.process_views(torch.from_numpy(xz), yz, xy,
-                              proj_zoom=ProjZoom(*zoom), scale=True)
+                              proj_zoom=ProjZoom(*zoom), scale=True,
+                              device="cpu")
     want = jfeat.process_views(xz, yz, xy, proj_zoom=JZoom(*zoom), scale=True,
                                device=False)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
@@ -59,6 +61,6 @@ def test_make_feature_fn_on_small_arena_samples():
     stacks = [torch.from_numpy(np.stack([s[p] for s in samples])) for p in range(3)]
     got = tfeat.make_feature_fn(spec)(*stacks)
     assert got.shape == (4, spec.feature_length)
-    torch.testing.assert_close(got, tfeat.process_samples(samples, scale=True),
+    torch.testing.assert_close(got, tfeat.process_samples(samples, scale=True, device="cpu"),
                                rtol=0, atol=0)
 

@@ -44,6 +44,8 @@ def test_port_imports_without_jax_or_reference():
     for name in (
         "radarml_tpu_torch.core.arena",
         "radarml_tpu_torch.ops.i8_score",
+        "radarml_tpu_torch.ops.i8_tails",
+        "radarml_tpu_torch.core.device",
         "radarml_tpu_torch.ops.rbf",
         "radarml_tpu_torch.models.svc",
         "radarml_tpu_torch.apps.common_cli",

@@ -28,7 +28,8 @@ def test_linear_inference_matches_jax(rng, n_classes, calibrated):
     X[0] = 0.0
 
     jm = jl.LinearModel(jnp.asarray(coef), jnp.asarray(intercept))
-    tm, tc = tl.from_numpy(coef, intercept, *((a, b) if calibrated else ()))
+    tm, tc = tl.from_numpy(coef, intercept, *((a, b) if calibrated else ()),
+                           device="cpu")
     assert (tc is None) != calibrated
     assert tm.coef.dtype == torch.float32
 

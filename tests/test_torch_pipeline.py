@@ -137,17 +137,56 @@ def test_quantized_templates_equal_jax_bytes(rng, levels, mask):
                 assert np.asarray(a).tobytes() == b.tobytes()
 
 
-@pytest.mark.parametrize("quant", ["split", "single"])
-@pytest.mark.parametrize("mask", [(True, True, True), (False, True, True)])
-def test_fused_mode_matches_jax(rng, quant, mask):
-    """Port fused (plain version on the CPU) against JAX fused combo
-    (interpret mode): the same tables feed the same tail."""
+TAILS = ("combo", "lookup", "glookup", "sel", "sel3")
+MASKS = ((True, True, True), (False, True, True))
+FUSED_CASES = [  # the combo cases keep their first ids
+    pytest.param(mask, quant, "combo", id=f"mask{m}-{quant}")
+    for m, mask in enumerate(MASKS) for quant in ("split", "single")
+] + [
+    pytest.param(mask, "split", tail, id=f"mask{m}-split-{tail}")
+    for m, mask in enumerate(MASKS) for tail in TAILS[1:]
+]
+
+
+@pytest.mark.parametrize("mask,quant,tail", FUSED_CASES)
+def test_fused_mode_matches_jax(rng, mask, quant, tail):
+    """Port fused (plain versions on the CPU) against JAX fused (interpret
+    mode) under the same tail: the same tables feed the same tail, in
+    that tail's own float order."""
     jkw, tkw, (cubes, xyz, valid) = _fixture(rng, SCAN, mask)
-    j = jpipe.RadarPredictor(mode="fused", fused_quant=quant, **jkw)
-    t = tpipe.RadarPredictor(mode="fused", fused_quant=quant, **tkw)
+    j = jpipe.RadarPredictor(mode="fused", fused_quant=quant, fused_tail=tail, **jkw)
+    t = tpipe.RadarPredictor(mode="fused", fused_quant=quant, fused_tail=tail, **tkw)
     assert t.cube_dtype == "int8"
     _check(j(j.pack_host(cubes), xyz, valid),
            t(t.pack_host(cubes), xyz, valid), atol=1e-6)
+
+
+def test_fused_wire_layout_is_tail_independent(rng):
+    """The port's twin of the JAX package's test: one pack_host batch
+    scores the same under every fused tail and as fast+int8 (decisions
+    equal, probabilities within 1e-6: the lookup tails dequantize before
+    the read, sel/sel3 after), and the 4-D ingest equals the packed one."""
+    _, tkw, (cubes, xyz, valid) = _fixture(rng, TRAIN, B=6, T=4)
+    preds = {t: tpipe.RadarPredictor(mode="fused", fused_tail=t, **tkw) for t in TAILS}
+    packed = preds["sel3"].pack_host(cubes)  # pack once
+    got = {t: preds[t](packed, xyz, valid) for t in TAILS}
+    got["fast_i8"] = tpipe.RadarPredictor(mode="fast", cube_dtype="int8", **tkw)(
+        cubes, xyz, valid)
+    for t in list(TAILS[1:]) + ["fast_i8"]:
+        assert torch.equal(got[t][0], got["combo"][0]), t
+        np.testing.assert_allclose(got[t][2].numpy(), got["combo"][2].numpy(),
+                                   atol=1e-6, rtol=0)
+    for t in TAILS:
+        assert all(torch.equal(a, b) for a, b in zip(preds[t](cubes, xyz, valid), got[t]))
+
+
+@pytest.mark.parametrize("tail", TAILS[1:])
+def test_single_quant_is_combo_only(rng, tail):
+    _, tkw, _ = _fixture(rng)
+    with pytest.raises(ValueError, match="single"):
+        tpipe.RadarPredictor(mode="fused", fused_tail=tail, fused_quant="single", **tkw)
+    with pytest.raises(ValueError, match="fused_tail"):
+        tpipe.RadarPredictor(mode="fused", fused_tail=tail + "x", **tkw)
 
 
 def test_fused_split_decisions_equal_fast_int8(rng):
@@ -177,13 +216,9 @@ def test_pad_targets_and_defaults_match_jax(rng):
 
 @pytest.mark.parametrize(
     "kw,item",
-    [
-        (dict(mode="pallas"), "B7"),
-        (dict(mode="fused", fused_tail="lookup"), "B3"),
-        (dict(mode="fused", fused_tail="glookup"), "B2"),
-        (dict(mode="fused", fused_tail="sel"), "B4"),
-        (dict(mode="fused", fused_tail="sel3"), "B5"),
-        (dict(mesh=object()), "A15"),
+    [  # the ids the cases had beside the fused tails' cases
+        pytest.param(dict(mode="pallas"), "B7", id="kw0-B7"),
+        pytest.param(dict(mesh=object()), "A15", id="kw5-A15"),
     ],
 )
 def test_unported_parts_raise(rng, kw, item):

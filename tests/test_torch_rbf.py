@@ -75,7 +75,7 @@ def _features(n, seed):
     from radarml_tpu_torch.ops.features import process_samples
 
     samples, _ = make_dataset(n, seed=seed, hardness=1.0)
-    return process_samples(samples, scale=True).numpy()
+    return process_samples(samples, scale=True, device="cpu").numpy()
 
 
 @pytest.mark.parametrize("kind", ["radar", "uniform"])

@@ -25,7 +25,7 @@ def test_stream_answers_every_scan_like_a_direct_call(rng):
     N, max_batch = 37, 8
     coef = (rng.normal(size=(3, ARENA.feature_length)) * 0.05).astype(np.float32)
     model, calib = from_numpy(
-        coef, rng.normal(size=3), -np.ones(3), np.zeros(3)
+        coef, rng.normal(size=3), -np.ones(3), np.zeros(3), device="cpu"
     )
     pred = RadarPredictor(ARENA, ARENA, model, calib, mode="fused",
                           min_proba=0.4)

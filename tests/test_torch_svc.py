@@ -81,7 +81,7 @@ def test_fit_reaches_the_jax_optimum(rng, kernel, k):
     X, y = _blobs(rng, n=90, k=k)
     jcfg, tcfg = _cfgs(C=10.0, kernel=kernel, gamma=0.05, probability=True)
     jm = jsvc.svc_fit(X, y, jcfg)
-    tm = tsvc.svc_fit(X, y, tcfg)
+    tm = tsvc.svc_fit(X, y, tcfg, device="cpu")
     Xq = X + rng.normal(size=X.shape).astype(np.float32) * 0.05
     want = np.asarray(jsvc.decision_function_ovo(jm, Xq))
     got = tsvc.decision_function_ovo(tm, Xq).numpy()
@@ -103,7 +103,8 @@ def test_imbalanced_binary_fit_matches_jax(rng):
     keep = np.concatenate([np.where(y == 0)[0], np.where(y == 1)[0][:10]])
     X, y = X[keep], y[keep]
     jcfg, tcfg = _cfgs(C=1.0, kernel="rbf", gamma=0.1, probability=False)
-    jm, tm = jsvc.svc_fit(X, y, jcfg), tsvc.svc_fit(X, y, tcfg)
+    jm = jsvc.svc_fit(X, y, jcfg)
+    tm = tsvc.svc_fit(X, y, tcfg, device="cpu")
     assert tm.probA is None and "platt" not in tm.fit_stats
     np.testing.assert_allclose(
         tsvc.decision_function_ovo(tm, X).numpy(),
@@ -134,7 +135,7 @@ def test_platt_folds_are_the_jax_folds(rng, monkeypatch):
     monkeypatch.setattr(np.random, "default_rng", recording_rng)
     jcfg, tcfg = _cfgs(C=10.0, gamma=0.05, probability=True, seed=7)
     jm = jsvc.svc_fit(X, y, jcfg)
-    tm = tsvc.svc_fit(X, y, tcfg)
+    tm = tsvc.svc_fit(X, y, tcfg, device="cpu")
     assert len(drawn) == 2 and len(drawn[0]) == len(drawn[1]) == 3
     for a, b in zip(*drawn):
         np.testing.assert_array_equal(a, b)
@@ -222,7 +223,7 @@ def test_kernel_matrix_matches_jax(rng):
 
 def test_model_without_probability_refuses_proba(rng):
     X, y = _blobs(rng, n=30, k=2)
-    m = tsvc.svc_fit(X, y, tsvc.SVCConfig(probability=False))
+    m = tsvc.svc_fit(X, y, tsvc.SVCConfig(probability=False), device="cpu")
     with pytest.raises(ValueError, match="probability"):
         tsvc.predict_proba(m, X)
     with pytest.raises(ValueError, match="together"):

@@ -125,7 +125,7 @@ def port_data():
     from radarml_tpu_torch.ops.features import process_samples
 
     samples, labels = make_dataset(N_SAMPLES, seed=DATA_SEED, hardness=HARDNESS)
-    return samples, labels, process_samples(samples, scale=True)
+    return samples, labels, process_samples(samples, scale=True, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -166,6 +166,7 @@ def _port_svc(g, X):
         X[torch.as_tensor(g["sv_index"], dtype=torch.int64)].numpy(),
         g["dual_coef"], g["intercept"], g["n_support"], kernel="rbf",
         gamma=float(g["gamma"]), probA=g["probA"], probB=g["probB"],
+        device="cpu",
     )
 
 

@@ -39,7 +39,7 @@ def _carry(m):
     return tsvc.from_numpy(
         np.asarray(m.support_vectors), np.asarray(m.dual_coef),
         np.asarray(m.intercept), m.n_support, kernel=m.kernel, gamma=m.gamma,
-        probA=np.asarray(m.probA), probB=np.asarray(m.probB),
+        probA=np.asarray(m.probA), probB=np.asarray(m.probB), device="cpu",
     )
 
 

@@ -139,6 +139,13 @@ class Arena:
         conversion followed by linear index scaling with truncation
         toward zero, each step in the JAX package's float32 order.
         """
+        return tuple(torch.trunc(v).to(torch.int32) for v in self.index_values(x, y, z))
+
+    def index_values(self, x, y, z):
+        """The float32 (i, j, k) that :meth:`matrix_indices` truncates:
+        the spherical coordinates in index units, nudged by 1e-3. Where
+        one of them lies within float32 rounding of an integer, another
+        device's trig may truncate it to the neighbouring cell."""
         r, theta, phi = cartesian_to_spherical(x, y, z)
         i = (theta - self.theta_min) * (self.size_x - 1) / (
             self.theta_max - self.theta_min
@@ -152,11 +159,7 @@ class Arena:
         # while being far below any physically meaningful sub-cell
         # offset.
         eps = 1e-3
-
-        def trunc(v):
-            return torch.trunc(v + eps).to(torch.int32)
-
-        return trunc(i), trunc(j), trunc(k)
+        return i + eps, j + eps, k + eps
 
     def clamped_matrix_indices(self, x, y, z):
         """Like :meth:`matrix_indices` but clamped into the cube, so a

@@ -242,3 +242,21 @@ def make_scan_batch(
         cubes[s], t = synth_cube(rng, label, arena, hardness=hardness)
         targets.append(t)
     return cubes, targets
+
+
+def make_grid_probe(
+    n_nodes: int = 20000, arena: Arena = DEFAULT_ARENA, seed: int = 88,
+    jitter_cm: float = 1.0,
+) -> np.ndarray:
+    """(2 n_nodes, 3) float32 target positions in cm: random grid nodes
+    (every index on a cell boundary before the 1e-3 nudge) followed by
+    the same nodes moved by N(0, jitter_cm) on each axis. A fixture for
+    comparing cube indices between devices; the defaults are the 40,000
+    targets that chip_smoke.py and tests/test_torch_arena_card.py use
+    (seed 88: two of their jittered points lie within float32 rounding
+    of a cell boundary, where an H100 truncates to the other cell)."""
+    rng = np.random.default_rng(seed)
+    cells = np.stack([rng.integers(0, s, n_nodes) for s in arena.grid_shape])
+    nodes = np.stack(arena.grid_to_cartesian_np(*cells.astype(np.float64)), -1)
+    moved = nodes + rng.normal(scale=jitter_cm, size=nodes.shape)
+    return np.concatenate([nodes, moved]).astype(np.float32)

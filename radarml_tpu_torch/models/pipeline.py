@@ -3,7 +3,7 @@
 Port of radarml_tpu/models/pipeline.py. Per scan, each target's three
 2-D projections are sliced at its cube indices, zoomed into the
 training arena, concatenated into the feature vector and scored by the
-calibrated linear model, then thresholded. Three modes compute that:
+calibrated linear model, then thresholded. Four modes compute that:
 
 * ``exact`` — the reference math stage by stage (slice, spline-zoom
   matrix products, concat, scale, score);
@@ -18,12 +18,18 @@ calibrated linear model, then thresholded. Three modes compute that:
   ``combo`` (ops/i8_score.py), ``lookup``, ``glookup``, ``sel`` or
   ``sel3`` (ops/i8_tails.py; the last two select the target reads in
   the kernel). Its split decisions equal ``fast`` + int8's under every
-  tail.
+  tail;
+* ``pallas`` — the float32 templates against the cube cast to bf16, all
+  three tables from ONE read of each cube by a hand-written CUDA kernel
+  (ops/score.py), then three reads and the intercept. Takes float32 and
+  bfloat16 streams and the full projection mask only, as in the JAX
+  package.
 
 A kernel SVM (models/svc.SVCModel) has no linear fold: ``exact`` and
 ``fast`` both score its exact features with its Platt-coupled
-``predict_proba`` (the fused RBF Gram kernel, ops/rbf.py), and ``fused``
-refuses it, as in the JAX package.
+``predict_proba`` (the fused RBF Gram kernel, ops/rbf.py); ``pallas``
+builds the same exact path and ``fused`` refuses it, as in the JAX
+package.
 
 Dynamic target counts are a static ``max_targets`` axis with a validity
 mask, as in the JAX package. Results are tensors on the predictor's
@@ -65,6 +71,7 @@ from radarml_tpu_torch.ops.i8_tails import (
     onepass_tables_sel_i8,
 )
 from radarml_tpu_torch.ops.resample import spline_zoom_pair
+from radarml_tpu_torch.ops.score import fused_native_score, native_templates
 
 UNKNOWN = -1  # prediction index when below min_proba (the "Unknown" label)
 
@@ -144,8 +151,10 @@ class RadarPredictor:
     calibration: Optional[SigmoidCalibration] = None
     proj_mask: ProjMask = ProjMask(True, True, True)
     min_proba: float = 0.7
-    # "exact" | "fast" | "fused". "fused" is the bulk path: the one-pass
-    # int8 kernel over pack_host batches, decisions equal to fast+int8.
+    # "exact" | "fast" | "fused" | "pallas". "fused" is the bulk path: the
+    # one-pass int8 kernel over pack_host batches, decisions equal to
+    # fast+int8. "pallas" is the one-pass bf16 kernel (ops/score.py) over
+    # float32 or bfloat16 streams, with the full projection mask.
     mode: str = "exact"
     # Fused-mode kernel and tail: "combo", "lookup" (z-split kernel) and
     # "glookup" (y-split kernel) emit the raw tables, which PyTorch
@@ -167,11 +176,9 @@ class RadarPredictor:
     device: Optional[torch.device] = None
 
     def __post_init__(self):
-        if self.mode == "pallas":
-            raise NotImplementedError(
-                "mode='pallas' (the bf16 fused_native_score kernel) is not "
-                "ported yet (ROADMAP B7)"
-            )
+        if self.mode == "pallas" and self.cube_dtype in ("uint8", "int8"):
+            raise ValueError("pallas mode supports float32/bfloat16 "
+                             "streams; use mode='fused' for int8")
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet (ROADMAP A15)"
@@ -182,7 +189,7 @@ class RadarPredictor:
                 f"{type(self.model).__name__} serving is not ported yet "
                 "(ROADMAP A12 for the neural families)"
             )
-        if self.mode not in ("exact", "fast", "fused"):
+        if self.mode not in ("exact", "fast", "fused", "pallas"):
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.mode == "fused" and is_svc:
             raise ValueError("fused mode folds linear models only")
@@ -210,9 +217,11 @@ class RadarPredictor:
             # dtype resolves to it, losslessly for 8-bit radar cubes.
             object.__setattr__(self, "cube_dtype", "int8")
             object.__setattr__(self, "_fn", self._build_fused())
+        elif self.mode == "pallas" and not is_svc:
+            object.__setattr__(self, "_fn", self._build_pallas())
         elif self.mode == "fast" and not is_svc:
             object.__setattr__(self, "_fn", self._build_folded())
-        else:  # exact, and fast for an SVC (nothing to fold)
+        else:  # exact, and fast / pallas for an SVC (nothing to fold)
             object.__setattr__(self, "_fn", self._build())
 
     # -- host-side template folding (float64 numpy, as in the JAX package) --
@@ -390,6 +399,29 @@ class RadarPredictor:
             for plane_i, idx in zip(range(3), (j, i, k)):
                 if templates[plane_i] is not None:
                     dec = dec + read(table(plane_i, cubes, specs[plane_i]), idx)
+            return self._finish(dec, target_valid)
+
+        return predict_batch
+
+    def _build_pallas(self) -> Callable:
+        """Folded templates + the one-read bf16 table kernel.
+
+        ops/score.fused_native_score casts each cube to bf16, contracts
+        it against the three float32 templates in one read (the CUDA
+        kernel on the card) and reads each target's rows, d1 + d2 + d3 +
+        intercept; then calibrate, argmax and threshold as the JAX
+        package's _build_pallas does. The kernel contracts every plane,
+        so a partial proj_mask is refused.
+        """
+        if not all(self.proj_mask):
+            raise ValueError("pallas mode requires the full ProjMask")
+        templates = native_templates(*self._split_templates(), device=self.device)
+        intercept = self.model.intercept
+
+        def predict_batch(cubes, target_xyz, target_valid):
+            ijk = torch.stack(self._indices(target_xyz), -1)
+            dec = fused_native_score(cubes, ijk, templates.t_xz, templates.t_yz,
+                                     templates.t_xy, intercept)
             return self._finish(dec, target_valid)
 
         return predict_batch

@@ -13,6 +13,14 @@ from radarml_tpu_torch.ops.features import (
     process_views,
 )
 from radarml_tpu_torch.ops.rbf import rbf_gram, rbf_gram_ref
+from radarml_tpu_torch.ops.score import (
+    NativeTemplates,
+    fused_native_score,
+    fused_native_score_ref,
+    native_tables,
+    native_tables_ref,
+    native_templates,
+)
 
 __all__ = [
     "bicubic_pair",
@@ -27,4 +35,10 @@ __all__ = [
     "process_views",
     "rbf_gram",
     "rbf_gram_ref",
+    "NativeTemplates",
+    "fused_native_score",
+    "fused_native_score_ref",
+    "native_tables",
+    "native_tables_ref",
+    "native_templates",
 ]

@@ -3,17 +3,20 @@
 The file holds the bench recipe's 3-class linear model over the
 default arena's 10,010 features (make_dataset(90, seed=11), 15 SGD
 epochs, per-class sigmoid calibration — bench.py:193-199) and the JAX
-package's `exact` and `fused` (combo, split) outputs on
-make_scan_batch(64, seed=7) with one target per scan padded to 4 slots.
+package's `exact`, `fused` (combo, split) and `pallas` (bfloat16 stream,
+its kernel in interpret mode) outputs on make_scan_batch(64, seed=7)
+with one target per scan padded to 4 slots.
 chip_smoke.py holds the port on the card to these outputs.
 
 Regenerate with:  JAX_PLATFORMS=cpu python tests/test_torch_golden.py
 
 Tolerances: the regenerated parameters agree with the committed ones
 to rtol 1e-5 (float32 training, same seed and program); the port on the
-CPU reproduces the golden probabilities within 1e-5 (exact) and 1e-6
-(fused: exact integer tables, same float32 tail), with decisions equal
-wherever the golden top-2 margin exceeds 1e-4.
+CPU reproduces the golden probabilities within 1e-5 (exact; pallas,
+whose JAX kernel splits the float32 templates into bf16 hi + lo halves
+where the port keeps them float32) and 1e-6 (fused: exact integer
+tables, same float32 tail), with decisions equal wherever the golden
+top-2 margin exceeds 1e-4.
 """
 
 import sys
@@ -67,6 +70,7 @@ def generate() -> dict:
     exact = RadarPredictor(mode="exact", **kw)(cubes, xyz, valid)
     fused = RadarPredictor(mode="fused", **kw)
     fz = fused(fused.pack_host(cubes.astype(np.uint8)), xyz, valid)
+    pallas = RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw)(cubes, xyz, valid)
     out = dict(
         coef=np.asarray(model.coef, np.float32),
         intercept=np.asarray(model.intercept, np.float32),
@@ -77,7 +81,7 @@ def generate() -> dict:
         n_scans=np.int32(N_SCANS), scan_seed=np.int32(SCAN_SEED),
         max_targets=np.int32(MAX_TARGETS),
     )
-    for name, res in (("exact", exact), ("fused", fz)):
+    for name, res in (("exact", exact), ("fused", fz), ("pallas", pallas)):
         out[f"{name}_pred"] = np.asarray(res[0])
         out[f"{name}_best"] = np.asarray(res[1])
         out[f"{name}_proba"] = np.asarray(res[2])
@@ -95,7 +99,7 @@ def test_fixture_regenerates_from_jax():
     assert list(want["classes"]) == list(got["classes"])
     for k in ("coef", "intercept", "calib_a", "calib_b"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7)
-    for k in ("exact", "fused"):
+    for k in ("exact", "fused", "pallas"):
         np.testing.assert_allclose(
             got[f"{k}_proba"], want[f"{k}_proba"], atol=1e-6, rtol=0
         )
@@ -107,7 +111,7 @@ def _margin_ok(proba, best, min_proba):
     return (top2[..., 1] - top2[..., 0] > 1e-4) & (np.abs(best - min_proba) > 1e-4)
 
 
-@pytest.mark.parametrize("mode,atol", [("exact", 1e-5), ("fused", 1e-6)])
+@pytest.mark.parametrize("mode,atol", [("exact", 1e-5), ("fused", 1e-6), ("pallas", 1e-5)])
 def test_port_reproduces_golden_on_cpu(mode, atol):
     from radarml_tpu_torch.core.arena import DEFAULT_ARENA
     from radarml_tpu_torch.models.linear import from_numpy
@@ -117,7 +121,8 @@ def test_port_reproduces_golden_on_cpu(mode, atol):
     model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"],
                               g["calib_b"], device="cpu")
     pred = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, model, calib,
-                          min_proba=float(g["min_proba"]), mode=mode)
+                          min_proba=float(g["min_proba"]), mode=mode,
+                          cube_dtype="bfloat16" if mode == "pallas" else "float32")
     cubes, xyz, valid = scan_batch()
     if mode == "fused":
         cubes = pred.pack_host(cubes.astype(np.uint8))

@@ -116,6 +116,12 @@ def test_fast_is_exact_and_fused_refuses_an_svc(rng):
         tpipe.RadarPredictor(arena, arena, model, mode="fused")
     with pytest.raises(ValueError, match="fused mode folds linear models only"):
         jpipe.RadarPredictor(jt, jt, jm, mode="fused")
+    # pallas has no fold for an SVC either: both packages build the exact path
+    pallas = tpipe.RadarPredictor(arena, arena, model, mode="pallas")
+    for a, b in zip(exact(cubes, xyz), pallas(cubes, xyz)):
+        assert torch.equal(a, b)
+    _check(jpipe.RadarPredictor(jt, jt, jm, mode="pallas")(cubes, xyz),
+           pallas(cubes, xyz), 0.7)
 
 
 def test_other_model_families_raise(rng):

@@ -11,8 +11,10 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              per source, all started together.
 3. kernel  — each int8 kernel equals its plain PyTorch version
              (torch.equal) on random int8 cubes. The combo kernel (B1) at
-             the default arena, B=256 and B=4096, levels 2 and 1, one
-             masked plane. The z-split (B3), y-split (B2), sel (B4) and
+             the default arena, B 1 / 7 / 256 / 4096, levels 2 and 1, each
+             plane masked in turn, a cube view that starts one byte into
+             its buffer (the byte-copy path), an odd arena (9, 13, 180) and
+             a small one (5, 7, 9). The z-split (B3), y-split (B2), sel (B4) and
              sel3 (B5) kernels at levels 2: B 1 / 7 / 64 / 4096 at the
              default arena, each plane masked in turn, an odd arena
              (9, 13, 180) and a small one (5, 7, 9); at levels 1 (C2 = 3):
@@ -63,10 +65,15 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              uniform [0, 1] rows (against exact copies of themselves where
              the shape allows), at the serving shape (16,384 queries x
              the 1,823 support vectors x 10,010), the training shape
-             (1824 x 1824 x 10,010), a ragged one (37 x 23 x 50) and an odd
-             F (300 x 200 x 10,009, misaligned rows), gamma 0.001 / 0.01 /
-             0.1: its error against float64 is at most 2x the plain float32
-             version's + 1e-6. A non-contiguous input raises.
+             (1824 x 1824 x 10,010), a ragged one (37 x 23 x 50), an odd
+             F (300 x 200 x 10,009, misaligned rows), contiguous views that
+             start one row into their buffer (X[1:] against the support
+             vectors, and the odd-F pair, whose rows are then only 4-byte
+             aligned), F = 1 and F = 7, gamma 0.001 / 0.01 / 0.1: its error
+             against float64 is at most 2x the plain float32 version's +
+             1e-6. The mean signed error at the serving shape is printed
+             beside the plain version's, so that a bias shows. A
+             non-contiguous input raises.
 8. svc fit — svc_fit (C=10, gamma=0.01, rbf, probability) on that dataset
              on the card: SMO iterations per problem, seconds, n_sv, and
              agreement with the JAX-fitted SVC of radarml_tpu_torch/assets/
@@ -81,8 +88,10 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              within 1e-3). A StreamingClassifier over it answers 128 scans
              with predict_errors == 0 and the detections of a direct call.
 10. svc timing — rbf kernel against plain at the serving and training
-             shapes, SVC exact scans per second at B=4096 and where its time
-             goes, and svc_fit seconds (warm).
+             shapes (CUDA events over whole calls, the two pack passes
+             included, and each of its three kernels' device time from a
+             profiler trace), SVC exact scans per second at B=4096 and where
+             its time goes, and svc_fit seconds (warm).
 
 Each kernel's launch count is reset just before its main path and read
 just after: the int8 kernels and B7 over phases 4-5 (each fused tail's
@@ -91,7 +100,13 @@ over phase 9 (and, reported apart, over the fit of phase 8). bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
-TFLOP/s), computed from this run's shapes. No single PyTorch call
+TFLOP/s outside the tensor cores; for the RBF Gram the fastest
+float32-grade route, three TF32 products per product at 495 TFLOP/s, with
+the FP32-FMA bound kept beside it as bound_ms_fp32), computed from this
+run's shapes. Every other number in the kernel record was measured in
+this run; the times of the two earlier designs that were replaced by
+tensor-core kernels (PERF.md section 6) appear only in the progress
+lines, labelled as earlier. No single PyTorch call
 computes any of these functions, so library_ms is null (B7's record
 carries the fast path's three einsums as fast_f32_ms instead). The line
 before last is the kernel record as JSON; the last line is
@@ -127,6 +142,7 @@ from radarml_tpu_torch.ops import _cuda_build  # noqa: E402
 from radarml_tpu_torch.ops import i8_score, i8_tails, rbf, score  # noqa: E402
 from radarml_tpu_torch.ops.features import process_samples  # noqa: E402
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
+from radarml_tpu_torch.utils.profiling import kernel_device_ms  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(HERE, "radarml_tpu_torch", "assets", "demo_linear.npz")
@@ -147,6 +163,8 @@ KERNEL_SYMBOLS = {
     "onepass_scores_i8": "scores_kernel",
     "native_tables": "native_tables_kernel",
 }
+RBF_SYMBOLS = {"gram": "rbf_gram_kernel", "pack_x": "rbf_pack_kernel<false>",
+               "pack_s": "rbf_pack_kernel<true>"}
 # The four other int8 kernels: entry point -> (fused_tail, TPU kernel body).
 TAIL_KERNELS = {
     "onepass_tables_i8": ("lookup", "radarml_tpu/ops/pallas_i8_score.py:376"),
@@ -155,6 +173,13 @@ TAIL_KERNELS = {
     "onepass_scores_i8": ("sel3", "radarml_tpu/ops/pallas_i8_score.py:998"),
 }
 HBM_BYTES_S, INT8_OPS_S, FP32_FLOPS_S = 3.35e12, 1.979e15, 67e12  # H100 SXM peaks
+TF32_FLOPS_S = 495e12  # dense TF32 on the tensor cores
+# The replaced designs' times, for the progress lines only (PERF.md section
+# 6; NVIDIA H100 80GB HBM3, 700.00 W): B1 as a __dp4a kernel, device ms at
+# B=4096 and B=64; B6 as an FP32-FMA kernel, ms of a call at the serving and
+# training shapes. They are not measured here and stay out of the record.
+EARLIER_B1_DEVICE_MS = {4096: 0.7997, 64: 0.0319}
+EARLIER_B6_MS = {"serving": 21.7467, "training": 2.9960}
 N_SLICE, BIG, SMALL_B, N_STREAM_SEL3 = 512, 4096, 64, 128
 GOLDEN_DECISION_MARGIN = 1e-4
 # The SVC's probabilities go through a 1823-term Gram row, the pair
@@ -169,6 +194,11 @@ GAMMAS = (0.001, 0.01, 0.1)
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def retrace(msg: str) -> None:
+    """A profiler trace came back without a kernel and is taken again."""
+    say("profiler", msg)
 
 
 def check(cond, what: str) -> None:
@@ -246,30 +276,6 @@ def tail_fns(name, w, cube, ijk, valid):
         "onepass_scores_i8": (lambda: t.onepass_scores_i8(cube, w, ijk, valid),
                               lambda: t.onepass_scores_i8_ref(cube, w, ijk, valid)),
     }[name]
-
-
-def device_ms(fns: dict, symbols: dict, reps: int) -> dict:
-    """Mean device time of one launch of each kernel, from a torch.profiler
-    (CUPTI) trace of `reps` rounds of the calls in `fns`: kernel name ->
-    ms, None where the trace shows no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for fn in fns.values():  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in fns.values():
-                fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    out = {}
-    for name, symbol in symbols.items():
-        hits = [e for e in events if symbol in e.key]
-        us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
-        n = sum(e.count for e in hits)
-        out[name] = us / n / 1e3 if n and us > 0 else None
-    return out
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -358,8 +364,9 @@ def drive_stream(predictor, u8, targets, n: int):
 
 
 def rbf_errors(X, S, gammas):
-    """Max |K - K64| of the kernel and of the plain version per gamma,
-    against a float64 oracle of the same formula."""
+    """Per gamma: max |K - K64| of the kernel and of the plain version
+    against a float64 oracle of the same formula, and both's mean signed
+    error K - K64 over the matrix."""
     X64, S64 = X.double(), S.double()
     d2 = ((X64 * X64).sum(1)[:, None] + (S64 * S64).sum(1)[None, :]
           - 2.0 * (X64 @ S64.T)).clamp(min=0.0)
@@ -369,9 +376,10 @@ def rbf_errors(X, S, gammas):
         k = rbf.rbf_gram(X, S, g)
         torch.cuda.synchronize()
         oracle = torch.exp(-g * d2)
-        ek = float((k.double() - oracle).abs().max())
-        er = float((rbf.rbf_gram_ref(X, S, g).double() - oracle).abs().max())
-        out.append((g, ek, er))
+        dk = k.double() - oracle
+        dr = rbf.rbf_gram_ref(X, S, g).double() - oracle
+        out.append((g, float(dk.abs().max()), float(dr.abs().max()),
+                    float(dk.mean()), float(dr.mean())))
     return out
 
 
@@ -408,26 +416,36 @@ def main() -> None:
     dims = DEFAULT_ARENA.grid_shape
     rng = np.random.default_rng(0)
     max_err = 0
-    cases = [(256, 2, None), (256, 1, None), (256, 2, 1), (BIG, 2, None), (BIG, 1, None)]
-    for B, levels, masked in cases:
+    cases = [(dims, 256, 2, None), (dims, 256, 1, None), (dims, 256, 2, 1),
+             (dims, BIG, 2, None), (dims, BIG, 1, None)]
+    cases += ([(dims, B, 2, None) for B in (1, 7)] + [(dims, SMALL_B, 2, m) for m in (0, 2)]
+              + [((9, 13, 180), 33, 2, None), ((5, 7, 9), 5, 2, 1), ((5, 7, 9), 5, 1, 0),
+                 (dims, 7, 2, "offset")])
+    for cdims, B, levels, masked in cases:
+        offset = masked == "offset"  # a contiguous view one byte into its buffer
+        masked = None if offset else masked
         w = i8_score.build_combined_weights(
-            random_quant(rng, dims, levels, masked), dims, levels=levels, device=dev
+            random_quant(rng, cdims, levels, masked), cdims, levels=levels, device=dev
         )
-        cube = torch.from_numpy(
-            rng.integers(-128, 128, (B,) + dims, dtype=np.int8)
-        ).to(dev)
+        n_vox = B * cdims[0] * cdims[1] * cdims[2]
+        flat = torch.from_numpy(rng.integers(-128, 128, n_vox + 1, dtype=np.int8)).to(dev)
+        cube = flat[int(offset):n_vox + int(offset)].view((B,) + cdims)
+        check(cube.is_contiguous() and (cube.data_ptr() % 16 != 0) == offset,
+              "the offset case's cube alignment")
         got = i8_score.onepass_tables_combined_i8(cube, w)
         torch.cuda.synchronize()
         want = i8_score.onepass_tables_combined_i8_ref(cube, w)
         for g, r in zip(got, want):
             check(g.shape == r.shape and g.dtype == torch.int32, "table shape/dtype")
             max_err = max(max_err, int((g.long() - r.long()).abs().max()))
-            check(torch.equal(g, r), f"kernel != plain at B={B} levels={levels} "
-                  f"masked={masked}")
+            check(torch.equal(g, r), f"kernel != plain at dims={cdims} B={B} "
+                  f"levels={levels} masked={masked} offset={offset}")
         if masked is not None:
             check(not got[masked].any(), "masked plane gave a non-zero table")
+    w = i8_score.build_combined_weights(random_quant(rng, dims, 2), dims, device=dev)
     say("kernel", f"combo tables equal the plain version in {len(cases)} cases "
-        f"(B 256/4096, levels 2/1, masked yz plane); max_abs_err {max_err}; "
+        f"(B 1/7/64/256/4096, levels 2/1, each plane masked, a view one byte into "
+        f"its buffer, dims (9, 13, 180) and (5, 7, 9)); max_abs_err {max_err}; "
         f"x-slab {i8_score.slab_width(w)} of {dims[0]}")
     tail_err = dict.fromkeys(TAIL_KERNELS, 0)
     n_tail = 0
@@ -673,8 +691,9 @@ def main() -> None:
         ms = interleaved({(name, kind): f for name, pair in fns.items()
                           for kind, f in zip(("kernel", "plain"), pair)},
                          inner=inner, rounds=5)
-        dev_ms = device_ms({name: pair[0] for name, pair in fns.items()},
-                           KERNEL_SYMBOLS, reps=20)
+        dev_ms = kernel_device_ms({name: pair[0] for name, pair in fns.items()},
+                                  {name: KERNEL_SYMBOLS[name] for name in fns}, reps=20,
+                                  log=retrace)
         int8_ms[B] = {name: {kind: ms[name, kind] for kind in ("kernel", "plain")}
                       | {"device": dev_ms[name]}
                       | dict(zip(("bound", "bound_by"), int8_bound(name, B, dims, 6, 4)))
@@ -694,9 +713,10 @@ def main() -> None:
             "plain": lambda c=cb: score.native_tables_ref(c, tm_demo),
             "fast_f32": lambda c=cf: [torch.einsum(sp, t, c) for sp, t in zip(specs, fast_t)],
         }, inner=inner, rounds=5)
-        ms["device"] = device_ms({"native_tables": lambda c=cb: score.native_tables(c, tm_demo)},
-                                 {"native_tables": KERNEL_SYMBOLS["native_tables"]},
-                                 reps=20)["native_tables"]
+        ms["device"] = kernel_device_ms(
+            {"native_tables": lambda c=cb: score.native_tables(c, tm_demo)},
+            {"native_tables": KERNEL_SYMBOLS["native_tables"]}, reps=20,
+            log=retrace)["native_tables"]
         ms["bound"], ms["bound_by"] = native_bound(B, dims, tm_demo.dims[3])
         native_ms[B] = ms
     # How the y-split kernel's device time moves with the y-group.
@@ -704,9 +724,10 @@ def main() -> None:
     for B in (BIG, SMALL_B):
         for yg in (5, 8, 16, 31):
             wy = i8_tails.build_grouped_weights(quant2, dims, yg, device=dev)
-            sweep[B, yg] = device_ms(
+            sweep[B, yg] = kernel_device_ms(
                 {"y": lambda c=packed[:B], wy=wy: i8_tails.onepass_tables_grouped_i8(c, wy)},
-                {"y": KERNEL_SYMBOLS["onepass_tables_grouped_i8"]}, reps=10)["y"]
+                {"y": KERNEL_SYMBOLS["onepass_tables_grouped_i8"]}, reps=10,
+                log=retrace)["y"]
     for B in (BIG, SMALL_B):
         say("timing", f"B={B} y-split device ms by y_group: "
             + ", ".join(f"{yg}: {v:.4f}" for (b, yg), v in sweep.items() if b == B))
@@ -721,7 +742,9 @@ def main() -> None:
         say("timing", f"B={B} on {smi}: " + "; ".join(
             f"{name} {t['kernel']:.4f} ms (device {t['device']}) vs plain "
             f"{t['plain']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']})"
-            for name, t in int8_ms[B].items()))
+            for name, t in int8_ms[B].items())
+            + f"; onepass_tables_combined_i8's earlier __dp4a design: device "
+            f"{EARLIER_B1_DEVICE_MS[B]} ms (PERF.md section 6, not measured here)")
     for B in (BIG, SMALL_B):
         t = native_ms[B]
         say("timing", f"B={B} on {smi}: B7 native_tables {t['kernel']:.4f} ms (device "
@@ -769,18 +792,32 @@ def main() -> None:
         "oddF": ((X[:300, :F - 1].contiguous(), jitter(X[:, :F - 1], 200)),
                  (uo, copies(uo, 200))),
     }
+    # Contiguous views that start one row into their buffer: 8-byte aligned
+    # rows at F = 10,010, 4-byte aligned at F = 10,009 (exact copies lie on
+    # the uniform pair's first off-diagonal); then the narrowest widths.
+    shapes["offset"] = ((X[1:], S), (ut[1:], ut[:-1]))
+    shapes["oddF_offset"] = tuple((A[1:], B_[1:]) for A, B_ in shapes["oddF"])
+    for f in (1, 7):
+        shapes[f"F{f}"] = ((X[:130, 4000:4000 + f].contiguous(),
+                            X[130:259, 4000:4000 + f].contiguous()),
+                           (uniform(130, f), uniform(129, f)))
+    for A, B_ in shapes["offset"] + shapes["oddF_offset"]:
+        check(A.is_contiguous() and A.storage_offset() > 0, "the offset cases' views")
     rbf_err = 0.0
     errs = {}  # (shape, kind, gamma) -> kernel error against float64
+    signed = {}  # (kind, gamma) -> mean signed error (kernel, plain) at the serving shape
     lines = []
     for name, pairs in shapes.items():
         worst = []
         for kind, (A, B_) in zip(("real", "unif"), pairs):
-            for gamma, ek, er in rbf_errors(A, B_, GAMMAS):
+            for gamma, ek, er, mk, mr in rbf_errors(A, B_, GAMMAS):
                 check(ek <= 2.0 * er + 1e-6,
                       f"rbf kernel error {ek:.3e} > 2x plain {er:.3e} + 1e-6 at "
                       f"{name} {kind} gamma={gamma} {tuple(A.shape)}x{tuple(B_.shape)}")
                 rbf_err = max(rbf_err, ek)
                 errs[name, kind, gamma] = ek
+                if name == "serving":
+                    signed[kind, gamma] = (mk, mr)
                 worst.append((ek, er))
         lines.append(f"{name} {tuple(pairs[0][0].shape)}x{pairs[0][1].shape[0]}: "
                      f"kernel {max(w[0] for w in worst):.2e} / plain "
@@ -792,8 +829,11 @@ def main() -> None:
             continue
         raise AssertionError("rbf_gram took a non-contiguous input")
     say("rbf", f"max |K - K64| over real and uniform rows, gamma {GAMMAS}: "
-        + "; ".join(lines) + "; every case within 2x plain + 1e-6; "
-        f"non-contiguous input raises; dataset made in {data_s:.1f} s")
+        + "; ".join(lines) + "; every case within 2x plain + 1e-6; mean signed error "
+        "K - K64 at the serving shape, kernel / plain: "
+        + ", ".join(f"{kind} gamma {gamma}: {mk:.2e} / {mr:.2e}"
+                    for (kind, gamma), (mk, mr) in signed.items())
+        + f"; non-contiguous input raises; dataset made in {data_s:.1f} s")
 
     # -- 8. svc fit on the card -------------------------------------------
     jax_svc = svc.SVCModel(
@@ -904,6 +944,11 @@ def main() -> None:
         }, inner=3, rounds=5)
         for name, (A, B_) in (("serving", (queries, S)), ("training", (X, X)))
     }
+    rbf_dev = {
+        name: kernel_device_ms({"rbf": lambda A=A, B_=B_: rbf.rbf_gram(A, B_, cfg.gamma)},
+                               RBF_SYMBOLS, reps=3, log=retrace)
+        for name, (A, B_) in (("serving", (queries, S)), ("training", (X, X)))
+    }
     exact_in = inputs["exact"]
     K = rbf.rbf_gram(queries, S, cfg.gamma)
     dec = svc.decision_function_ovo(jax_svc, queries)
@@ -915,6 +960,19 @@ def main() -> None:
         "couple_100": lambda: svc._couple_probabilities(r, check_every=100),
     }, inner=2, rounds=3)
     svc_rate = BIG / (parts["step"] / 1e3)
+
+    def peak_bytes(fn):
+        """Peak device memory of fn() above what is held before it."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - held
+
+    gram_peak = peak_bytes(lambda: rbf.rbf_gram(queries, S, cfg.gamma))
+    gram_plain_peak = peak_bytes(lambda: rbf.rbf_gram_ref(queries, S, cfg.gamma))
+    step_peak = peak_bytes(lambda: svc_pred(exact_in, txyz, tvalid))
     gram_ms = rbf_ms["serving"]["kernel"]
     rest = parts["step"] - gram_ms - parts["pair"] - parts["couple"]
     t0 = time.perf_counter()
@@ -922,13 +980,20 @@ def main() -> None:
     torch.cuda.synchronize()
     fit_warm_s = time.perf_counter() - t0
     say("svc timing", f"on {smi}: rbf kernel {gram_ms:.4f} ms vs plain "
-        f"{rbf_ms['serving']['plain']:.4f} ms at {tuple(queries.shape)}x{n_sv}, "
+        f"{rbf_ms['serving']['plain']:.4f} ms at {tuple(queries.shape)}x{n_sv} (device: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rbf_dev["serving"].items())
+        + f"; the earlier FP32-FMA kernel {EARLIER_B6_MS['serving']} ms, PERF.md section 6, not measured here), "
         f"{rbf_ms['training']['kernel']:.4f} ms vs {rbf_ms['training']['plain']:.4f} "
-        f"ms at {tuple(X.shape)}x{X.shape[0]}; SVC exact B={BIG}: {svc_rate:.0f} "
+        f"ms at {tuple(X.shape)}x{X.shape[0]} (device: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rbf_dev["training"].items())
+        + f"; earlier {EARLIER_B6_MS['training']} ms); SVC exact B={BIG}: {svc_rate:.0f} "
         f"scans/s ({parts['step']:.4f} ms/batch = Gram {gram_ms:.4f} + pair product "
         f"{parts['pair']:.4f} + coupling {parts['couple']:.4f} (without its early "
         f"stop {parts['couple_100']:.4f}) + features and the rest {rest:.4f}); "
-        f"svc_fit {fit_warm_s:.2f} s warm")
+        f"svc_fit {fit_warm_s:.2f} s warm; peak device memory above what is held before "
+        f"the call: one rbf_gram at the serving shape {gram_peak / 2**20:.1f} MiB (output "
+        f"{queries.shape[0] * n_sv * 4 / 2**20:.1f} MiB, the rest the packed operands; plain "
+        f"{gram_plain_peak / 2**20:.1f} MiB), one SVC exact step {step_peak / 2**20:.1f} MiB")
 
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
@@ -942,10 +1007,16 @@ def main() -> None:
             "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
         }
 
-    def rbf_bound(A, B_):
+    def rbf_bound(A, B_, peak=TF32_FLOPS_S / 3):
+        """Least ms for the Gram of A against B_: its bytes, or its 2 n m F
+        float32-grade operations by the fastest route on the card, three
+        TF32 tensor-core products per product (FP32_FLOPS_S: by FP32 FMAs)."""
         n, F = A.shape
         m = B_.shape[0]
-        return bound(4 * (n * F + m * F + n * m), 2 * n * m * F, FP32_FLOPS_S)
+        ms, by = bound(4 * (n * F + m * F + n * m), 2 * n * m * F, peak)
+        if by == "operations":
+            by = "operations, 3xTF32" if peak != FP32_FLOPS_S else "operations, FP32 FMA"
+        return ms, by
 
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
                            launches, max_err)
@@ -980,10 +1051,18 @@ def main() -> None:
         "plain_ms": rbf_ms["serving"]["plain"],
         "bound_ms": rbf_b,
         "bound_by": rbf_by,
+        "bound_ms_fp32": rbf_bound(queries, S, FP32_FLOPS_S)[0],
         "library_ms": None,
+        "device_ms": rbf_dev["serving"],
         "ms_training": rbf_ms["training"]["kernel"],
         "plain_ms_training": rbf_ms["training"]["plain"],
         "bound_ms_training": rbf_bound(X, X)[0],
+        "bound_ms_fp32_training": rbf_bound(X, X, FP32_FLOPS_S)[0],
+        "device_ms_training": rbf_dev["training"],
+        "peak_bytes_call": gram_peak,
+        "peak_bytes_svc_step": step_peak,
+        "mean_signed_err_serving": {f"{kind} gamma {gamma}": mk
+                                    for (kind, gamma), (mk, _) in signed.items()},
         "fit_launches": fit_launches,
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,

@@ -11,9 +11,10 @@ features against the support vectors.
 On a CUDA tensor `rbf_gram` launches the hand-written Hopper kernel
 `csrc/rbf_gram.cu` (its header says what bounds it and how it is laid
 out) or raises; on a CPU tensor it runs the plain version
-`rbf_gram_ref`. Nothing falls back from one to the other. None of the
-TPU kernel's tiling (padding to 128-row tiles, slicing afterwards) is
-carried over: the CUDA kernel masks its own ragged edges.
+`rbf_gram_ref`. Nothing falls back from one to the other. The caller
+pads and slices nothing (the TPU kernel's wrapper padded to 128-row
+tiles and sliced afterwards): the kernel's pack passes pad the operands
+into scratch and its main pass stores exactly (n, m).
 """
 
 from __future__ import annotations
@@ -59,23 +60,30 @@ def _check(X: torch.Tensor, S: torch.Tensor) -> None:
         raise ValueError(f"X on {X.device}, S on {S.device}")
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p = ctypes.c_void_p
+    lib.rbf_gram_f32.argtypes = [p, p, p, p, ctypes.c_size_t, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+    lib.rbf_gram_f32.restype = ctypes.c_int
+    lib.rbf_gram_workspace_bytes.argtypes = [ctypes.c_int] * 3
+    lib.rbf_gram_workspace_bytes.restype = ctypes.c_size_t
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     from radarml_tpu_torch.ops._cuda_build import load_library
 
-    lib = load_library("rbf_gram")
-    p = ctypes.c_void_p
-    lib.rbf_gram_f32.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_float, p]
-    lib.rbf_gram_f32.restype = ctypes.c_int
-    return lib
+    return _bind(load_library("rbf_gram"))
 
 
 def rbf_gram(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
     """(n, F) x (m, F) float32 → (n, m) float32 fused RBF Gram matrix.
 
     On a CUDA tensor the kernel writes exactly (n, m) on the current
-    stream; it takes contiguous row-major inputs and raises on any other.
-    On a CPU tensor this is `rbf_gram_ref`.
+    stream; it takes contiguous row-major inputs of any alignment (an odd
+    F, a view that starts mid-buffer) and raises on any other. Its pack
+    passes write the operands as tiles into scratch allocated here (about
+    n F + 2 m F floats). On a CPU tensor this is `rbf_gram_ref`.
     """
     global KERNEL_LAUNCHES
     _check(X, S)
@@ -91,11 +99,16 @@ def rbf_gram(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
         raise ValueError(f"empty Gram matrix: n={n}, m={m}, F={F}")
     lib = _library()
     dev = X.device
+    nbytes = lib.rbf_gram_workspace_bytes(n, m, F)
+    if nbytes == 0:
+        raise ValueError(f"the kernel does not take n={n}, m={m}, F={F}")
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    work = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rbf_gram_f32(X.data_ptr(), S.data_ptr(), out.data_ptr(),
-                               n, m, F, float(gamma), stream)
+                               work.data_ptr(), nbytes, n, m, F, float(gamma),
+                               stream)
     if err != 0:
         raise RuntimeError(
             f"rbf_gram_f32 launch failed: CUDA error {err} (n={n}, m={m}, F={F})"

@@ -2,9 +2,10 @@
 
 Port of radarml_tpu/utils/profiling.py: lightweight per-stage wall
 timers around the capture/predict loops and throughput counters with
-EMA rates. Both are host-side only. The JAX package's `device_trace`
-(a jax.profiler scope) is not ported yet; its counterpart here will be a
-torch.profiler/NVTX scope.
+EMA rates. Both are host-side only. `kernel_device_ms` reads the device
+time of named CUDA kernels from a torch.profiler trace. The JAX package's
+`device_trace` (a jax.profiler scope) is not ported yet; its counterpart
+here will be a torch.profiler/NVTX scope.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, Iterator, Optional
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StageTimer", "RateMeter"]
+__all__ = ["StageTimer", "RateMeter", "kernel_device_ms"]
 
 
 @dataclasses.dataclass
@@ -111,3 +112,41 @@ class RateMeter:
         self._last = now
         return self.rate
 
+
+def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
+    """Mean device time of one launch of each kernel, from a torch.profiler
+    (CUPTI) trace of `reps` rounds of the calls in `fns`: name -> ms, for
+    every name -> kernel function name (a substring of what the trace
+    shows) in `symbols`. Needs a CUDA card.
+
+    A trace now and then comes back without a kernel's records (cause not
+    established), so a trace that lacks a symbol is reported through `log`
+    and taken again, twice at most; a symbol that is still missing raises:
+    no time is ever reported as 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        out, missing = {}, []
+        for name, symbol in symbols.items():
+            hits = [e for e in events if symbol in e.key]
+            us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+            n = sum(e.count for e in hits)
+            if n > 0 and us > 0:
+                out[name] = us / n / 1e3
+            else:
+                missing.append(symbol)
+        if not missing:
+            return out
+        if log is not None:
+            log(f"trace {attempt + 1} shows no device time for {missing}")
+    raise RuntimeError(f"the trace shows no device time for kernels {missing}")

@@ -4,16 +4,20 @@ Pallas kernel and an int64 einsum oracle.
 The tables are exact integers, so every comparison here is bit for bit
 (tolerance 0). On the CPU the port's wrapper runs its plain version; the
 CUDA kernel itself is compared with that plain version on the card by
-chip_smoke.py. The JAX kernel runs in interpret mode, as the JAX
-package's own tests run it on the CPU.
+chip_smoke.py and by the one test here that is marked `cuda` and skips
+without a card. The JAX kernel runs in interpret mode, as the JAX
+package's own tests run it on the CPU. The file imports the JAX package
+only inside the tests that use it, so on the card (no JAX there) that
+test runs with
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_i8_score.py
 """
 
 import numpy as np
 import pytest
 import torch
 
-from radarml_tpu.core.arena import DEFAULT_ARENA
-from radarml_tpu.ops import pallas_i8_score as jk
+from radarml_tpu_torch.core.arena import DEFAULT_ARENA
 from radarml_tpu_torch.ops import i8_score as tk
 
 torch.set_num_threads(1)
@@ -51,6 +55,8 @@ def _oracle(quant, cubes_u8, dims):
 
 def _jax_tables(quant, cubes_u8, dims, levels):
     """The JAX combo kernel (interpret mode), sliced to [:, :Y, :B]."""
+    from radarml_tpu.ops import pallas_i8_score as jk
+
     Y = dims[1]
     B = cubes_u8.shape[0]
     w = jk.build_combined_weights(quant, dims, levels=levels)
@@ -163,3 +169,72 @@ def test_encode_matches_jax(rng, dtype):
     )
     packed = tk.pack_cubes_i8(cubes)
     assert packed.is_contiguous() and packed.dtype == torch.int8
+
+
+def _probe_variants():
+    from radarml_tpu_torch.utils import kernel_probe
+
+    return sorted(kernel_probe.I8_VARIANTS)
+
+
+@pytest.mark.parametrize("variant", _probe_variants())
+def test_probe_patches_fit_the_source(variant):
+    """utils/kernel_probe.py builds variants of csrc/i8_score.cu by text
+    patches; every patch must match the committed source exactly once, and
+    only `as_committed` leaves it as it is."""
+    from radarml_tpu_torch.ops import _cuda_build
+    from radarml_tpu_torch.utils import kernel_probe
+
+    source = (_cuda_build.CSRC / "i8_score.cu").read_text()
+    text = kernel_probe.patched(source, kernel_probe.I8_VARIANTS[variant])
+    assert (text == source) == (variant == "as_committed")
+    with pytest.raises(RuntimeError, match="matches 0 times"):
+        kernel_probe.patched(source, [("no such line in the source", "")])
+
+
+@pytest.mark.cuda
+def test_kernel_on_the_card():
+    """On a card: the wrapper launches the kernel (counted) and every table
+    equals the plain version bit for bit, at B = 1, 7 and 300, an odd and a
+    small arena, each plane masked, levels 1 and 2, 1 to 8 class rows, and
+    a cube view that starts one byte into its buffer (byte-copy path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    default = DEFAULT_ARENA.grid_shape
+
+    def held(dims, B, w, offset=0):
+        n = B * dims[0] * dims[1] * dims[2]
+        flat = torch.from_numpy(rng.integers(-128, 128, n + 1, dtype=np.int8)).to(dev)
+        cube = flat[offset:n + offset].view((B,) + dims)
+        before = tk.KERNEL_LAUNCHES
+        got = tk.onepass_tables_combined_i8(cube, w)
+        torch.cuda.synchronize()
+        assert tk.KERNEL_LAUNCHES == before + 1
+        for g, r, q in zip(got, tk.onepass_tables_combined_i8_ref(cube, w),
+                           (w.q_xz, w.q_yz, w.q_xy)):
+            assert g.dtype == torch.int32 and torch.equal(g, r), (dims, B, w.c2, offset)
+            assert q is not None or not g.any()
+
+    for dims, B, levels, masked in (
+        [(default, B, 2, None) for B in (1, 7, 300)]
+        + [(default, 7, 2, m) for m in (0, 1, 2)]
+        + [(default, 7, 1, None), (default, 300, 1, 1)]
+        + [((9, 13, 180), 33, 2, None), ((9, 13, 180), 5, 1, 2),
+           ((5, 7, 9), 5, 2, None), ((5, 7, 9), 1, 1, 0)]
+    ):
+        held(dims, B, tk.build_combined_weights(
+            _quant(rng, dims, levels, masked=masked), dims, levels=levels, device=dev))
+    for dims in (default, (9, 13, 180), (5, 7, 9)):
+        X, Y, Z = dims
+        for c2 in range(1, 9):
+            q = [torch.from_numpy(rng.integers(-127, 128, (c2,) + s).astype(np.int8)).to(dev)
+                 for s in ((X, Z), (Y, Z), (X, Y))]
+            held(dims, 9, tk.CombinedWeights(*q, dims=dims + (c2,), levels=1))
+    held(default, 7, tk.build_combined_weights(_quant(rng, default, 2), default, device=dev),
+         offset=1)
+    w9 = tk.CombinedWeights(*[torch.zeros((9,) + s, dtype=torch.int8, device=dev)
+                              for s in ((5, 9), (7, 9), (5, 7))], dims=(5, 7, 9, 9), levels=1)
+    with pytest.raises(ValueError, match="class rows"):
+        tk.onepass_tables_combined_i8(torch.zeros((1, 5, 7, 9), dtype=torch.int8, device=dev), w9)

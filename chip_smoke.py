@@ -23,12 +23,14 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              sel3 with 4 slots holding -1 indices, an index past the end
              and (sel3) invalid slots. The bf16 table kernel (B7) against
              its plain float32 version and a float64 oracle on the same
-             bf16 cube: B 1 / 7 / 64 / 4096 at the default arena, B 33 at
-             (9, 13, 180) and B 5 at (5, 7, 9), C 3 and 2, integer and
-             non-integer cubes; each table's error against float64 is at
-             most 2x the plain version's + 1e-6 x max|oracle|, a second
-             call gives the same bits, and templates over the shared-memory
-             limit raise ValueError.
+             bf16 cube: B 1 / 7 / 64 / 300 / 4096 at the default arena
+             with C 3 and 2, B 7 there with C 1 / 5 / 7 and with a cube
+             view 2 bytes off 16-byte alignment (the copy route), B 33 at
+             (9, 13, 180) and B 5 at (5, 7, 9), integer and non-integer
+             cubes; each table's error against float64 is at most 2x the
+             plain version's + 1e-6 x max|oracle|, a second call gives the
+             same bits, and 8 classes, over the shared-memory limit at the
+             default arena, raise ValueError.
 4. slice   — the demo linear model (radarml_tpu_torch/assets/
              demo_linear.npz) scores 512 synthetic scans (4 target slots
              each) through RadarPredictor in exact, fast f32, fast int8,
@@ -104,9 +106,9 @@ TFLOP/s outside the tensor cores; for the RBF Gram the fastest
 float32-grade route, three TF32 products per product at 495 TFLOP/s, with
 the FP32-FMA bound kept beside it as bound_ms_fp32), computed from this
 run's shapes. Every other number in the kernel record was measured in
-this run; the times of the two earlier designs that were replaced by
-tensor-core kernels (PERF.md section 6) appear only in the progress
-lines, labelled as earlier. No single PyTorch call
+this run; the times of the three earlier designs that were replaced
+(B1 and B6 by tensor-core kernels, B7 by its bulk-copy ring; PERF.md
+section 6) appear only in the progress lines, labelled as earlier. No single PyTorch call
 computes any of these functions, so library_ms is null (B7's record
 carries the fast path's three einsums as fast_f32_ms instead). The line
 before last is the kernel record as JSON; the last line is
@@ -142,7 +144,7 @@ from radarml_tpu_torch.ops import _cuda_build  # noqa: E402
 from radarml_tpu_torch.ops import i8_score, i8_tails, rbf, score  # noqa: E402
 from radarml_tpu_torch.ops.features import process_samples  # noqa: E402
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
-from radarml_tpu_torch.utils.profiling import kernel_device_ms  # noqa: E402
+from radarml_tpu_torch.utils.profiling import TRACES, kernel_device_ms  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(HERE, "radarml_tpu_torch", "assets", "demo_linear.npz")
@@ -180,6 +182,10 @@ TF32_FLOPS_S = 495e12  # dense TF32 on the tensor cores
 # training shapes. They are not measured here and stay out of the record.
 EARLIER_B1_DEVICE_MS = {4096: 0.7997, 64: 0.0319}
 EARLIER_B6_MS = {"serving": 21.7467, "training": 2.9960}
+# B7 with one slab in flight a block and reductions on every row and slab
+# (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): device ms at B=4096
+# and B=64, for the progress lines only, like the two above.
+EARLIER_B7_DEVICE_MS = {4096: 1.8097, 64: 0.0787}
 N_SLICE, BIG, SMALL_B, N_STREAM_SEL3 = 512, 4096, 64, 128
 GOLDEN_DECISION_MARGIN = 1e-4
 # The SVC's probabilities go through a 1823-term Gram row, the pair
@@ -484,8 +490,13 @@ def main() -> None:
         f"16/8/31/5; 4 slots with -1, past-the-end and invalid ones); "
         f"max_abs_err {tail_err}")
     native_err = native_f64 = 0.0
-    native_cases = ([(dims, B, C, kind) for B in (1, 7, SMALL_B, BIG)
+    # B 300: several scans a block, so the slab ring wraps; C 5 and 7 (the
+    # most that fit at the default arena); "offset": a contiguous view 2
+    # bytes off 16-byte alignment, which takes the copy route.
+    native_cases = ([(dims, B, C, kind) for B in (1, 7, SMALL_B, 300, BIG)
                      for C in (3, 2) for kind in ("int", "float")]
+                    + [(dims, 7, C, "float") for C in (1, 5, 7)]
+                    + [(dims, 7, 3, "offset")]
                     + [(d, B, C, kind) for d, B in (((9, 13, 180), 33), ((5, 7, 9), 5))
                        for C in (3, 2) for kind in ("int", "float")])
     worst = (-1.0, "")
@@ -497,6 +508,11 @@ def main() -> None:
             device=dev)
         raw = torch.rand((B,) + ndims, generator=cgen, device=dev) * 255
         cube = (raw.round() if kind == "int" else raw).to(torch.bfloat16)
+        if kind == "offset":
+            flat = torch.zeros(cube.numel() + 1, dtype=torch.bfloat16, device=dev)
+            cube = flat[1:].view(cube.shape).copy_(cube)
+            check(cube.is_contiguous() and cube.data_ptr() % 16 == 2,
+                  "the offset case's cube alignment")
         for t, (ek, er, omax, d, same) in zip(("m1", "m2", "m3"), native_errors(cube, tm)):
             where = f"B7 {t} at dims={ndims} B={B} C={C} {kind} cube"
             check(same, f"{where}: a second call gave other bits")
@@ -504,7 +520,7 @@ def main() -> None:
                   f"{where}: error vs float64 {ek:.3e} > 2x plain {er:.3e} + 1e-6 x {omax:.3e}")
             native_err, native_f64 = max(native_err, d), max(native_f64, ek)
             worst = max(worst, (ek / max(er, 1e-30), where))
-    C_over = 6
+    C_over = 8
     tm6 = score.native_templates(
         *[torch.zeros((C_over,) + s) for s in ((dims[0], dims[2]), (dims[1], dims[2]),
                                                (dims[0], dims[1]))], device=dev)
@@ -515,9 +531,10 @@ def main() -> None:
     else:
         raise AssertionError(f"B7 took {C_over} classes over its shared-memory limit")
     say("kernel", f"B7 tables within 2x the plain float32 version's float64 error "
-        f"(+1e-6 x max|oracle|) in {len(native_cases)} cases (B 1/7/64/4096 at "
-        f"{dims}, (9, 13, 180) B 33, (5, 7, 9) B 5; C 3/2; integer and non-integer "
-        f"cubes), the same bits on a second call; max |kernel - plain| {native_err:.3e}, "
+        f"(+1e-6 x max|oracle|) in {len(native_cases)} cases (B 1/7/64/300/4096 at "
+        f"{dims} with C 3/2, B 7 with C 1/5/7 and a view 2 bytes off alignment, "
+        f"(9, 13, 180) B 33, (5, 7, 9) B 5; integer and non-integer cubes), the same "
+        f"bits on a second call; max |kernel - plain| {native_err:.3e}, "
         f"max |kernel - float64| {native_f64:.3e}, largest ratio to plain's error "
         f"{worst[0]:.2f} ({worst[1]}); {C_over} classes refused: {refused}")
 
@@ -749,7 +766,9 @@ def main() -> None:
         t = native_ms[B]
         say("timing", f"B={B} on {smi}: B7 native_tables {t['kernel']:.4f} ms (device "
             f"{t['device']}) vs plain {t['plain']:.4f} ms and the fast f32 einsums "
-            f"{t['fast_f32']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']})")
+            f"{t['fast_f32']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']}); "
+            f"the earlier B7 design: device {EARLIER_B7_DEVICE_MS[B]} ms (PERF.md "
+            f"section 6, not measured here)")
     say("timing", f"B={BIG} on {smi}: combo kernel single {kernel_single['kernel']:.4f} "
         f"ms vs plain {kernel_single['plain']:.4f} ms; "
         + "; ".join(f"{k} {rates[k]:.0f} scans/s ({step_ms[k]:.4f} ms/batch)"
@@ -1067,6 +1086,8 @@ def main() -> None:
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,
     })
+    say("profiler", f"{TRACES['taken']} traces taken for device times, {TRACES['lacking']} "
+        f"of them without a kernel's records (each taken again)")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@ On a CUDA tensor `native_tables` launches the hand-written Hopper kernel
 laid out) or raises; on a CPU tensor it runs the plain version
 `native_tables_ref`. Nothing falls back from one to the other. The
 templates must fit the kernel's shared memory on every device
-(`shared_memory_bytes`; about 5 classes at the default arena), so a
+(`shared_memory_bytes`; 7 classes at the default arena), so a
 model that scores on the CPU also scores on the card. None of the TPU
 kernel's tiling (scans padded to a multiple of 8, Y padded to 16) is
 carried over. The per-target reads are three gathers in PyTorch.
@@ -56,29 +56,54 @@ __all__ = [
 #: it, once per launch; callers reset it to 0 to count a run.
 KERNEL_LAUNCHES = 0
 
-# The kernel's limits (csrc/native_score.cu: kMaxC, kMaxPairs, kWarps,
-# kSmemMax).
+# The kernel's limits and layout constants (csrc/native_score.cu: kMaxC,
+# kMaxPairs, kSmemMax, kMaxStages, kStageBytes, kMaxWarps, kWideMaxC).
 MAX_C = 8
 MAX_Z = 2 * 32 * 4
 SMEM_MAX = 232448
-_WARPS = 8
+_MAX_STAGES = 8
+_STAGE_BYTES = 32768
+_MAX_WARPS = 16
+_WIDE_MAX_C = 3
+
+
+def _warps(C: int) -> int:
+    """Consumer warps of a kernel block at C classes (warps_for)."""
+    return _MAX_WARPS if C <= _WIDE_MAX_C else 8
 
 
 def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def shared_memory_bytes(X: int, Y: int, Z: int, C: int) -> int:
-    """Dynamic shared memory of one kernel block, in bytes: the three
-    float32 templates (z padded to even), two bf16 slabs of Y rows and
-    the block's accumulators. The same carve-up as make_layout in
-    csrc/native_score.cu, region by region, each rounded to 16 bytes."""
+def _layout(X: int, Y: int, Z: int, C: int) -> Tuple[int, int, int, int]:
+    """(words outside the ring, x-slabs a stage, words a stage, stages) of
+    one kernel block: make_layout in csrc/native_score.cu, region by
+    region, each rounded to 16 bytes."""
     zp = (Z + 1) // 2
     zs = 2 * zp
-    words = (_round4(C * X * zs) + _round4(C * Y * zs) + _round4(C * X * Y)
-             + 2 * _round4(Y * zp) + _round4(C * Y) + _round4(_WARPS * C)
-             + _round4(C * zs))
-    return 4 * words
+    slab = _round4(Y * zp)
+    fixed = (_round4(2 * (2 * _MAX_STAGES + 1 + _MAX_WARPS)) + _round4(C * Y * zs)
+             + _round4(C * X * Y) + _round4(C * Y) + _round4(C * zs))
+    room = SMEM_MAX // 4 - fixed
+
+    def stage(G):
+        return G * slab + _round4(C * G * zs) + _round4(G * _warps(C) * C)
+
+    G = min(max(min(_STAGE_BYTES // (4 * slab), 32 // C), 1), X)
+    while G > 1 and 3 * stage(G) > room:
+        G -= 1
+    return fixed, G, stage(G), min(max(room // stage(G), 2), _MAX_STAGES)
+
+
+def shared_memory_bytes(X: int, Y: int, Z: int, C: int) -> int:
+    """Dynamic shared memory of one kernel block, in bytes: the mbarriers,
+    the float32 yz and xy templates (z padded to even), the rows' and the
+    running m3 sums, and a ring of as many stages as the rest of SMEM_MAX
+    holds (at least 2, at most 8), each a bf16 slab of Y rows, its C
+    float32 xz template rows and its m2 partials."""
+    fixed, _, stage, stages = _layout(X, Y, Z, C)
+    return 4 * (fixed + stages * stage)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,16 +190,19 @@ def _check(cubes: torch.Tensor, templates: NativeTemplates) -> None:
         )
 
 
-def _library() -> ctypes.CDLL:
-    from radarml_tpu_torch.ops._cuda_build import load_library
-
-    lib = load_library("native_score")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.native_score_tables.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.native_score_tables.restype = i
     lib.native_score_smem_bytes.argtypes = [i] * 4
     lib.native_score_smem_bytes.restype = ctypes.c_long
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    from radarml_tpu_torch.ops._cuda_build import load_library
+
+    return _bind(load_library("native_score"))
 
 
 def native_tables(

@@ -1,9 +1,9 @@
-"""Where the two tensor-core kernels spend their time: a probe for the card.
+"""Where the hand-written kernels spend their time: a probe for the card.
 
-    python3 -m radarml_tpu_torch.utils.kernel_probe [rbf] [i8]
+    python3 -m radarml_tpu_torch.utils.kernel_probe [rbf] [i8] [native] [traces] [--earlier FILE.cu]
 
-It builds variants of `ops/csrc/rbf_gram.cu` and `ops/csrc/i8_score.cu`
-by patching their text (every patch must match the committed source
+It builds variants of `ops/csrc/rbf_gram.cu`, `ops/csrc/i8_score.cu` and
+`ops/csrc/native_score.cu` by patching their text (every patch must match the committed source
 exactly once, so a stale patch fails loudly), compiles each with the
 port's nvcc flags into a temporary directory, and prints device times
 from a torch.profiler trace, beside the card's name and power limit.
@@ -28,6 +28,27 @@ i8 (default arena, 6 class rows, B = 4096 and 64):
   warps_24      24 warps a block instead of 16
   clocks        clock64 around the phases of a slab, summed over the
                 blocks by warp 0 and warp 15: clocks per slab
+native (B7; default arena, 3 random classes, B = 4096 and 64; each
+variant's registers and spills as ptxas reports them, and its largest
+|error| against the plain version):
+  as_committed    the kernel as it is
+  warps_8         8 consumer warps a block at every C (16 up to C = 3 as
+                  committed)
+  loads_only      the consumer warps skip the rows' FMAs: the ring, the
+                  sums over the warps and the m3 turns without the rows
+  handshake_only  the consumer warps release each stage as it lands: the
+                  producer and the copies alone
+  one_slab        one x-slab a stage (8 stages at this shape) instead of 3
+  branch_free     the row loop's lanes past the row's last pair load pair 0
+                  and use a zero word instead of branching around the pair
+  clocks          clock64 around the phases of a slab, summed over the
+                  blocks by the first and last consumer warps and the
+                  producer: clocks per slab
+  earlier       FILE.cu given with --earlier (a source with the same C
+                interface, e.g. an earlier version of the kernel)
+traces: how often a profiler trace, taken as kernel_device_ms takes it,
+lacks the records of a kernel that ran in it: 40 traces each of B7 at
+B = 64 (one launch ~0.04 ms) with 1 and with 20 launches.
 """
 
 from __future__ import annotations
@@ -40,7 +61,8 @@ from pathlib import Path
 
 import torch
 
-from radarml_tpu_torch.ops import _cuda_build, i8_score, rbf
+from radarml_tpu_torch.ops import _cuda_build, i8_score, rbf, score
+from radarml_tpu_torch.utils import profiling
 from radarml_tpu_torch.utils.profiling import kernel_device_ms
 
 
@@ -59,22 +81,28 @@ def variant_sources(name: str, variants: dict) -> dict:
     return {variant: patched(source, patches) for variant, patches in variants.items()}
 
 
-def build_variants(name: str, variants: dict, tmp: Path) -> dict:
-    """Compile csrc/<name>.cu under each variant's patches, one nvcc each,
-    all started together; returns variant -> ctypes library."""
+def build_variants(name: str, variants: dict, tmp: Path, texts=None, logs=None) -> dict:
+    """Compile csrc/<name>.cu under each variant's patches (and each
+    variant -> source text in `texts` as it is), one nvcc each, all started
+    together; returns variant -> ctypes library. With a dict `logs`, the
+    build adds -Xptxas -v and puts each variant's compiler output there."""
+    sources = variant_sources(name, variants) | dict(texts or {})
+    extra = ["-Xptxas", "-v"] if logs is not None else []
     procs = {}
-    for variant, text in variant_sources(name, variants).items():
+    for variant, text in sources.items():
         src = tmp / f"{name}_{variant}.cu"
         src.write_text(text)
         out = tmp / f"lib{name}_{variant}.so"
         procs[variant] = (out, subprocess.Popen(
-            [_cuda_build.find_nvcc(), *_cuda_build.NVCC_FLAGS, "-o", str(out), str(src)],
+            [_cuda_build.find_nvcc(), *_cuda_build.NVCC_FLAGS, *extra, "-o", str(out), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for variant, (out, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} variant {variant}:\n{log}")
+        if logs is not None:
+            logs[variant] = log
         libs[variant] = ctypes.CDLL(str(out))
     return libs
 
@@ -266,10 +294,151 @@ def probe_i8(tmp: Path) -> None:
         print(line, flush=True)
 
 
+_NATIVE_LOADS_ONLY = [("        if (y < Y)\n          row_step<C>(",
+                       "        if (y < Y && B < 0)\n          row_step<C>(")]
+_NATIVE_TICK = (
+    "#define TICK(k) if (lane == 0 && (warp == 0 || warp == W - 1 || warp == W)) { "
+    "long long n_ = clock64(); atomicAdd(&probe_clk[(warp == W ? 12 : warp ? 6 : 0) + (k)], "
+    "(unsigned long long)(n_ - t_)); t_ = n_; }\n")
+NATIVE_VARIANTS = {
+    "as_committed": [],
+    "warps_8": [("constexpr int kWideMaxC = 3;", "constexpr int kWideMaxC = 0;")],
+    "loads_only": _NATIVE_LOADS_ONLY,
+    "handshake_only": [(
+        "    mbar_wait(&full[s], (u / L.NS) & 1);  // unit u has landed\n",
+        "    mbar_wait(&full[s], (u / L.NS) & 1);\n    __syncwarp();\n"
+        "    if (lane == 0) mbar_arrive(&empty[s]);\n    if (B > 0) continue;\n")],
+    "one_slab": [("constexpr int kStageBytes = 32768;", "constexpr int kStageBytes = 1;")],
+    "branch_free": [
+        ("    if (k < KP && pair < ZP) {\n      const uint32_t w = cube[pair];\n",
+         "    if (k < KP) {\n      const int pc = pair < ZP ? pair : 0;\n"
+         "      const uint32_t w = pair < ZP ? cube[pc] : 0u;\n"),
+        ("tyz_row + c * tyz_c + 2 * pair);", "tyz_row + c * tyz_c + 2 * pc);")],
+    "clocks": [
+        ("namespace {\n\nconstexpr int kMaxC",
+         "namespace {\n__device__ unsigned long long probe_clk[16];\n" + _NATIVE_TICK
+         + "\nconstexpr int kMaxC"),
+        ("  __syncthreads();  // the only block-wide barrier\n",
+         "  __syncthreads();\n  long long t_ = clock64();\n"),
+        ("        mbar_wait(&empty[s], (round - 1) & 1);\n        take(u - L.NS);\n",
+         "        TICK(3)\n        mbar_wait(&empty[s], (round - 1) & 1);\n        TICK(0)\n"
+         "        take(u - L.NS);\n        TICK(1)\n"),
+        ("      if (round > 0) store(u - L.NS);\n",
+         "      TICK(2)\n      if (round > 0) store(u - L.NS);\n      TICK(1)\n"),
+        ("    mbar_wait(&full[s], (u / L.NS) & 1);  // unit u has landed\n",
+         "    TICK(5)\n    mbar_wait(&full[s], (u / L.NS) & 1);\n    TICK(0)\n"),
+        ("    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage\n",
+         "    if (lane == 0) mbar_arrive(&empty[s]);\n    TICK(1)\n"),
+        ("    mbar_wait(&turn[warp], (u / NG) & 1);\n",
+         "    TICK(2)\n    mbar_wait(&turn[warp], (u / NG) & 1);\n    TICK(3)\n"),
+        ("    if (lane == 0) mbar_arrive(&turn[(warp + 1) % W]);\n",
+         "    if (lane == 0) mbar_arrive(&turn[(warp + 1) % W]);\n    TICK(4)\n"),
+        ('extern "C" {\n\n// Bytes of dynamic shared memory',
+         'extern "C" {\nint native_score_probe_clocks(unsigned long long* out, int clear) {\n'
+         "  unsigned long long z[16] = {};\n"
+         "  if (clear) return (int)cudaMemcpyToSymbol(probe_clk, z, sizeof(z));\n"
+         "  return (int)cudaMemcpyFromSymbol(out, probe_clk, sizeof(z));\n}\n\n"
+         "// Bytes of dynamic shared memory"),
+    ],
+}
+NATIVE_CLOCKS = {0: ("first consumer warp", ("wait for the slab", "rows", "m1 at the scan's end",
+                                             "wait for the m3 turn", "m3 turn", "loop")),
+                 6: ("last consumer warp", ("wait for the slab", "rows", "m1 at the scan's end",
+                                            "wait for the m3 turn", "m3 turn", "loop")),
+                 12: ("producer", ("wait for a free stage", "m2 sums", "copy issue", "loop"))}
+
+
+def ptxas_lines(log: str) -> str:
+    """ptxas's register and spill lines for the table kernel, one per
+    instantiation, shortened to `C, W: registers, spills`."""
+    out, kernel = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif kernel and "native_tables_kernel" in kernel and (
+                "registers" in line or "spill" in line):
+            tmpl = kernel.split("ILi")[1:] if "ILi" in kernel else [kernel]
+            args = ",".join(t.split("E")[0] for t in tmpl)
+            out.append(f"<{args}> {line.split(':', 1)[-1].strip()}")
+    return "\n  ".join(out)
+
+
+def probe_native(tmp: Path, earlier=None) -> None:
+    logs = {}
+    texts = {"earlier": Path(earlier).read_text()} if earlier else None
+    libs = build_variants("native_score", NATIVE_VARIANTS, tmp, texts, logs)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X, Y, Z, C = 22, 31, 176, 3
+    tm = score.native_templates(
+        *[torch.randn((C,) + sh, generator=gen, device=dev) * 0.01
+          for sh in ((X, Z), (Y, Z), (X, Y))])
+    cube = (torch.rand((4096, X, Y, Z), generator=gen, device=dev) * 255).round().to(
+        torch.bfloat16)
+    want = score.native_tables_ref(cube, tm)
+    for variant, lib in libs.items():
+        score._bind(lib)
+
+        def tables(B, lib=lib):
+            t = [torch.empty(sh, dtype=torch.float32, device=dev)
+                 for sh in ((B, C, Y), (B, C, X), (B, C, Z))]
+            err = lib.native_score_tables(
+                cube.data_ptr(), tm.t_xz.data_ptr(), tm.t_yz.data_ptr(), tm.t_xy.data_ptr(),
+                *[t_.data_ptr() for t_ in t], B, X, Y, Z, C,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"native_score_tables launch failed: CUDA error {err}")
+            return t
+
+        err = max(float((g - w).abs().max()) for g, w in zip(tables(4096), want))
+        torch.cuda.synchronize()
+        line = (f"native {variant}: device "
+                f"{device_ms(lambda: tables(4096), 'native_tables_kernel', 20):.4f} ms at B=4096, "
+                f"{device_ms(lambda: tables(64), 'native_tables_kernel', 20):.4f} ms at B=64; "
+                f"max |kernel - plain| {err:.3e}")
+        if variant == "clocks":
+            lib.native_score_probe_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            out = (ctypes.c_ulonglong * 16)()
+            torch.cuda.synchronize()
+            lib.native_score_probe_clocks(None, 1)
+            tables(4096)
+            torch.cuda.synchronize()
+            lib.native_score_probe_clocks(out, 0)
+            slabs = 4096 * X
+            for base, (who, names) in NATIVE_CLOCKS.items():
+                line += (f"; {who} clocks per slab: "
+                         + ", ".join(f"{n} {out[base + k] / slabs:.0f}"
+                                     for k, n in enumerate(names)))
+        print(f"{line}\n  {ptxas_lines(logs[variant])}", flush=True)
+
+
+def probe_traces(n: int = 40) -> None:
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X, Y, Z, C = 22, 31, 176, 3
+    tm = score.native_templates(
+        *[torch.randn((C,) + sh, generator=gen, device=dev) * 0.01
+          for sh in ((X, Z), (Y, Z), (X, Y))])
+    cube = (torch.rand((64, X, Y, Z), generator=gen, device=dev) * 255).to(torch.bfloat16)
+    fns = {"k": lambda: score.native_tables(cube, tm)}
+    fns["k"]()
+    torch.cuda.synchronize()
+    for reps in (1, 20):
+        got = [profiling.trace_device_us(fns, {"k": "native_tables_kernel"}, reps)["k"]
+               for _ in range(n)]
+        lacking = sum(cnt != reps for _, cnt in got)
+        print(f"traces: {reps} launches of B7 at B=64: {lacking} of {n} traces lack "
+              f"records (launch counts seen: {sorted({cnt for _, cnt in got})})", flush=True)
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the probe runs on the card only")
-    which = argv or ["rbf", "i8"]
+    earlier = None
+    if "--earlier" in argv:
+        i = argv.index("--earlier")
+        earlier, argv = argv[i + 1], argv[:i] + argv[i + 2:]
+    which = argv or ["rbf", "i8", "native"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -279,6 +448,10 @@ def main(argv) -> None:
             probe_rbf(Path(tmp))
         if "i8" in which:
             probe_i8(Path(tmp))
+        if "native" in which:
+            probe_native(Path(tmp), earlier)
+    if "traces" in which:
+        probe_traces()
 
 
 if __name__ == "__main__":

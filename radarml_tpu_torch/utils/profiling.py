@@ -113,40 +113,57 @@ class RateMeter:
         return self.rate
 
 
+#: Profiler traces `kernel_device_ms` took in this process, and how many of
+#: them came back without the records of a kernel that ran inside them.
+TRACES = {"taken": 0, "lacking": 0}
+
+
+def trace_device_us(fns: dict, symbols: dict, reps: int) -> dict:
+    """One torch.profiler (CUPTI) trace of `reps` rounds of the calls in
+    `fns`: name -> (total device us, launches) of the kernels whose
+    function name contains symbols[name], (0.0, 0) for one the trace
+    lacks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name, symbol in symbols.items():
+        hits = [e for e in events if symbol in e.key]
+        out[name] = (sum(getattr(e, "device_time_total", 0.0) for e in hits),
+                     sum(e.count for e in hits))
+    return out
+
+
 def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
     """Mean device time of one launch of each kernel, from a torch.profiler
     (CUPTI) trace of `reps` rounds of the calls in `fns`: name -> ms, for
     every name -> kernel function name (a substring of what the trace
     shows) in `symbols`. Needs a CUDA card.
 
-    A trace now and then comes back without a kernel's records (cause not
-    established), so a trace that lacks a symbol is reported through `log`
-    and taken again, twice at most; a symbol that is still missing raises:
-    no time is ever reported as 0."""
+    A trace now and then came back without a kernel's records in earlier
+    runs (cause not established; `utils/kernel_probe.py traces` looks for
+    it), so a trace that lacks a symbol is counted in TRACES, reported
+    through `log` and taken again, twice at most; a symbol that is still
+    missing raises: no time is ever reported as 0."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for fn in fns.values():  # warm-up
         fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn in fns.values():
-                    fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        out, missing = {}, []
-        for name, symbol in symbols.items():
-            hits = [e for e in events if symbol in e.key]
-            us = sum(getattr(e, "device_time_total", 0.0) for e in hits)
-            n = sum(e.count for e in hits)
-            if n > 0 and us > 0:
-                out[name] = us / n / 1e3
-            else:
-                missing.append(symbol)
+        got = trace_device_us(fns, symbols, reps)
+        TRACES["taken"] += 1
+        out = {name: us / n / 1e3 for name, (us, n) in got.items() if n > 0 and us > 0}
+        missing = [symbols[name] for name in symbols if name not in out]
         if not missing:
             return out
+        TRACES["lacking"] += 1
         if log is not None:
             log(f"trace {attempt + 1} shows no device time for {missing}")
     raise RuntimeError(f"the trace shows no device time for kernels {missing}")

@@ -119,18 +119,54 @@ def test_float32_stream_is_cast_to_bf16_first(rng):
 
 
 def test_shared_memory_check_raises_before_launch(rng):
-    """Five classes fit a block's 227 KB at the default arena, six do not;
-    the wrapper refuses on every device, before any launch."""
+    """Up to seven classes fit a block's 227 KB at the default arena, eight
+    do not; the wrapper refuses on every device, before any launch."""
     dims = (22, 31, 176)
     assert score.shared_memory_bytes(*dims, 5) <= score.SMEM_MAX
-    assert score.shared_memory_bytes(*dims, 6) > score.SMEM_MAX
+    assert score.shared_memory_bytes(*dims, 7) <= score.SMEM_MAX
+    assert score.shared_memory_bytes(*dims, 8) > score.SMEM_MAX
     cube = torch.zeros((1,) + dims, dtype=torch.bfloat16)
-    score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=5)))
+    score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=7)))
     with pytest.raises(ValueError, match="232448 bytes"):
-        score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=6)))
+        score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=8)))
     with pytest.raises(ValueError, match="232448 bytes"):
         score.fused_native_score(cube, np.zeros((1, 1, 3), np.int32),
-                                 *_templates(rng, dims, C=6), np.zeros(6, np.float32))
+                                 *_templates(rng, dims, C=8), np.zeros(8, np.float32))
+
+
+def _earlier_smem_bytes(X, Y, Z, C):
+    """Shared memory of the kernel's earlier layout: all three templates
+    resident, two slabs, per-slab m2 partials of 8 warps."""
+    r, zp = score._round4, (Z + 1) // 2
+    zs = 2 * zp
+    return 4 * (r(C * X * zs) + r(C * Y * zs) + r(C * X * Y) + 2 * r(Y * zp) + r(C * Y)
+                + r(8 * C) + r(C * zs))
+
+
+@pytest.mark.parametrize("Z", [1, 9, 64, 176, 180, 256])
+def test_no_model_that_fitted_stops_fitting(Z):
+    """Every (dims, C) that fitted the earlier layout fits this one, and
+    the ring holds 2 to 8 stages of which at least 3 at the default
+    arena's Y and Z for every C that fits there."""
+    for X in range(1, 48, 3):
+        for Y in (1, 7, 13, 31, 61, 120, 200):
+            for C in range(1, score.MAX_C + 1):
+                need = score.shared_memory_bytes(X, Y, Z, C)
+                if _earlier_smem_bytes(X, Y, Z, C) <= score.SMEM_MAX:
+                    assert need <= score.SMEM_MAX, (X, Y, Z, C)
+                assert 2 <= score._layout(X, Y, Z, C)[3] <= 8
+    if Z == 176:
+        for C in range(1, 8):
+            assert score._layout(22, 31, Z, C)[3] >= 3, C
+
+
+def test_probe_patches_fit_the_source():
+    """The kernel probe's native variants patch native_score.cu as it is
+    (each patch matches the source exactly once)."""
+    from radarml_tpu_torch.utils import kernel_probe
+
+    texts = kernel_probe.variant_sources("native_score", kernel_probe.NATIVE_VARIANTS)
+    assert set(texts) == set(kernel_probe.NATIVE_VARIANTS)
 
 
 @pytest.mark.parametrize(
@@ -153,6 +189,17 @@ def test_wrapper_checks_operands(rng, case, err):
             score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=9)))
 
 
+# (dims, B, C, misaligned): several scans a block so that the ring wraps
+# (B = 300 on 132 SMs), one class, the most that fit at the default arena,
+# all eight at a tiny arena, Z = 180 (not a multiple of 8) and a cube 2
+# bytes off 16-byte alignment (both the copy route).
+CARD_CASES = [((22, 31, 176), 37, 3, False), ((22, 31, 176), 300, 3, False),
+              ((22, 31, 176), 9, 1, False), ((22, 31, 176), 9, 5, False),
+              ((22, 31, 176), 9, 7, False), ((5, 7, 9), 3, 8, False),
+              ((9, 13, 180), 5, 2, False), ((22, 31, 180), 7, 3, False),
+              ((5, 7, 9), 3, 5, False), ((22, 31, 176), 7, 3, True)]
+
+
 @pytest.mark.cuda
 def test_kernel_on_the_card():
     """On a card: the wrapper launches the kernel (counted), its tables
@@ -164,11 +211,15 @@ def test_kernel_on_the_card():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    for dims, B, C in (((22, 31, 176), 37, 3), ((9, 13, 180), 5, 2), ((5, 7, 9), 3, 5)):
+    for dims, B, C, misaligned in CARD_CASES:
         tm = score.native_templates(*_templates(rng, dims, C), device=dev)
         assert score._library().native_score_smem_bytes(*dims, C) == \
             score.shared_memory_bytes(*dims, C)
-        cube = torch.from_numpy(_cubes(rng, B, dims, "float")).to(dev).to(torch.bfloat16)
+        values = torch.from_numpy(_cubes(rng, B, dims, "float")).to(dev).to(torch.bfloat16)
+        flat = torch.zeros(values.numel() + 1, dtype=torch.bfloat16, device=dev)
+        cube = flat[int(misaligned):values.numel() + int(misaligned)].view(values.shape)
+        cube.copy_(values)
+        assert cube.is_contiguous() and (cube.data_ptr() % 16 != 0) == misaligned
         before = score.KERNEL_LAUNCHES
         got = score.native_tables(cube, tm)
         torch.cuda.synchronize()

@@ -11,17 +11,19 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              per source, all started together.
 3. kernel  — each int8 kernel equals its plain PyTorch version
              (torch.equal) on random int8 cubes. The combo kernel (B1) at
-             the default arena, B 1 / 7 / 256 / 4096, levels 2 and 1, each
-             plane masked in turn, a cube view that starts one byte into
-             its buffer (the byte-copy path), an odd arena (9, 13, 180) and
-             a small one (5, 7, 9). The z-split (B3), y-split (B2), sel (B4) and
-             sel3 (B5) kernels at levels 2: B 1 / 7 / 64 / 4096 at the
-             default arena, each plane masked in turn, an odd arena
-             (9, 13, 180) and a small one (5, 7, 9); at levels 1 (C2 = 3):
-             B 64 / 4096 at the default arena and the small one with a
-             masked plane; the y-split at y-groups 16 / 8 / 31 / 5; sel and
-             sel3 with 4 slots holding -1 indices, an index past the end
-             and (sel3) invalid slots. The bf16 table kernel (B7) against
+             the default arena, B 1 / 7 / 64 / 133 / 256 / 4096, levels 2
+             and 1, each plane masked in turn, a cube view that starts one
+             byte into its buffer (the byte-copy path), an odd arena
+             (9, 13, 180) and a small one (5, 7, 9). The lookup (B3),
+             y-split (B2), sel (B4) and sel3 (B5) kernels at levels 2:
+             B 1 / 7 / 64 / 131 / 132 / 133 / 300 / 4096 at the default
+             arena (both sides of the batch below which the lookup kernel
+             cuts scans into parts), each plane masked in turn, an odd
+             arena (9, 13, 180) and a small one (5, 7, 9); at levels 1
+             (C2 = 3): B 64 / 4096 at the default arena and the small one
+             with a masked plane; the y-split at y-groups 16 / 8 / 31 / 5;
+             sel and sel3 with 4 slots holding -1 indices, an index past
+             the end and (sel3) invalid slots. The bf16 table kernel (B7) against
              its plain float32 version and a float64 oracle on the same
              bf16 cube: B 1 / 7 / 64 / 300 / 4096 at the default arena
              with C 3 and 2, B 7 there with C 1 / 5 / 7 and with a cube
@@ -57,7 +59,8 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              torch.profiler trace beside it (at B=64 the wrapper's host
              dispatch can outlast the kernel), and B7 beside the fast f32
              path's three float32 einsums on the same cube; the y-split
-             kernel's device time over y-groups 5 / 8 / 16 / 31; and fused
+             kernel's device time over y-groups 5 / 8 / 16 / 31; the lookup
+             kernel's at B 1 / 7 / 131 / 132 / 133 with its plan; and fused
              (every tail) / fast int8 / fast f32 / pallas (bf16 and f32
              streams) / exact scans per second at B=4096 with inputs
              resident on the card.
@@ -106,9 +109,10 @@ TFLOP/s outside the tensor cores; for the RBF Gram the fastest
 float32-grade route, three TF32 products per product at 495 TFLOP/s, with
 the FP32-FMA bound kept beside it as bound_ms_fp32), computed from this
 run's shapes. Every other number in the kernel record was measured in
-this run; the times of the three earlier designs that were replaced
-(B1 and B6 by tensor-core kernels, B7 by its bulk-copy ring; PERF.md
-section 6) appear only in the progress lines, labelled as earlier. No single PyTorch call
+this run; the times of the five earlier designs that were replaced
+(B1 and B6 by tensor-core kernels, B7 by its bulk-copy ring, B3 and B5 by
+B1's walk; PERF.md section 6) appear only in the progress lines, labelled
+as earlier. No single PyTorch call
 computes any of these functions, so library_ms is null (B7's record
 carries the fast path's three einsums as fast_f32_ms instead). The line
 before last is the kernel record as JSON; the last line is
@@ -156,23 +160,26 @@ RBF_REPLACES = "radarml_tpu/ops/pallas_rbf.py:29"
 TAILS_SOURCE = "radarml_tpu_torch/ops/csrc/i8_tails.cu"
 NATIVE_SOURCE = "radarml_tpu_torch/ops/csrc/native_score.cu"
 NATIVE_REPLACES = "radarml_tpu/ops/pallas_score.py:78"
-# Entry point -> its CUDA kernel's function name, as a profiler trace shows it.
+# Entry point -> its CUDA kernel's function name, as a profiler trace shows
+# it (none is a substring of another).
 KERNEL_SYMBOLS = {
-    "onepass_tables_combined_i8": "onepass_tables_kernel",
-    "onepass_tables_i8": "tables_zsplit_kernel",
+    "onepass_tables_combined_i8": "combo_tables_kernel",
+    "onepass_tables_i8": "lookup_tables_kernel",
     "onepass_tables_grouped_i8": "tables_ysplit_kernel",
     "onepass_tables_sel_i8": "tables_sel_kernel",
-    "onepass_scores_i8": "scores_kernel",
+    "onepass_scores_i8": "sel3_scores_kernel",
     "native_tables": "native_tables_kernel",
 }
 RBF_SYMBOLS = {"gram": "rbf_gram_kernel", "pack_x": "rbf_pack_kernel<false>",
                "pack_s": "rbf_pack_kernel<true>"}
-# The four other int8 kernels: entry point -> (fused_tail, TPU kernel body).
+# The four other int8 kernels: entry point -> (fused_tail, TPU kernel body,
+# CUDA source).
 TAIL_KERNELS = {
-    "onepass_tables_i8": ("lookup", "radarml_tpu/ops/pallas_i8_score.py:376"),
-    "onepass_tables_grouped_i8": ("glookup", "radarml_tpu/ops/pallas_i8_score.py:556"),
-    "onepass_tables_sel_i8": ("sel", "radarml_tpu/ops/pallas_i8_score.py:250"),
-    "onepass_scores_i8": ("sel3", "radarml_tpu/ops/pallas_i8_score.py:998"),
+    "onepass_tables_i8": ("lookup", "radarml_tpu/ops/pallas_i8_score.py:376", KERNEL_SOURCE),
+    "onepass_tables_grouped_i8": ("glookup", "radarml_tpu/ops/pallas_i8_score.py:556",
+                                  TAILS_SOURCE),
+    "onepass_tables_sel_i8": ("sel", "radarml_tpu/ops/pallas_i8_score.py:250", TAILS_SOURCE),
+    "onepass_scores_i8": ("sel3", "radarml_tpu/ops/pallas_i8_score.py:998", KERNEL_SOURCE),
 }
 HBM_BYTES_S, INT8_OPS_S, FP32_FLOPS_S = 3.35e12, 1.979e15, 67e12  # H100 SXM peaks
 TF32_FLOPS_S = 495e12  # dense TF32 on the tensor cores
@@ -186,6 +193,11 @@ EARLIER_B6_MS = {"serving": 21.7467, "training": 2.9960}
 # (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): device ms at B=4096
 # and B=64, for the progress lines only, like the two above.
 EARLIER_B7_DEVICE_MS = {4096: 1.8097, 64: 0.0787}
+# B3 as a z-split and B5 as one block a scan, both on __dp4a (PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700.00 W): device ms at B=4096 and B=64,
+# for the progress lines only, like the three above.
+EARLIER_B3_DEVICE_MS = {4096: 1.8404, 64: 0.0367}
+EARLIER_B5_DEVICE_MS = {4096: 1.1506, 64: 0.0617}
 N_SLICE, BIG, SMALL_B, N_STREAM_SEL3 = 512, 4096, 64, 128
 GOLDEN_DECISION_MARGIN = 1e-4
 # The SVC's probabilities go through a 1823-term Gram row, the pair
@@ -424,7 +436,8 @@ def main() -> None:
     max_err = 0
     cases = [(dims, 256, 2, None), (dims, 256, 1, None), (dims, 256, 2, 1),
              (dims, BIG, 2, None), (dims, BIG, 1, None)]
-    cases += ([(dims, B, 2, None) for B in (1, 7)] + [(dims, SMALL_B, 2, m) for m in (0, 2)]
+    cases += ([(dims, B, 2, None) for B in (1, 7, SMALL_B, 133)]
+              + [(dims, SMALL_B, 2, m) for m in (0, 2)]
               + [((9, 13, 180), 33, 2, None), ((5, 7, 9), 5, 2, 1), ((5, 7, 9), 5, 1, 0),
                  (dims, 7, 2, "offset")])
     for cdims, B, levels, masked in cases:
@@ -450,12 +463,12 @@ def main() -> None:
             check(not got[masked].any(), "masked plane gave a non-zero table")
     w = i8_score.build_combined_weights(random_quant(rng, dims, 2), dims, device=dev)
     say("kernel", f"combo tables equal the plain version in {len(cases)} cases "
-        f"(B 1/7/64/256/4096, levels 2/1, each plane masked, a view one byte into "
+        f"(B 1/7/64/133/256/4096, levels 2/1, each plane masked, a view one byte into "
         f"its buffer, dims (9, 13, 180) and (5, 7, 9)); max_abs_err {max_err}; "
         f"x-slab {i8_score.slab_width(w)} of {dims[0]}")
     tail_err = dict.fromkeys(TAIL_KERNELS, 0)
     n_tail = 0
-    tail_cases = ([(dims, B, None, 2) for B in (1, 7, SMALL_B, BIG)]
+    tail_cases = ([(dims, B, None, 2) for B in (1, 7, SMALL_B, 131, 132, 133, 300, BIG)]
                   + [(dims, SMALL_B, m, 2) for m in (0, 1, 2)]
                   + [((9, 13, 180), 33, None, 2), ((5, 7, 9), 5, 1, 2)]
                   + [(dims, SMALL_B, None, 1), (dims, BIG, None, 1), ((5, 7, 9), 5, 0, 1)])
@@ -484,8 +497,9 @@ def main() -> None:
             if masked is not None:  # each output reads one plane's table
                 check(not got[masked].any(), f"{name}: masked plane gave non-zero")
             n_tail += 1
-    say("kernel", f"z-split, y-split, sel and sel3 equal their plain versions in "
-        f"{n_tail} runs ({len(tail_cases)} cases: B 1/7/64/4096, each plane masked, "
+    say("kernel", f"lookup, y-split, sel and sel3 equal their plain versions in "
+        f"{n_tail} runs ({len(tail_cases)} cases: B 1/7/64/131/132/133/300/4096, each "
+        f"plane masked, "
         f"dims (9, 13, 180) and (5, 7, 9), levels 2 and (C2 = 3) 1; y-groups "
         f"16/8/31/5; 4 slots with -1, past-the-end and invalid ones); "
         f"max_abs_err {tail_err}")
@@ -558,7 +572,7 @@ def main() -> None:
         "pallas": RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw),
         "pallas_f32": RadarPredictor(mode="pallas", **kw),
     }
-    for name, (tail, _) in TAIL_KERNELS.items():
+    for name, (tail, _, _) in TAIL_KERNELS.items():
         preds[f"fused_{tail}"] = RadarPredictor(mode="fused", fused_tail=tail, **kw)
     i8_score.KERNEL_LAUNCHES = 0  # count the main path's launches only
     for name in i8_tails.LAUNCHES:
@@ -580,7 +594,7 @@ def main() -> None:
               f"{name} shapes")
         check(np.isfinite(proba).all() and np.isfinite(best).all(), f"{name} finite")
         check((pr[~valid] == -1).all(), f"{name} padded slots not UNKNOWN")
-    split = ["fused"] + [f"fused_{tail}" for tail, _ in TAIL_KERNELS.values()]
+    split = ["fused"] + [f"fused_{tail}" for tail, _, _ in TAIL_KERNELS.values()]
     d_fused_fast = {}
     for name in split:
         check(np.array_equal(out[name][0], out["fast_i8"][0]),
@@ -658,7 +672,7 @@ def main() -> None:
     for d in dets3:
         check(d.label_index == pr3[d.seq, 0], f"sel3 stream label differs at {d.seq}")
         check(abs(d.proba - best3[d.seq, 0]) <= 1e-6, f"sel3 stream proba at {d.seq}")
-    for name, (tail, _) in TAIL_KERNELS.items():
+    for name, (tail, _, _) in TAIL_KERNELS.items():
         check(tail_launches[name] > 0, f"the {tail} path launched {name} no time")
     detsp, stp, wallp = drive_stream(preds["pallas"], u8, targets, N_STREAM_SEL3)
     native_launches = score.KERNEL_LAUNCHES
@@ -748,6 +762,17 @@ def main() -> None:
     for B in (BIG, SMALL_B):
         say("timing", f"B={B} y-split device ms by y_group: "
             + ", ".join(f"{yg}: {v:.4f}" for (b, yg), v in sweep.items() if b == B))
+    # The lookup kernel on both sides of the batch below which it cuts scans.
+    lookup_ms = {
+        B: kernel_device_ms(
+            {"l": lambda c=packed[:B]: i8_tails.onepass_tables_i8(c, w_tails)},
+            {"l": KERNEL_SYMBOLS["onepass_tables_i8"]}, reps=20, log=retrace)["l"]
+        for B in (1, 7, 131, 132, 133)}
+    lookup_ms[SMALL_B] = int8_ms[SMALL_B]["onepass_tables_i8"]["device"]
+    say("timing", "lookup kernel device ms by batch, with its plan's parts P and slab "
+        "width XS: " + ", ".join(
+            "B={} (P {}, XS {}) {:.4f}".format(B, *i8_tails.lookup_plan_on_card(B, w_tails), v)
+            for B, v in sorted(lookup_ms.items())))
     inputs = {name: packed for name in split + ["fast_i8"]}
     inputs |= {"exact": f32_all, "fast": f32_all, "pallas": bf16_all, "pallas_f32": f32_all}
     step_ms = interleaved(
@@ -760,8 +785,10 @@ def main() -> None:
             f"{name} {t['kernel']:.4f} ms (device {t['device']}) vs plain "
             f"{t['plain']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']})"
             for name, t in int8_ms[B].items())
-            + f"; onepass_tables_combined_i8's earlier __dp4a design: device "
-            f"{EARLIER_B1_DEVICE_MS[B]} ms (PERF.md section 6, not measured here)")
+            + f"; earlier designs (PERF.md section 6, not measured here): "
+            f"onepass_tables_combined_i8 on __dp4a device {EARLIER_B1_DEVICE_MS[B]} ms, "
+            f"onepass_tables_i8 as a z-split {EARLIER_B3_DEVICE_MS[B]} ms, "
+            f"onepass_scores_i8 on __dp4a {EARLIER_B5_DEVICE_MS[B]} ms")
     for B in (BIG, SMALL_B):
         t = native_ms[B]
         say("timing", f"B={B} on {smi}: B7 native_tables {t['kernel']:.4f} ms (device "
@@ -1041,8 +1068,8 @@ def main() -> None:
                            launches, max_err)
                | {"ms_single": kernel_single["kernel"],
                   "plain_ms_single": kernel_single["plain"], "scans_per_s": rates}]
-    for name, (tail, replaces) in TAIL_KERNELS.items():
-        records.append(int8_record(name, TAILS_SOURCE, replaces, tail_launches[name],
+    for name, (tail, replaces, source) in TAIL_KERNELS.items():
+        records.append(int8_record(name, source, replaces, tail_launches[name],
                                    tail_err[name])
                        | {"fused_tail": tail, "scans_per_s": rates[f"fused_{tail}"]})
     big, small = native_ms[BIG], native_ms[SMALL_B]

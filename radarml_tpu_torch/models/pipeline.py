@@ -156,10 +156,11 @@ class RadarPredictor:
     # fast+int8. "pallas" is the one-pass bf16 kernel (ops/score.py) over
     # float32 or bfloat16 streams, with the full projection mask.
     mode: str = "exact"
-    # Fused-mode kernel and tail: "combo", "lookup" (z-split kernel) and
-    # "glookup" (y-split kernel) emit the raw tables, which PyTorch
-    # dequantizes and reads; "sel" selects the z-table reads in the
-    # kernel, "sel3" all three. Same decisions under every tail.
+    # Fused-mode kernel and tail: "combo", "lookup" (scans cut across
+    # blocks at small batches) and "glookup" (y-split kernel) emit the raw
+    # tables, which PyTorch dequantizes and reads; "sel" selects the
+    # z-table reads in the kernel, "sel3" all three. Same decisions under
+    # every tail.
     fused_tail: str = "combo"
     # Template quantization of the fused path:
     #   "split"  — error-compensated hi/lo int8 pair (C2 = 2C), decisions

@@ -1,9 +1,18 @@
 // One-pass int8 contraction tables for the fused predict path (Hopper, sm_90a).
 //
-// Replaces the TPU kernel radarml_tpu/ops/pallas_i8_score.py ::
-// onepass_tables_combined_i8 (body _kernel_combined_zc). For each scan b of
-// an int8 cube batch v (B, X, Y, Z) holding value-128, and int8 class
-// templates qxz (C2, X, Z), qyz (C2, Y, Z), qxy (C2, X, Y), it computes
+// Three kernels share one block routine, walk_scans, and differ in how a
+// batch is cut and in what they write where a scan is complete:
+//   combo_tables_kernel  <- radarml_tpu/ops/pallas_i8_score.py ::
+//                           onepass_tables_combined_i8 (body _kernel_combined_zc),
+//                           the "combo" tail: the three tables
+//   lookup_tables_kernel <- onepass_tables_i8 (body _kernel), the "lookup"
+//                           tail: the same tables, a scan cut into parts
+//                           across blocks when the batch is small
+//   sel3_scores_kernel   <- onepass_scores_i8 (body _kernel_scores), the
+//                           "sel3" tail: only the target reads leave the block
+// For each scan b of an int8 cube batch v (B, X, Y, Z) holding value-128,
+// and int8 class templates qxz (C2, X, Z), qyz (C2, Y, Z), qxy (C2, X, Y),
+// the tables are
 //
 //   t1[b, c, y] = sum_{x,z} qxz[c, x, z] * v[b, x, y, z]
 //   t2[b, c, x] = sum_{y,z} qyz[c, y, z] * v[b, x, y, z]
@@ -12,24 +21,37 @@
 // exactly, in int32. A null template pointer is a masked plane: its table
 // comes out zero and its work is skipped.
 //
-// What bounds it on an H100: the cube read. At the default arena a scan is
-// 22*31*176 = 120,032 bytes against ~2.2M int8 MACs for the three tables,
-// so at 3.35 TB/s a batch of 4096 scans needs ~0.15 ms of reads; the MACs
-// are 9 us of the int8 tensor cores. The kernel before this one took every
-// dot product with __dp4a, and the dp4a rate set its pace, not shared
-// memory as its header said: its 2.2e9 dp4a per 4096 scans in 0.80 ms are
-// 12 lanes a clock per SM, and with t1 / t2 on the tensor cores the dp4a
-// of t3 alone took most of a slab's time.
+// What bounds them on an H100: the cube read. At the default arena a scan
+// is 22*31*176 = 120,032 bytes against ~2.2M int8 MACs for the three
+// tables, so at 3.35 TB/s a batch of 4096 scans needs ~0.15 ms of reads;
+// the MACs are 9 us of the int8 tensor cores. The kernels these replaced
+// took every dot product with __dp4a, and the dp4a rate set their pace:
+// the combo kernel's 2.2e9 dp4a per 4096 scans in 0.80 ms are 12 lanes a
+// clock per SM; the lookup and sel3 kernels (one block per tile of a scan,
+// synchronous loads, templates re-read from L2 per tile) took 1.84 and
+// 1.15 ms.
 //
 // What the design does about it: all three contractions run on the int8
 // tensor cores as mma.sync m16n8k32 (s8 x s8 -> s32), the templates as the
 // B operand (8 columns = at most 8 class rows, zeros past C2).
-// - One persistent block of 16 warps per SM walks over scans b = blockIdx.x,
-//   + gridDim.x, ... in x-slabs. The templates are copied into shared memory
-//   once per block and stay there: qxz and qyz one row per (x or y, class),
-//   zero-padded in z to whole 32-byte chunks plus 16 bytes, so the eight
-//   class rows of a fragment lie an odd number of 16-byte units apart (no
-//   bank conflicts); qxy packed four rows to a word.
+// - The work plan. A scan is cut into P parts of contiguous x-slabs (part
+//   p takes slabs [p * nslab / P, (p + 1) * nslab / P), as
+//   ops/i8_tails.part_slabs computes them); block i takes part i % P of
+//   scans i / P, + G, + 2G, ... with G = gridDim.x / P, so a block keeps
+//   one part for its life. The combo and sel3 kernels take whole scans
+//   (P = 1: one persistent block per SM walking scans b = blockIdx.x,
+//   + gridDim.x, ...). The lookup kernel takes P from the host
+//   (ops/i8_tails.lookup_plan): 1 while the batch fills the resident
+//   blocks; below that resident / B parts, rounded down or up, whichever
+//   leaves the busiest block the fewest x rows, with a narrower slab where
+//   that gives more slabs, so that a small batch keeps every SM busy.
+//   Launches run min(B, resident / P) scans at a time, one block a part. A
+//   part's block holds only its part's qxz rows and packed qxy words.
+// - The templates are copied into shared memory once per block and stay
+//   there: qxz and qyz one row per (x or y, class), zero-padded in z to
+//   whole 32-byte chunks plus 16 bytes, so the eight class rows of a
+//   fragment lie an odd number of 16-byte units apart (no bank
+//   conflicts); qxy packed four rows to a word.
 // - Slabs are double-buffered. Where rows are whole 16-byte units (Z % 16
 //   == 0 and an aligned cube), one thread brings a slab (contiguous in
 //   device memory) with a single cp.async.bulk that reports to an mbarrier,
@@ -61,18 +83,34 @@
 //   they lie. Steps (group of 32 z, chunk of 32 rows) are cut into runs like
 //   t1's and t2's.
 // - The scan's tables exist twice in shared memory and scans alternate, so
-//   a finished scan is written out (every output element exactly once, by
-//   plain stores) and its set cleared while the next scan already sums into
-//   the other, with no block barrier of its own.
-// Where it stands (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
-// radarml_tpu_torch/utils/kernel_probe.py): 0.272 ms device at B=4096
-// against 0.800 for the dp4a kernel it replaces and a 0.154 ms bytes bound;
-// 0.0187 ms at B=64 against 0.0319. With the loads alone the kernel takes
-// 0.186 ms; a slab costs ~7,500 clocks, of which ~3,400 are a warp's t1 /
-// t2 steps, ~2,300 its t3 steps, up to ~1,200 the wait for the slowest warp
-// at the slab's barrier (t2's steps cost more than t1's, and equal runs are
-// not equal times) and ~700 the write-out. 24 warps were slower (0.279 ms),
-// and so was giving each warp a run of each kind (more, shorter runs).
+//   a finished scan's set is handed to the kernel's epilogue while the next
+//   scan already sums into the other. The epilogues:
+//     StoreTables (combo; lookup at P = 1): every output element exactly
+//       once by plain stores, each cleared by the thread that wrote it, with
+//       no block barrier of its own (the set is next used two scans on);
+//     AddPart (lookup at P > 1): a part owns its x, so it stores its t2
+//       rows; it adds its t1 and t3 partials by int32 atomicAdd, exact in
+//       any order, into outputs its C entry zeroes on the stream first;
+//     ReadScores (sel3): the T x C2 reads s1 = t1[c, j], s2 = t2[c, i],
+//       s3 = t3[k, c] of each slot of the (B, T, 3) indices (zero for an
+//       index outside its range, -1 included, and for a slot whose valid
+//       byte is 0). Threads read elements that other threads clear, so a
+//       block barrier must separate the two: the set is cleared ahead of
+//       the next scan's last slab, after that scan's first slab barrier
+//       (a barrier in the epilogue, read / wait / clear, cost 5%), or,
+//       with one slab a scan, read / wait / clear.
+// Where they stand (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
+// radarml_tpu_torch/utils/kernel_probe.py; PERF.md section 6): the combo
+// kernel 0.27 ms device at B=4096 against 0.800 for the dp4a kernel it
+// replaced and a 0.154 ms bytes bound; 0.019 ms at B=64 against 0.0319.
+// With the loads alone it takes 0.186 ms; a slab costs ~7,500 clocks, of
+// which ~3,400 are a warp's t1 / t2 steps, ~2,300 its t3 steps, up to
+// ~1,200 the wait for the slowest warp at the slab's barrier (t2's steps
+// cost more than t1's, and equal runs are not equal times) and ~700 the
+// write-out. 24 warps were slower (0.279 ms), and so was giving each warp
+// a run of each kind (more, shorter runs). The lookup kernel takes the
+// combo kernel's time at B=4096 and 0.013 ms at B=64 (two parts a scan;
+// 0.016 with three); the sel3 kernel 0.274 and 0.019.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (radarml_tpu_torch/ops/_cuda_build.py)
@@ -90,30 +128,33 @@ constexpr size_t kSmemMax = 232448;  // one block's dynamic maximum (227 KB)
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // Shared-memory carve-up of one block, in 32-bit words (each region a
-// multiple of 4 words, so 16-byte aligned). Host and device compute it the
-// same way.
+// multiple of 4 words, so 16-byte aligned), for scans cut into P parts of
+// x-slabs XS wide: a block holds the templates of its part only. Host and
+// device compute it the same way.
 struct Layout {
-  int XS, nslab, NR, SW, ZW, nk, TW, KQ;
+  int XS, nslab, nsp, XP, NR, SW, ZW, nk, TW, KQ;
   int qxz, qyz, zero, qxy, cube, slab, m1, m2, m3, tabs;
   size_t total;  // bytes
 };
 
-__host__ __device__ inline Layout make_layout(int XS, int X, int Y, int Z, int C2,
+__host__ __device__ inline Layout make_layout(int XS, int P, int X, int Y, int Z, int C2,
                                               bool h1, bool h2, bool h3) {
   Layout L;
   L.XS = XS;
   L.nslab = (X + XS - 1) / XS;
+  L.nsp = (L.nslab + P - 1) / P;     // slabs of the largest part
+  L.XP = min(X, L.nsp * XS);         // and its x rows
   L.NR = round_up(XS * Y, 4);        // rows per slab buffer, whole quads
   L.SW = round_up(Z, 16) / 4;        // cube row pitch in words (16-byte units)
   L.ZW = (Z + 3) / 4;                // 4-z words that hold data
   L.nk = (L.SW * 4 + 31) / 32;       // 32-byte z-chunks per row
   L.TW = L.nk * 8 + 4;               // template row pitch in words
   int off = 0;
-  L.qxz = off;  off += h1 ? C2 * X * L.TW : 0;
+  L.qxz = off;  off += h1 ? C2 * L.XP * L.TW : 0;
   L.qyz = off;  off += h2 ? C2 * Y * L.TW : 0;
   L.zero = off; off += L.TW;
   L.KQ = (XS * Y + 31) / 32 * 8;     // row quads of a slab, in whole 32-row chunks
-  L.qxy = off;  off += h3 ? L.nslab * kMaxC2 * L.KQ : 0;
+  L.qxy = off;  off += h3 ? L.nsp * kMaxC2 * L.KQ : 0;
   // a buffer ends with 16 spare bytes: a row's last chunk may read that far
   L.slab = round_up(L.NR * L.SW + 4, 4);
   L.cube = off; off += 2 * L.slab;
@@ -200,51 +241,78 @@ __device__ void copy_rows(int* dst, const int8_t* src, int nrows, int Z, int SW)
   }
 }
 
-// A plane's templates (C2, R, Z) into rows [r][c] of TW words, z zero-padded:
-// 16 bytes at a time where rows are whole aligned 16-byte units, by bytes
-// otherwise.
-__device__ void copy_templates(int* dst, const int8_t* src, int C2, int R, int Z, int TW) {
+// Rows r0 .. r0 + n - 1 of a plane's templates (C2, R, Z) into rows [r][c]
+// of TW words, z zero-padded: 16 bytes at a time where rows are whole
+// aligned 16-byte units, by bytes otherwise.
+__device__ void copy_templates(int* dst, const int8_t* src, int C2, int R, int r0, int n,
+                               int Z, int TW) {
   if (Z % 16 == 0 && ((uintptr_t)src & 15) == 0) {
     const int4* s16 = reinterpret_cast<const int4*>(src);
     int4* d16 = reinterpret_cast<int4*>(dst);
     const int ZV = Z / 16, TV = TW / 4;
 #pragma unroll 4
-    for (int i = threadIdx.x; i < R * C2 * TV; i += blockDim.x) {
+    for (int i = threadIdx.x; i < n * C2 * TV; i += blockDim.x) {
       const int v = i % TV, c = (i / TV) % C2, r = i / (TV * C2);
-      d16[i] = v < ZV ? __ldg(s16 + ((size_t)c * R + r) * ZV + v) : make_int4(0, 0, 0, 0);
+      d16[i] = v < ZV ? __ldg(s16 + ((size_t)c * R + r0 + r) * ZV + v) : make_int4(0, 0, 0, 0);
     }
     return;
   }
   int8_t* d = reinterpret_cast<int8_t*>(dst);
   const int Tp = TW * 4;
-  for (int i = threadIdx.x; i < R * C2 * Tp; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n * C2 * Tp; i += blockDim.x) {
     const int z = i % Tp, c = (i / Tp) % C2, r = i / (Tp * C2);
-    d[i] = z < Z ? src[((size_t)c * R + r) * Z + z] : int8_t(0);
+    d[i] = z < Z ? src[((size_t)c * R + r0 + r) * Z + z] : int8_t(0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-onepass_tables_kernel(const int8_t* __restrict__ cube, const int8_t* __restrict__ qxz,
-                      const int8_t* __restrict__ qyz, const int8_t* __restrict__ qxy,
-                      int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3,
-                      int B, int X, int Y, int Z, int C2, int XS, int vec) {
+// What every kernel's walk is given: the cube, the templates, the x-slab
+// width XS and the parts P a scan is cut into; vec: slabs by bulk copy.
+struct Walk {
+  const int8_t* cube;
+  const int8_t* qxz;
+  const int8_t* qyz;
+  const int8_t* qxy;
+  int B, X, Y, Z, C2, XS, P, vec;
+};
+
+// The block routine of the three kernels: sums its part of each of its
+// scans into a table set in shared memory and, where the part is complete,
+// calls done(w, b, m1_s, m2_s, m3_s, xlo, xhi) with every thread of the
+// block: scan b's sums m1_s[c * Y + y], m2_s[c * X + x], m3_s[z * C2 + c]
+// over x in [xlo, xhi). `done` hands the set back cleared, or clears it
+// later: before the part's last slab every thread calls
+// done.ahead(other, words, ns) with the other set (`words` words, the
+// previous scan's) and the part's slab count; where ns > 1 a block barrier
+// of this scan has passed by then, so every thread is done with the other
+// set, and the scan after this one is the next to use it.
+template <class Done>
+__device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   extern __shared__ __align__(16) int smem[];
   __shared__ __align__(8) uint64_t full_bar[2];
+  const int8_t* __restrict__ cube = w.cube;
+  const int8_t* __restrict__ qxz = w.qxz;
+  const int8_t* __restrict__ qyz = w.qyz;
+  const int8_t* __restrict__ qxy = w.qxy;
+  const int B = w.B, X = w.X, Y = w.Y, Z = w.Z, C2 = w.C2, XS = w.XS, vec = w.vec;
   const bool h1 = qxz != nullptr, h2 = qyz != nullptr, h3 = qxy != nullptr;
-  const Layout L = make_layout(XS, X, Y, Z, C2, h1, h2, h3);
+  const Layout L = make_layout(XS, w.P, X, Y, Z, C2, h1, h2, h3);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  int* qxy_s = smem + L.qxy;  // [slab][8 classes][KQ] words: 4 rows' bytes each, zeros past C2 and the slab
+  int* qxy_s = smem + L.qxy;  // [slab of the part][8 classes][KQ] words: 4 rows' bytes each, zeros past C2 and the slab
 
-  // This block's work units: (scan, slab), scans strided by gridDim.x.
-  const int nscan = (B - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int U = nscan * L.nslab;
+  // This block's part: slabs [s0, s1), x rows [xlo, xhi), of scans b0, b0 +
+  // G, ...; its work units are (scan, slab of the part).
+  const int P = w.P, G = gridDim.x / P, part = blockIdx.x % P, b0 = blockIdx.x / P;
+  const int s0 = part * L.nslab / P, s1 = (part + 1) * L.nslab / P, ns = s1 - s0;
+  const int xlo = s0 * XS, xhi = min(X, s1 * XS);
+  const int nscan = (B - b0 + G - 1) / G;
+  const int U = nscan * ns;
   // Unit u goes to buffer u % 2. With whole 16-byte rows thread 0 asks for
   // it in one bulk copy that reports to full_bar[u % 2]; otherwise every
   // thread copies bytes and the block's next barrier publishes them.
   auto load_unit = [&](int u) {
     if (vec && tid != 0) return;
-    const int b = blockIdx.x + (u / L.nslab) * gridDim.x;
-    const int x0 = (u % L.nslab) * XS;
+    const int b = b0 + (u / ns) * G;
+    const int x0 = (s0 + u % ns) * XS;
     const int xs = min(XS, X - x0);
     int* buf = smem + L.cube + (u & 1) * L.slab;
     const int8_t* src = cube + ((size_t)b * X + x0) * Y * Z;
@@ -270,15 +338,16 @@ onepass_tables_kernel(const int8_t* __restrict__ cube, const int8_t* __restrict_
   __syncthreads();
   if (U > 0) load_unit(0);
   if (U > 1) load_unit(1);
-  // Templates, once per block (plain loads, overlapping the first units).
-  if (h1) copy_templates(smem + L.qxz, qxz, C2, X, Z, L.TW);
-  if (h2) copy_templates(smem + L.qyz, qyz, C2, Y, Z, L.TW);
+  // The part's templates, once per block (plain loads, overlapping the
+  // first units).
+  if (h1) copy_templates(smem + L.qxz, qxz, C2, X, xlo, xhi - xlo, Z, L.TW);
+  if (h2) copy_templates(smem + L.qyz, qyz, C2, Y, 0, Y, Z, L.TW);
   if (h3) {
     int8_t* d = reinterpret_cast<int8_t*>(qxy_s);
     const int KR = L.KQ * 4;  // rows a class row of a slab holds
-    for (int i = tid; i < L.nslab * kMaxC2 * KR; i += blockDim.x) {
+    for (int i = tid; i < ns * kMaxC2 * KR; i += blockDim.x) {
       const int r = i % KR, c = (i / KR) % kMaxC2, sl = i / (KR * kMaxC2);
-      const int x0 = sl * XS, nr = min(XS, X - x0) * Y;
+      const int x0 = (s0 + sl) * XS, nr = min(XS, X - x0) * Y;
       d[i] = (c < C2 && r < nr) ? qxy[((size_t)c * X + x0) * Y + r] : int8_t(0);
     }
   }
@@ -326,13 +395,14 @@ onepass_tables_kernel(const int8_t* __restrict__ cube, const int8_t* __restrict_
   const int xs_last = X - (L.nslab - 1) * XS;
   const Run run_full = make_run(XS), run_last = make_run(xs_last);
 
-  int b = blockIdx.x, s = 0, set = 0;  // unit u is slab s of scan b; its table set
+  int b = b0, s = s0, set = 0;  // unit u is slab s of scan b; its table set
   for (int u = 0; u < U; ++u) {
     const bool last = s == L.nslab - 1;
     const int x0 = s * XS, xs = last ? xs_last : XS, nr = xs * Y;
     int* m1_s = smem + L.m1 + set * L.tabs;  // [c][Y], summed over the scan's slabs
     int* m2_s = m1_s + (L.m2 - L.m1);        // [c][X]
     int* m3_s = m1_s + (L.m3 - L.m1);        // [z][c]
+    if (s == s1 - 1) done.ahead(smem + L.m1 + (set ^ 1) * L.tabs, L.tabs, ns);
     if (vec) mbar_wait(&full_bar[u & 1], (u >> 1) & 1);  // unit u has landed
     const int* buf = smem + L.cube + (u & 1) * L.slab;
     const uint32_t buf_a = smem_u32(buf) + 16 * a_half;
@@ -364,7 +434,7 @@ onepass_tables_kernel(const int8_t* __restrict__ cube, const int8_t* __restrict_
         uint32_t tq;
         if (tab == 1) {
           cr = row * Y + min(16 * tile + a_row, Y - 1);
-          trow = x0 + row; tq = qxz_a;
+          trow = x0 - xlo + row; tq = qxz_a;
         } else {
           cr = min(16 * tile + a_row, xs - 1) * Y + row;
           trow = row; tq = qyz_a;
@@ -408,7 +478,7 @@ onepass_tables_kernel(const int8_t* __restrict__ cube, const int8_t* __restrict_
     if (steps3 > 0) {
       const int nkc = last ? run_last.nkc : run_full.nkc;
       int zg = last ? run_last.zg : run_full.zg, kc = last ? run_last.kc : run_full.kc;
-      const int* qw = qxy_s + (s * kMaxC2 + g) * L.KQ + t;
+      const int* qw = qxy_s + ((s - s0) * kMaxC2 + g) * L.KQ + t;
       int da[4] = {0, 0, 0, 0}, db[4] = {0, 0, 0, 0};
       auto flush3 = [&]() {
 #pragma unroll
@@ -452,25 +522,149 @@ onepass_tables_kernel(const int8_t* __restrict__ cube, const int8_t* __restrict_
     __syncthreads();  // the slab's sums are complete; its buffer is free
 
     if (u + 2 < U) load_unit(u + 2);
-    if (++s == L.nslab) {  // the scan is complete: write its tables, clear the set
-      const int n1 = C2 * Y, n2 = C2 * X, n3 = Z * C2;
-      for (int i = tid; i < max(n3, max(n1, n2)); i += blockDim.x) {
-        if (i < n1) { t1[(size_t)b * n1 + i] = m1_s[i]; m1_s[i] = 0; }
-        if (i < n2) { t2[(size_t)b * n2 + i] = m2_s[i]; m2_s[i] = 0; }
-        if (i < n3) { t3[(size_t)b * n3 + i] = m3_s[i]; m3_s[i] = 0; }
-      }
-      s = 0;
-      b += gridDim.x;
+    if (++s == s1) {  // the scan's part is complete: hand its set over
+      done(w, b, m1_s, m2_s, m3_s, xlo, xhi);
+      s = s0;
+      b += G;
       set ^= 1;  // this set is next used two scans on, block barriers later
     }
   }
 }
 
-// The x-slab width: the widest, balanced over the slabs, whose block fits
-// the shared-memory maximum; 0 if no slab fits.
+// Whole scans: every output element exactly once, by plain stores; each
+// element is cleared by the thread that wrote it out, so no barrier.
+struct StoreTables {
+  int* t1;
+  int* t2;
+  int* t3;
+  __device__ __forceinline__ void ahead(int*, int, int) {}
+  __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
+                                             int* m3_s, int, int) const {
+    const int n1 = w.C2 * w.Y, n2 = w.C2 * w.X, n3 = w.Z * w.C2;
+    for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
+      if (i < n1) { t1[(size_t)b * n1 + i] = m1_s[i]; m1_s[i] = 0; }
+      if (i < n2) { t2[(size_t)b * n2 + i] = m2_s[i]; m2_s[i] = 0; }
+      if (i < n3) { t3[(size_t)b * n3 + i] = m3_s[i]; m3_s[i] = 0; }
+    }
+  }
+};
+
+// A part of a scan: its own t2 rows (x in [xlo, xhi)) by plain stores, its
+// t1 and t3 partials added into zeroed outputs (int32 atomics, exact in any
+// order; a zero partial is skipped).
+struct AddPart {
+  int* t1;
+  int* t2;
+  int* t3;
+  __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
+                                             int* m3_s, int xlo, int xhi) const {
+    const int n1 = w.C2 * w.Y, n2 = w.C2 * w.X, n3 = w.Z * w.C2;
+    for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
+      if (i < n1) {
+        if (m1_s[i]) atomicAdd(&t1[(size_t)b * n1 + i], m1_s[i]);
+        m1_s[i] = 0;
+      }
+      if (i < n2) {
+        const int x = i % w.X;
+        if (x >= xlo && x < xhi) t2[(size_t)b * n2 + i] = m2_s[i];
+        m2_s[i] = 0;
+      }
+      if (i < n3) {
+        if (m3_s[i]) atomicAdd(&t3[(size_t)b * n3 + i], m3_s[i]);
+        m3_s[i] = 0;
+      }
+    }
+  }
+};
+
+// The lookup kernel's epilogue: whole scans as the combo kernel's, parts
+// otherwise (one walk either way).
+struct LookupTables {
+  int* t1;
+  int* t2;
+  int* t3;
+  __device__ __forceinline__ void ahead(int*, int, int) {}
+  __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
+                                             int* m3_s, int xlo, int xhi) {
+    if (w.P == 1)
+      StoreTables{t1, t2, t3}(w, b, m1_s, m2_s, m3_s, xlo, xhi);
+    else
+      AddPart{t1, t2, t3}(w, b, m1_s, m2_s, m3_s, xlo, xhi);
+  }
+};
+
+// The T x C2 target reads of scan b: s1 = t1[c, j], s2 = t2[c, i], s3 =
+// t3[k, c] for the slot's (i, j, k), each zero for an index outside its
+// range (-1 included) and for a slot whose valid byte is 0. Threads read
+// elements that other threads clear, so every read must precede a block
+// barrier that precedes the clearing: with more than one slab a scan, the
+// set is cleared ahead of the next scan's last slab (after that scan's
+// first slab barrier; the scan after it is the next to use the set); with
+// one, the epilogue reads, waits at a block barrier and clears.
+struct ReadScores {
+  const int* ijk;
+  const uint8_t* valid;  // (B, T) bytes, or null: every slot valid
+  int T;
+  int* s1;
+  int* s2;
+  int* s3;
+  bool cleared_ahead;  // more than one slab a scan
+
+  __device__ __forceinline__ void ahead(int* other, int words, int ns) {
+    cleared_ahead = ns > 1;
+    if (cleared_ahead)  // the previous scan's reads are behind this scan's first barrier
+      for (int i = threadIdx.x; i < words; i += blockDim.x) other[i] = 0;
+  }
+  __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
+                                             int* m3_s, int, int) const {
+    const int C2 = w.C2, X = w.X, Y = w.Y, Z = w.Z;
+    for (int i = threadIdx.x; i < T * C2; i += blockDim.x) {
+      const int t = i / C2, c = i % C2;
+      const size_t slot = (size_t)b * T + t;
+      const bool ok = valid == nullptr || valid[slot] != 0;
+      const int x = ijk[slot * 3], y = ijk[slot * 3 + 1], z = ijk[slot * 3 + 2];
+      const size_t o = slot * C2 + c;
+      s1[o] = ok && y >= 0 && y < Y ? m1_s[c * Y + y] : 0;
+      s2[o] = ok && x >= 0 && x < X ? m2_s[c * X + x] : 0;
+      s3[o] = ok && z >= 0 && z < Z ? m3_s[z * C2 + c] : 0;
+    }
+    if (cleared_ahead) return;
+    __syncthreads();  // every read of the set precedes its clearing
+    const int n1 = C2 * Y, n2 = C2 * X, n3 = Z * C2;
+    for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
+      if (i < n1) m1_s[i] = 0;
+      if (i < n2) m2_s[i] = 0;
+      if (i < n3) m3_s[i] = 0;
+    }
+  }
+};
+
+// Outputs are scan-major int32 t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2).
+__global__ void __launch_bounds__(kThreads, 1)
+combo_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
+  StoreTables done{t1, t2, t3};
+  walk_scans(w, done);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lookup_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
+  LookupTables done{t1, t2, t3};
+  walk_scans(w, done);
+}
+
+// Outputs s1, s2, s3 (B, T, C2); ijk (B, T, 3) int32.
+__global__ void __launch_bounds__(kThreads, 1)
+sel3_scores_kernel(Walk w, const int* __restrict__ ijk, const uint8_t* __restrict__ valid, int T,
+                   int* __restrict__ s1, int* __restrict__ s2, int* __restrict__ s3) {
+  ReadScores done{ijk, valid, T, s1, s2, s3};
+  walk_scans(w, done);
+}
+
+// The x-slab width of whole scans: the widest, balanced over the slabs,
+// whose block fits the shared-memory maximum; 0 if no slab fits.
 int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   for (int XS = X; XS >= 1; --XS) {
-    if (make_layout(XS, X, Y, Z, C2, h1, h2, h3).total <= kSmemMax) {
+    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total <= kSmemMax) {
       const int nslab = (X + XS - 1) / XS;
       return (X + nslab - 1) / nslab;
     }
@@ -478,50 +672,126 @@ int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   return 0;
 }
 
+// Fill `w` for a launch with x-slabs XS wide and P parts a scan; false for
+// shapes the kernels do not take.
+bool make_walk(Walk& w, const void* cube, const void* qxz, const void* qyz, const void* qxy,
+               int B, int X, int Y, int Z, int C2, int XS, int P) {
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || C2 < 1 || C2 > kMaxC2 || XS < 1 || XS > X || P < 1 ||
+      P > (X + XS - 1) / XS)
+    return false;
+  if (make_layout(XS, P, X, Y, Z, C2, qxz, qyz, qxy).total > kSmemMax) return false;
+  w.cube = static_cast<const int8_t*>(cube);
+  w.qxz = static_cast<const int8_t*>(qxz);
+  w.qyz = static_cast<const int8_t*>(qyz);
+  w.qxy = static_cast<const int8_t*>(qxy);
+  w.B = B; w.X = X; w.Y = Y; w.Z = Z; w.C2 = C2; w.XS = XS; w.P = P;
+  // Bulk copies need whole 16-byte rows from a 16-byte aligned cube (a slab
+  // then starts and ends on 16 bytes) and at most 2^20 - 1 bytes a barrier.
+  w.vec = Z % 16 == 0 && ((uintptr_t)cube & 15) == 0 && (long long)XS * Y * Z < (1 << 20);
+  return true;
+}
+
+// Blocks of `kernel` that fit on the card at once with `smem` bytes of
+// dynamic shared memory each (after allowing that much); 0 with `err` set
+// on a CUDA error.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, size_t smem, cudaError_t& err) {
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, nsm = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  return err == cudaSuccess ? nsm * per_sm : 0;
+}
+
+// Launch `kernel` over `w` on `stream`: G = min(B, resident / P) scans at a
+// time, one block a part, so every block stays resident and keeps one
+// part. Returns cudaGetLastError(); the launch does not synchronise.
+template <typename Kernel, typename... Ts>
+int launch(Kernel kernel, const Walk& w, void* stream, Ts... outs) {
+  const size_t smem =
+      make_layout(w.XS, w.P, w.X, w.Y, w.Z, w.C2, w.qxz, w.qyz, w.qxy).total;
+  cudaError_t err;
+  const int resident = resident_blocks(kernel, smem, err);
+  if (err != cudaSuccess) return (int)err;
+  const int G = min(w.B, max(1, resident / w.P));
+  kernel<<<G * w.P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(w, outs...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The x-slab width a launch uses (exposed so the wrapper can report it).
+// The x-slab width of whole scans (exposed so the wrapper can report it and
+// plan the lookup kernel's parts).
 int i8_score_slab_width(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
   return slab_width(X, Y, Z, C2, h1, h2, h3);
 }
 
-// Launch the one-pass tables on `stream`. Outputs are scan-major int32
+// Blocks of the lookup kernel resident at once when it takes whole scans
+// (the batch at and above which it does not cut scans), or minus a CUDA
+// error (cudaErrorInvalidValue for shapes it does not take).
+int i8_score_lookup_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  const int XS = slab_width(X, Y, Z, C2, h1, h2, h3);
+  if (XS == 0 || C2 < 1 || C2 > kMaxC2) return -(int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int n = resident_blocks(lookup_tables_kernel,
+                                make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total, err);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// The combo kernel on `stream`: whole scans. Outputs are scan-major int32
 // t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2), every element written.
 // Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue
 // for shapes the kernel does not take); the launch does not synchronise.
 int i8_score_onepass_tables(const void* cube, const void* qxz, const void* qyz,
                             const void* qxy, void* t1, void* t2, void* t3, int B,
                             int X, int Y, int Z, int C2, void* stream) {
-  if (B < 1 || X < 1 || Y < 1 || Z < 1 || C2 < 1 || C2 > kMaxC2)
+  Walk w;
+  if (!make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2,
+                 slab_width(X, Y, Z, C2, qxz, qyz, qxy), 1))
     return (int)cudaErrorInvalidValue;
-  const bool h1 = qxz, h2 = qyz, h3 = qxy;
-  const int XS = slab_width(X, Y, Z, C2, h1, h2, h3);
-  if (XS == 0) return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(XS, X, Y, Z, C2, h1, h2, h3);
-  // Bulk copies need whole 16-byte rows from a 16-byte aligned cube (a slab
-  // then starts and ends on 16 bytes) and at most 2^20 - 1 bytes a barrier.
-  const int vec = Z % 16 == 0 && ((uintptr_t)cube & 15) == 0 &&
-                  (long long)XS * Y * Z < (1 << 20);
-  cudaError_t err = cudaFuncSetAttribute(
-      onepass_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, nsm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, onepass_tables_kernel,
-                                                           kThreads, L.total)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = B < nsm * per_sm ? B : nsm * per_sm;
-  onepass_tables_kernel<<<grid, kThreads, L.total, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(cube), static_cast<const int8_t*>(qxz),
-      static_cast<const int8_t*>(qyz), static_cast<const int8_t*>(qxy),
-      static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(t3), B, X, Y, Z, C2,
-      XS, vec);
-  return (int)cudaGetLastError();
+  return launch(combo_tables_kernel, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
+                static_cast<int*>(t3));
+}
+
+// The lookup kernel: the same tables, each scan cut into P parts of x-slabs
+// XS wide (1 <= P <= the slab count; XS at most the whole-scan width).
+// Every element is written: at P > 1 t1 and t3 are first zeroed on
+// `stream`, and the parts add into them.
+int i8_score_lookup_tables(const void* cube, const void* qxz, const void* qyz,
+                           const void* qxy, void* t1, void* t2, void* t3, int B, int X,
+                           int Y, int Z, int C2, int XS, int P, void* stream) {
+  Walk w;
+  if (XS > slab_width(X, Y, Z, C2, qxz, qyz, qxy) ||
+      !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, XS, P))
+    return (int)cudaErrorInvalidValue;
+  if (P > 1) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaMemsetAsync(t1, 0, sizeof(int) * B * C2 * Y, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(t3, 0, sizeof(int) * B * Z * C2, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch(lookup_tables_kernel, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
+                static_cast<int*>(t3));
+}
+
+// The sel3 kernel: whole scans; the three selected reads s1, s2, s3
+// (B, T, C2) of the int32 ijk (B, T, 3); `valid` (B, T) bytes or null;
+// every output element is written.
+int i8_score_sel3_scores(const void* cube, const void* qxz, const void* qyz, const void* qxy,
+                         const void* ijk, const void* valid, void* s1, void* s2, void* s3,
+                         int B, int X, int Y, int Z, int C2, int T, void* stream) {
+  Walk w;
+  if (T < 0 || !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2,
+                          slab_width(X, Y, Z, C2, qxz, qyz, qxy), 1))
+    return (int)cudaErrorInvalidValue;
+  return launch(sel3_scores_kernel, w, stream, static_cast<const int*>(ijk),
+                static_cast<const uint8_t*>(valid), T, static_cast<int*>(s1),
+                static_cast<int*>(s2), static_cast<int*>(s3));
 }
 
 }  // extern "C"

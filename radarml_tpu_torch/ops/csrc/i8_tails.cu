@@ -1,12 +1,9 @@
-// The four other one-pass int8 table kernels of the fused predict path
-// (Hopper, sm_90a): the z-split and y-split table kernels and the two
-// kernels that select the target reads themselves.
+// The y-split and sel one-pass int8 table kernels of the fused predict path
+// (Hopper, sm_90a). The combo, lookup and sel3 kernels are in i8_score.cu.
 //
 // Replaces, in radarml_tpu/ops/pallas_i8_score.py:
-//   tables_zsplit_kernel  <- onepass_tables_i8 (body _kernel), the "lookup" tail
 //   tables_ysplit_kernel  <- onepass_tables_grouped_i8 (_kernel_grouped_tables), "glookup"
 //   tables_sel_kernel     <- onepass_tables_sel_i8 (_kernel_sel), "sel"
-//   scores_kernel         <- onepass_scores_i8 (_kernel_scores), "sel3"
 //
 // For each scan b of an int8 cube batch v (B, X, Y, Z) holding value-128,
 // and int8 class templates qxz (C2, X, Z), qyz (C2, Y, Z), qxy (C2, X, Y),
@@ -22,43 +19,32 @@
 // What bounds them on an H100: the cube read, 22*31*176 = 120,032 bytes a
 // scan at the default arena, so 0.147 ms for 4096 scans at 3.35 TB/s. At a
 // serving batch of 1-64 scans that read is under 3 us: launch latency and
-// the number of blocks in flight bound it, and a kernel that gives each
-// scan to one block (as i8_score.cu does) leaves most of the 132 SMs idle.
+// the number of blocks in flight bound it.
 //
-// What the design does about it. All four share one block routine,
-// tile_tables: a block takes a tile of one scan (every x, a y-range, a
-// z-range), walks it in x-chunks sized to fit about 100 KB of shared
+// What the design does about it. Both share one block routine,
+// tile_tables: a block takes a tile of one scan (every x and z, a
+// y-range), walks it in x-chunks sized to fit about 100 KB of shared
 // memory, and sums the tile's part of all three tables in shared memory
 // (row dots with __dp4a for m1/m2, byte-transposed row quads with __dp4a
-// for m3, the scheme of i8_score.cu). The kernels differ in how a scan is
-// cut into tiles and in what they write:
-// - z-split: a scan is ceil(Z / zc) blocks (zc = 16: 11 at the default
-//   arena), each reading zc contiguous bytes of every (x, y) row, 16-byte
-//   loads. A block owns its m3 rows (plain stores) and adds its m1 and m2
-//   partials into zeroed outputs with int32 atomicAdd. Integer atomics are
-//   exact in any order, so the tables stay bit-equal to the plain version.
+// for m3). The kernels differ in how a scan is cut into tiles and in what
+// they write:
 // - y-split: a scan is ceil(Y / Yg) blocks (any Yg from 1 to Y), each
 //   reading X runs of Yg*Z contiguous bytes. A block owns its y-group's m1
-//   rows and adds its m2 and m3 partials by int32 atomics.
+//   rows and adds its m2 and m3 partials into zeroed outputs with int32
+//   atomicAdd. Integer atomics are exact in any order, so the tables stay
+//   bit-equal to the plain version.
 // - sel: one block per scan; m1 and m2 are written, m3 stays in shared
 //   memory (Z*C2*4 = 4.2 KB) and only d3[b, t, c] = m3[kidx[b, t], c]
 //   leaves it (0 where kidx is outside [0, Z), -1 included).
-// - scores: one block per scan; all three tables stay in shared memory and
-//   only the three reads s1 = m1[c, j], s2 = m2[c, i], s3 = m3[k, c] of
-//   each target slot are written (0 for an index outside its range, -1
-//   included, and for every read of a slot whose valid byte is 0).
 // Outputs are scan-major (B, C2, Y), (B, C2, X), (B, Z, C2) and
 // (B, T, C2); the wrapper views them in the JAX axis order.
 // Simple first: loads are synchronous (no cp.async ring) and every block
 // re-reads its templates from L2. What that costs, on an H100 80GB HBM3
-// (700 W), device time, levels 2: at B=4096 z-split 1.83 ms, y-split
-// (Yg 16) 0.92, sel and sel3 1.14, against i8_score.cu's 0.79; at B=64
-// 0.037-0.044, 0.034-0.041 and 0.061-0.074 against 0.032-0.038, while the
-// y-split at Yg 8 takes 0.022. The wrapper fixes zc at 16, so that every
-// z-split tile of an arena whose Z is a multiple of 16 takes 16-byte
-// loads; a tile whose z-range is not whole 16-byte chunks takes the byte
-// copy. Int8 mma/wgmma, TMA, cp.async and templates resident across scans
-// are later work.
+// (700 W), device time, levels 2: at B=4096 y-split (Yg 16) 0.92, sel
+// 1.14, against the dp4a combo kernel's 0.79; at B=64 0.034-0.041 and
+// 0.061-0.074 against 0.032-0.038, while the y-split at Yg 8 takes 0.022.
+// i8_score.cu's int8 mma walk, which the lookup and sel3 kernels share
+// with the combo kernel, is what these two would move to.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (radarml_tpu_torch/ops/_cuda_build.py)
@@ -83,7 +69,7 @@ struct Args {
   const int8_t* qyz;
   const int8_t* qxy;
   int X, Y, Z, C2;
-  int YN, ZN;    // the largest tile's y- and z-extent
+  int YN;        // the largest tile's y-extent
   int XS;        // x-chunk width
   int vec_cube;  // Z % 16 == 0 and the cube 16-byte aligned
   int vec_q;     // Z % 16 == 0 and qxz, qyz 16-byte aligned
@@ -91,19 +77,19 @@ struct Args {
 
 // Shared-memory carve-up of one block, in 32-bit words (each region a
 // multiple of 4 words, so 16-byte aligned). Host and device compute it
-// the same way from (XS, X, YN, ZN, C2).
+// the same way from (XS, X, YN, Z, C2).
 struct Layout {
   int XS, nchunk, NR, SW;
   int qxz, qyz, qxy, cube, P, Q, m1, m2, m3, words;
   size_t total;  // bytes
 };
 
-__host__ __device__ inline Layout make_layout(int XS, int X, int YN, int ZN, int C2) {
+__host__ __device__ inline Layout make_layout(int XS, int X, int YN, int Z, int C2) {
   Layout L;
   L.XS = XS;
   L.nchunk = cdiv(X, XS);
   L.NR = round_up(XS * YN, 4);  // rows per chunk, whole quads
-  L.SW = cdiv(ZN, 16) * 4;      // row stride in words: whole 16-byte chunks
+  L.SW = cdiv(Z, 16) * 4;       // row stride in words: whole 16-byte chunks
   int off = 0;
   L.qxz = off;  off += C2 * XS * L.SW;
   L.qyz = off;  off += C2 * YN * L.SW;
@@ -113,7 +99,7 @@ __host__ __device__ inline Layout make_layout(int XS, int X, int YN, int ZN, int
   L.Q = off;    off += round_up(C2 * L.NR, 4);
   L.m1 = off;   off += round_up(C2 * YN, 4);
   L.m2 = off;   off += round_up(C2 * X, 4);
-  L.m3 = off;   off += cdiv(ZN, 4) * 4 * C2;
+  L.m3 = off;   off += cdiv(Z, 4) * 4 * C2;
   L.words = off;
   L.total = (size_t)off * 4;
   return L;
@@ -121,10 +107,10 @@ __host__ __device__ inline Layout make_layout(int XS, int X, int YN, int ZN, int
 
 // The widest x-chunk, balanced over the chunks, whose block fits
 // kSmemTarget (or, at one x, the maximum); 0 if none fits.
-int chunk_width(int X, int YN, int ZN, int C2) {
+int chunk_width(int X, int YN, int Z, int C2) {
   int XS = X;
-  while (XS > 1 && make_layout(XS, X, YN, ZN, C2).total > kSmemTarget) --XS;
-  if (make_layout(XS, X, YN, ZN, C2).total > kSmemMax) return 0;
+  while (XS > 1 && make_layout(XS, X, YN, Z, C2).total > kSmemTarget) --XS;
+  if (make_layout(XS, X, YN, Z, C2).total > kSmemMax) return 0;
   const int n = cdiv(X, XS);
   return cdiv(X, n);
 }
@@ -159,12 +145,11 @@ __device__ inline int dot16(int4 a, int4 b, int acc) {
   return __dp4a(a.w, b.w, acc);
 }
 
-// The block's share of the three tables for the tile (every x, y in
-// [y0, y0 + yn), z in [z0, z0 + zn)) of scan b, summed into shared memory:
-// m1[c * yn + yl], m2[c * X + x], m3[zl * C2 + c]. Every thread of the
-// block calls it; on return the sums are complete and visible.
-__device__ void tile_tables(const Args& a, int b, int y0, int yn, int z0, int zn,
-                            int* smem, const Layout& L) {
+// The block's share of the three tables for the tile (every x and z, y in
+// [y0, y0 + yn)) of scan b, summed into shared memory: m1[c * yn + yl],
+// m2[c * X + x], m3[z * C2 + c]. Every thread of the block calls it; on
+// return the sums are complete and visible.
+__device__ void tile_tables(const Args& a, int b, int y0, int yn, int* smem, const Layout& L) {
   const int tid = threadIdx.x;
   const bool h1 = a.qxz != nullptr, h2 = a.qyz != nullptr, h3 = a.qxy != nullptr;
   const int X = a.X, Y = a.Y, Z = a.Z, C2 = a.C2, SW = L.SW;
@@ -177,24 +162,23 @@ __device__ void tile_tables(const Args& a, int b, int y0, int yn, int z0, int zn
   int* m1_s = smem + L.m1;
   int* m2_s = smem + L.m2;
   int* m3_s = smem + L.m3;
-  const bool aligned = z0 % 16 == 0 && zn % 16 == 0;
-  const bool cvec = a.vec_cube && aligned, qvec = a.vec_q && aligned;
-  const int ZV = cdiv(zn, 16), ZW = cdiv(zn, 4), NQ = L.NR / 4;
+  const bool cvec = a.vec_cube, qvec = a.vec_q;
+  const int ZV = cdiv(Z, 16), ZW = cdiv(Z, 4), NQ = L.NR / 4;
 
   if (h2)
-    copy_rows(qyz_s, C2 * yn, zn, SW, qvec, [&](int r) {
-      return a.qyz + ((size_t)(r / yn) * Y + y0 + r % yn) * Z + z0;
+    copy_rows(qyz_s, C2 * yn, Z, SW, qvec, [&](int r) {
+      return a.qyz + ((size_t)(r / yn) * Y + y0 + r % yn) * Z;
     });
   for (int i = L.m1 + tid; i < L.words; i += blockDim.x) smem[i] = 0;
 
   for (int ch = 0; ch < L.nchunk; ++ch) {
     const int x0 = ch * L.XS, xs = min(L.XS, X - x0), nr = xs * yn;
-    copy_rows(buf, nr, zn, SW, cvec, [&](int r) {
-      return a.cube + (((size_t)b * X + x0 + r / yn) * Y + y0 + r % yn) * Z + z0;
+    copy_rows(buf, nr, Z, SW, cvec, [&](int r) {
+      return a.cube + (((size_t)b * X + x0 + r / yn) * Y + y0 + r % yn) * Z;
     });
     if (h1)
-      copy_rows(qxz_s, C2 * xs, zn, SW, qvec, [&](int r) {
-        return a.qxz + ((size_t)(r / xs) * X + x0 + r % xs) * Z + z0;
+      copy_rows(qxz_s, C2 * xs, Z, SW, qvec, [&](int r) {
+        return a.qxz + ((size_t)(r / xs) * X + x0 + r % xs) * Z;
       });
     if (h3) {
       int8_t* d = reinterpret_cast<int8_t*>(qxy_s);
@@ -295,31 +279,13 @@ __device__ void tile_tables(const Args& a, int b, int y0, int yn, int z0, int zn
 }
 
 __global__ void __launch_bounds__(kThreads)
-tables_zsplit_kernel(Args a, int zc, int* __restrict__ t1, int* __restrict__ t2,
-                     int* __restrict__ t3) {
-  extern __shared__ __align__(16) int smem[];
-  const Layout L = make_layout(a.XS, a.X, a.YN, a.ZN, a.C2);
-  const int nz = cdiv(a.Z, zc);
-  const int b = blockIdx.x / nz, z0 = (blockIdx.x % nz) * zc, zn = min(zc, a.Z - z0);
-  tile_tables(a, b, 0, a.Y, z0, zn, smem, L);
-  const int C2 = a.C2, X = a.X, Y = a.Y, Z = a.Z;
-  const int *m1 = smem + L.m1, *m2 = smem + L.m2, *m3 = smem + L.m3;
-  for (int i = threadIdx.x; i < C2 * Y; i += blockDim.x)
-    if (m1[i]) atomicAdd(&t1[(size_t)b * C2 * Y + i], m1[i]);
-  for (int i = threadIdx.x; i < C2 * X; i += blockDim.x)
-    if (m2[i]) atomicAdd(&t2[(size_t)b * C2 * X + i], m2[i]);
-  for (int i = threadIdx.x; i < zn * C2; i += blockDim.x)
-    t3[((size_t)b * Z + z0) * C2 + i] = m3[i];
-}
-
-__global__ void __launch_bounds__(kThreads)
 tables_ysplit_kernel(Args a, int yg, int* __restrict__ t1, int* __restrict__ t2,
                      int* __restrict__ t3) {
   extern __shared__ __align__(16) int smem[];
-  const Layout L = make_layout(a.XS, a.X, a.YN, a.ZN, a.C2);
+  const Layout L = make_layout(a.XS, a.X, a.YN, a.Z, a.C2);
   const int ng = cdiv(a.Y, yg);
   const int b = blockIdx.x / ng, y0 = (blockIdx.x % ng) * yg, yn = min(yg, a.Y - y0);
-  tile_tables(a, b, y0, yn, 0, a.Z, smem, L);
+  tile_tables(a, b, y0, yn, smem, L);
   const int C2 = a.C2, X = a.X, Y = a.Y, Z = a.Z;
   const int *m1 = smem + L.m1, *m2 = smem + L.m2, *m3 = smem + L.m3;
   for (int i = threadIdx.x; i < C2 * yn; i += blockDim.x)
@@ -334,9 +300,9 @@ __global__ void __launch_bounds__(kThreads)
 tables_sel_kernel(Args a, const int* __restrict__ kidx, int T, int* __restrict__ t1,
                   int* __restrict__ t2, int* __restrict__ d3) {
   extern __shared__ __align__(16) int smem[];
-  const Layout L = make_layout(a.XS, a.X, a.YN, a.ZN, a.C2);
+  const Layout L = make_layout(a.XS, a.X, a.YN, a.Z, a.C2);
   const int b = blockIdx.x;
-  tile_tables(a, b, 0, a.Y, 0, a.Z, smem, L);
+  tile_tables(a, b, 0, a.Y, smem, L);
   const int C2 = a.C2, X = a.X, Y = a.Y, Z = a.Z;
   const int *m1 = smem + L.m1, *m2 = smem + L.m2, *m3 = smem + L.m3;
   for (int i = threadIdx.x; i < C2 * Y; i += blockDim.x) t1[(size_t)b * C2 * Y + i] = m1[i];
@@ -348,41 +314,20 @@ tables_sel_kernel(Args a, const int* __restrict__ kidx, int T, int* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scores_kernel(Args a, const int* __restrict__ ijk, const uint8_t* __restrict__ valid, int T,
-              int* __restrict__ s1, int* __restrict__ s2, int* __restrict__ s3) {
-  extern __shared__ __align__(16) int smem[];
-  const Layout L = make_layout(a.XS, a.X, a.YN, a.ZN, a.C2);
-  const int b = blockIdx.x;
-  tile_tables(a, b, 0, a.Y, 0, a.Z, smem, L);
-  const int C2 = a.C2, X = a.X, Y = a.Y, Z = a.Z;
-  const int *m1 = smem + L.m1, *m2 = smem + L.m2, *m3 = smem + L.m3;
-  for (int i = threadIdx.x; i < T * C2; i += blockDim.x) {
-    const int t = i / C2, c = i % C2;
-    const size_t slot = (size_t)b * T + t;
-    const bool ok = valid == nullptr || valid[slot] != 0;
-    const int x = ijk[slot * 3], y = ijk[slot * 3 + 1], z = ijk[slot * 3 + 2];
-    const size_t o = slot * C2 + c;
-    s1[o] = ok && y >= 0 && y < Y ? m1[c * Y + y] : 0;
-    s2[o] = ok && x >= 0 && x < X ? m2[c * X + x] : 0;
-    s3[o] = ok && z >= 0 && z < Z ? m3[z * C2 + c] : 0;
-  }
-}
-
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// Fill `a` for a launch whose largest tile spans YN y and ZN z; false for
-// shapes the kernels do not take.
+// Fill `a` for a launch whose largest tile spans YN y; false for shapes the
+// kernels do not take.
 bool make_args(Args& a, const void* cube, const void* qxz, const void* qyz, const void* qxy,
-               int B, int X, int Y, int Z, int C2, int YN, int ZN) {
+               int B, int X, int Y, int Z, int C2, int YN) {
   if (B < 1 || X < 1 || Y < 1 || Z < 1 || C2 < 1 || C2 > kMaxC2) return false;
   if (!qxz && !qyz && !qxy) return false;
   a.cube = static_cast<const int8_t*>(cube);
   a.qxz = static_cast<const int8_t*>(qxz);
   a.qyz = static_cast<const int8_t*>(qyz);
   a.qxy = static_cast<const int8_t*>(qxy);
-  a.X = X; a.Y = Y; a.Z = Z; a.C2 = C2; a.YN = YN; a.ZN = ZN;
-  a.XS = chunk_width(X, YN, ZN, C2);
+  a.X = X; a.Y = Y; a.Z = Z; a.C2 = C2; a.YN = YN;
+  a.XS = chunk_width(X, YN, Z, C2);
   a.vec_cube = Z % 16 == 0 && aligned16(cube);
   a.vec_q = Z % 16 == 0 && (!qxz || aligned16(qxz)) && (!qyz || aligned16(qyz));
   return a.XS > 0;
@@ -393,7 +338,7 @@ bool make_args(Args& a, const void* cube, const void* qxz, const void* qyz, cons
 template <typename Kernel, typename... Ts>
 int launch(Kernel kernel, long long grid, const Args& a, void* stream, Ts... args) {
   if (grid < 1 || grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout(a.XS, a.X, a.YN, a.ZN, a.C2).total;
+  const size_t smem = make_layout(a.XS, a.X, a.YN, a.Z, a.C2).total;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -405,26 +350,13 @@ int launch(Kernel kernel, long long grid, const Args& a, void* stream, Ts... arg
 
 extern "C" {
 
-// Tables split along z in blocks of zc. t1 (B, C2, Y) and t2 (B, C2, X)
-// must be zeroed by the caller (blocks add into them); t3 (B, Z, C2) is
-// written in full.
-int i8_tails_tables_zsplit(const void* cube, const void* qxz, const void* qyz,
-                           const void* qxy, void* t1, void* t2, void* t3, int B, int X,
-                           int Y, int Z, int C2, int zc, void* stream) {
-  Args a;
-  if (zc < 1 || !make_args(a, cube, qxz, qyz, qxy, B, X, Y, Z, C2, Y, zc < Z ? zc : Z))
-    return (int)cudaErrorInvalidValue;
-  return launch(tables_zsplit_kernel, (long long)B * cdiv(Z, zc), a, stream, zc,
-                static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(t3));
-}
-
 // Tables split along y in groups of yg (1..Y). t2 and t3 must be zeroed
 // by the caller; t1 is written in full.
 int i8_tails_tables_ysplit(const void* cube, const void* qxz, const void* qyz,
                            const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                            int Y, int Z, int C2, int yg, void* stream) {
   Args a;
-  if (yg < 1 || yg > Y || !make_args(a, cube, qxz, qyz, qxy, B, X, Y, Z, C2, yg, Z))
+  if (yg < 1 || yg > Y || !make_args(a, cube, qxz, qyz, qxy, B, X, Y, Z, C2, yg))
     return (int)cudaErrorInvalidValue;
   return launch(tables_ysplit_kernel, (long long)B * cdiv(Y, yg), a, stream, yg,
                 static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(t3));
@@ -436,23 +368,10 @@ int i8_tails_tables_sel(const void* cube, const void* qxz, const void* qyz, cons
                         const void* kidx, void* t1, void* t2, void* d3, int B, int X, int Y,
                         int Z, int C2, int T, void* stream) {
   Args a;
-  if (T < 0 || !make_args(a, cube, qxz, qyz, qxy, B, X, Y, Z, C2, Y, Z))
+  if (T < 0 || !make_args(a, cube, qxz, qyz, qxy, B, X, Y, Z, C2, Y))
     return (int)cudaErrorInvalidValue;
   return launch(tables_sel_kernel, (long long)B, a, stream, static_cast<const int*>(kidx), T,
                 static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(d3));
-}
-
-// The three selected reads s1, s2, s3 (B, T, C2) of the int32 ijk
-// (B, T, 3); `valid` (B, T) bytes or null; every output element is written.
-int i8_tails_scores(const void* cube, const void* qxz, const void* qyz, const void* qxy,
-                    const void* ijk, const void* valid, void* s1, void* s2, void* s3, int B,
-                    int X, int Y, int Z, int C2, int T, void* stream) {
-  Args a;
-  if (T < 0 || !make_args(a, cube, qxz, qyz, qxy, B, X, Y, Z, C2, Y, Z))
-    return (int)cudaErrorInvalidValue;
-  return launch(scores_kernel, (long long)B, a, stream, static_cast<const int*>(ijk),
-                static_cast<const uint8_t*>(valid), T, static_cast<int*>(s1),
-                static_cast<int*>(s2), static_cast<int*>(s3));
 }
 
 }  // extern "C"

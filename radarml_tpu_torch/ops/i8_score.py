@@ -222,11 +222,17 @@ def launches_kernel(cube: torch.Tensor, weights: CombinedWeights) -> bool:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of csrc/i8_score.cu: the combo kernel's
+    here, the lookup and sel3 kernels' for ops/i8_tails.py."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.i8_score_onepass_tables.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.i8_score_onepass_tables.restype = i
+    lib.i8_score_lookup_tables.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.i8_score_sel3_scores.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.i8_score_slab_width.argtypes = [i] * 7
-    lib.i8_score_slab_width.restype = i
+    lib.i8_score_lookup_resident.argtypes = [i] * 7
+    for fn in ("i8_score_onepass_tables", "i8_score_lookup_tables", "i8_score_sel3_scores",
+               "i8_score_slab_width", "i8_score_lookup_resident"):
+        getattr(lib, fn).restype = i
     return lib
 
 

@@ -13,8 +13,9 @@ in int32, the tables
 
 — the values of onepass_tables_combined_i8 — or the target reads of them:
 
-* onepass_tables_i8: the three tables, the scan cut along z across
-  several CUDA blocks (more blocks in flight at small batches);
+* onepass_tables_i8: the three tables, a scan cut into parts of
+  contiguous x-slabs across CUDA blocks when the batch is too small to
+  fill the card (more blocks in flight at small batches; `lookup_plan`);
 * onepass_tables_grouped_i8: the three tables, the scan cut into groups
   of `y_group` rows across blocks;
 * onepass_tables_sel_i8: m1 and m2, and d3[c, t, b] = m3[kidx[b, t], c]
@@ -27,9 +28,12 @@ slot whose `valid` is False, reads zero. Selected reads come back as
 (C2, T, B), the JAX contract without its padding.
 
 On a CUDA tensor each entry point launches its hand-written Hopper
-kernel in `csrc/i8_tails.cu` (its header says what bounds the kernels
-and how they cut the work) or raises; on a CPU tensor it runs its plain
-version `*_ref`. Nothing falls back from one to the other. The TPU
+kernel or raises: onepass_tables_i8 and onepass_scores_i8 the lookup and
+sel3 kernels of `csrc/i8_score.cu` (the combo kernel's int8 mma walk with
+another work plan or epilogue), the other two theirs in
+`csrc/i8_tails.cu`; each header says what bounds the kernels and how they
+cut the work. On a CPU tensor each runs its plain version `*_ref`.
+Nothing falls back from one to the other. The TPU
 kernels' δ-block and grouped weight arrays, scan-minor packing, lane
 padding and SEL_TP slot padding are not carried over: the weights are
 the quantized templates themselves, as for the combo kernel.
@@ -39,10 +43,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from radarml_tpu_torch.ops import i8_score
 from radarml_tpu_torch.ops.i8_score import (
     CombinedWeights,
     build_combined_weights,
@@ -56,6 +62,8 @@ __all__ = [
     "OnepassWeights",
     "build_grouped_weights",
     "build_onepass_weights",
+    "lookup_plan",
+    "lookup_plan_on_card",
     "onepass_scores_i8",
     "onepass_scores_i8_ref",
     "onepass_tables_grouped_i8",
@@ -64,6 +72,7 @@ __all__ = [
     "onepass_tables_i8_ref",
     "onepass_tables_sel_i8",
     "onepass_tables_sel_i8_ref",
+    "part_slabs",
 ]
 
 #: Launches of each CUDA kernel in this process, by entry point. Only the
@@ -74,12 +83,10 @@ LAUNCHES = dict.fromkeys(
     0,
 )
 
-Z_CHUNK = 16  # z-extent of one block of the z-split kernel (16-byte loads)
-
 Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-#: The weights of the z-split, sel and sel3 kernels: the quantized
+#: The weights of the lookup, sel and sel3 kernels: the quantized
 #: templates, as the combo kernel takes them.
 OnepassWeights = CombinedWeights
 
@@ -173,6 +180,51 @@ def onepass_scores_i8_ref(
     return _read(m1, idx[..., 1], 1), _read(m2, idx[..., 0], 1), _read(m3, idx[..., 2], 0)
 
 
+# -- the lookup kernel's work plan ---------------------------------------------
+
+
+def lookup_plan(B: int, X: int, resident: int, slab_width: int) -> Tuple[int, int]:
+    """How the lookup kernel cuts a batch of B scans: (P, XS), each scan in
+    P parts of contiguous x-slabs XS wide (`part_slabs`).
+
+    `resident` is the number of its blocks the card holds at once with
+    whole scans and `slab_width` that plan's slab width (the combo
+    kernel's). From B = resident on, P = 1: whole scans, one persistent
+    block per SM, as the combo kernel walks them. Below that, idle blocks
+    can take parts: resident / B of them a scan, rounded down or up, with a
+    narrower slab where that gives more slabs and never more parts than
+    slabs, so each part is at least one slab. The kernel runs min(B,
+    resident / P) scans at a time, so a block may walk its part of several
+    scans; of whole scans and the two roundings, the plan whose busiest
+    block walks the fewest x rows wins, the one with more parts on a tie
+    (a part's block loads fewer template rows).
+    """
+
+    def cdiv(a: int, b: int) -> int:
+        return -(-a // b)
+
+    def cut(want: int) -> Tuple[int, int]:
+        xs = min(slab_width, cdiv(X, want))
+        return min(want, cdiv(X, xs)), xs
+
+    def busiest(P: int, XS: int) -> int:  # x rows of the busiest block
+        rounds = cdiv(B, min(B, max(1, resident // P)))
+        return rounds * min(X, cdiv(cdiv(X, XS), P) * XS)
+
+    best = (1, slab_width)
+    for want in (resident // B, -(-resident // B)):
+        if want >= 2 and busiest(*cut(want)) <= busiest(*best):
+            best = cut(want)
+    return best
+
+
+def part_slabs(X: int, XS: int, P: int) -> List[Tuple[int, int]]:
+    """The slab ranges [s0, s1) of a scan's P parts, as the kernel cuts
+    them: part p takes slabs p·n/P up to (p+1)·n/P of the n = ⌈X/XS⌉."""
+    n = -(-X // XS)
+    return [(p * n // P, (p + 1) * n // P) for p in range(P)]
+
+
 # -- CUDA kernels --------------------------------------------------------------
 
 
@@ -181,38 +233,58 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("i8_tails")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, nptr in (("i8_tails_tables_zsplit", 7), ("i8_tails_tables_ysplit", 7)):
-        getattr(lib, fn).argtypes = [p] * nptr + [i] * 6 + [p]
+    lib.i8_tails_tables_ysplit.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.i8_tails_tables_sel.argtypes = [p] * 8 + [i] * 6 + [p]
-    lib.i8_tails_scores.argtypes = [p] * 9 + [i] * 6 + [p]
-    for fn in ("i8_tails_tables_zsplit", "i8_tails_tables_ysplit",
-               "i8_tails_tables_sel", "i8_tails_scores"):
+    for fn in ("i8_tails_tables_ysplit", "i8_tails_tables_sel"):
         getattr(lib, fn).restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lookup_shape(device: int, dims: Tuple[int, int, int], c2: int,
+                  planes: Tuple[bool, bool, bool]) -> Tuple[int, int]:
+    """(resident blocks, slab width) of the lookup kernel's whole-scan plan
+    on CUDA card `device`; raises on a CUDA error."""
+    lib = i8_score._library()
+    with torch.cuda.device(device):
+        resident = lib.i8_score_lookup_resident(*dims, c2, *planes)
+    if resident <= 0:
+        raise RuntimeError(f"i8_score_lookup_resident failed: CUDA error {-resident} "
+                           f"(dims={dims}, C2={c2})")
+    return resident, lib.i8_score_slab_width(*dims, c2, *planes)
+
+
+def lookup_plan_on_card(B: int, weights: CombinedWeights) -> Tuple[int, int]:
+    """`lookup_plan` for B scans with these weights on their CUDA card:
+    (P, XS), as onepass_tables_i8 launches it (builds the kernel if
+    needed)."""
+    planes = tuple(q is not None for q in (weights.q_xz, weights.q_yz, weights.q_xy))
+    resident, width = _lookup_shape(weights.device.index, weights.dims[:3], weights.c2,
+                                    planes)
+    return lookup_plan(B, weights.dims[0], resident, width)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, fn: str, cube: torch.Tensor, weights: CombinedWeights,
-            extra_in: tuple, outs: tuple, extra_int: int) -> None:
+def _launch(name: str, lib: ctypes.CDLL, fn: str, cube: torch.Tensor,
+            weights: CombinedWeights, extra_in: tuple, outs: tuple, *ints: int) -> None:
     """Call the library's `fn` on the cube's current stream, raise on a
     CUDA error, and count the launch under `name`."""
     X, Y, Z, _ = weights.dims
-    lib = _library()
     dev = cube.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, fn)(
             cube.data_ptr(), _ptr(weights.q_xz), _ptr(weights.q_yz),
             _ptr(weights.q_xy), *extra_in, *(o.data_ptr() for o in outs),
-            cube.shape[0], X, Y, Z, weights.c2, extra_int, stream,
+            cube.shape[0], X, Y, Z, weights.c2, *ints, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"{fn} launch failed: CUDA error {err} (B={cube.shape[0]}, "
-            f"dims={(X, Y, Z)}, C2={weights.c2}, arg={extra_int})"
+            f"dims={(X, Y, Z)}, C2={weights.c2}, args={ints})"
         )
     LAUNCHES[name] += 1
 
@@ -234,16 +306,18 @@ def _jax_order(t1, t2, t3) -> Tables:
 
 def onepass_tables_i8(cube: torch.Tensor, weights: CombinedWeights) -> Tables:
     """The three one-pass tables of a (B, X, Y, Z) int8 cube batch, the
-    kernel cutting each scan into ⌈Z / Z_CHUNK⌉ blocks along z.
+    kernel cutting each scan into the parts of `lookup_plan`.
 
     Returns int32 m1 (C2, Y, B), m2 (C2, X, B), m3 (Z, C2, B); on a CUDA
     tensor these are permuted views of scan-major buffers.
     """
     if not launches_kernel(cube, weights):
         return onepass_tables_i8_ref(cube, weights)
-    outs = _table_outputs(cube, weights, (True, True, False))
-    _launch("onepass_tables_i8", "i8_tails_tables_zsplit", cube, weights, (),
-            outs, Z_CHUNK)
+    P, XS = lookup_plan_on_card(cube.shape[0], weights)
+    # at P > 1 the C entry zeroes the m1 and m3 that the parts add into
+    outs = _table_outputs(cube, weights, (False, False, False))
+    _launch("onepass_tables_i8", i8_score._library(), "i8_score_lookup_tables", cube,
+            weights, (), outs, XS, P)
     return _jax_order(*outs)
 
 
@@ -257,7 +331,7 @@ def onepass_tables_grouped_i8(cube: torch.Tensor, weights: GroupedWeights) -> Ta
     if not launches_kernel(cube, weights):
         return onepass_tables_grouped_i8_ref(cube, weights)
     outs = _table_outputs(cube, weights, (False, True, True))
-    _launch("onepass_tables_grouped_i8", "i8_tails_tables_ysplit", cube,
+    _launch("onepass_tables_grouped_i8", _library(), "i8_tails_tables_ysplit", cube,
             weights, (), outs, weights.y_group)
     return _jax_order(*outs)
 
@@ -289,7 +363,7 @@ def onepass_tables_sel_i8(
     B = cube.shape[0]
     t1, t2, _ = _table_outputs(cube, weights, (False, False, False))
     d3 = torch.empty((B, k.shape[1], weights.c2), dtype=torch.int32, device=cube.device)
-    _launch("onepass_tables_sel_i8", "i8_tails_tables_sel", cube, weights,
+    _launch("onepass_tables_sel_i8", _library(), "i8_tails_tables_sel", cube, weights,
             (k.data_ptr(),), (t1, t2, d3), k.shape[1])
     return t1.permute(1, 2, 0), t2.permute(1, 2, 0), d3.permute(2, 1, 0)
 
@@ -317,6 +391,6 @@ def onepass_scores_i8(
         torch.empty((B, T, weights.c2), dtype=torch.int32, device=cube.device)
         for _ in range(3)
     )
-    _launch("onepass_scores_i8", "i8_tails_scores", cube, weights,
-            (idx.data_ptr(), _ptr(ok)), outs, T)
+    _launch("onepass_scores_i8", i8_score._library(), "i8_score_sel3_scores", cube,
+            weights, (idx.data_ptr(), _ptr(ok)), outs, T)
     return tuple(o.permute(2, 1, 0) for o in outs)

@@ -1,6 +1,6 @@
 """Where the hand-written kernels spend their time: a probe for the card.
 
-    python3 -m radarml_tpu_torch.utils.kernel_probe [rbf] [i8] [native] [traces] [--earlier FILE.cu]
+    python3 -m radarml_tpu_torch.utils.kernel_probe [rbf] [i8] [tails] [native] [traces] [--earlier FILE.cu]
 
 It builds variants of `ops/csrc/rbf_gram.cu`, `ops/csrc/i8_score.cu` and
 `ops/csrc/native_score.cu` by patching their text (every patch must match the committed source
@@ -22,12 +22,22 @@ float64 is taken on the 1824 equal rows' Gram at gamma 0.1):
   kstep_from_zero     the tensor core sums one k-step (8 columns) from zero
                       and every k-step is added round to nearest, two in
                       flight: less error, four times the adds
-i8 (default arena, 6 class rows, B = 4096 and 64):
+i8 (the combo kernel of i8_score.cu; default arena, 6 class rows, B = 4096
+and 64):
   as_committed  the kernel as it is
   loads_only    no t1 / t2 / t3 steps: the slab pipeline alone
   warps_24      24 warps a block instead of 16
   clocks        clock64 around the phases of a slab, summed over the
                 blocks by warp 0 and warp 15: clocks per slab
+tails (the lookup and sel3 kernels, which share the combo kernel's walk;
+the same shapes, 4 target slots a scan for sel3), beside the combo kernel
+in the same build: device ms at B = 4096 and 64, as_committed, loads_only
+(the i8 patches of that name) and sel3_barrier (sel3 reads, waits at a
+block barrier and clears its set in the epilogue instead of ahead of the
+next scan's last slab); the lookup kernel also at B = 1, 7, 100, 131, 132 and 133
+under ops/i8_tails.lookup_plan, and under other plans, each checked
+against the committed plan's tables: B = 64 with 3 parts (resident / B
+rounded up), B = 100 and 131 with whole scans
 native (B7; default arena, 3 random classes, B = 4096 and 64; each
 variant's registers and spills as ptxas reports them, and its largest
 |error| against the plain version):
@@ -61,7 +71,7 @@ from pathlib import Path
 
 import torch
 
-from radarml_tpu_torch.ops import _cuda_build, i8_score, rbf, score
+from radarml_tpu_torch.ops import _cuda_build, i8_score, i8_tails, rbf, score
 from radarml_tpu_torch.utils import profiling
 from radarml_tpu_torch.utils.profiling import kernel_device_ms
 
@@ -232,8 +242,8 @@ I8_VARIANTS = {
         ("namespace {\n\nconstexpr int kMaxC2",
          "namespace {\n__device__ unsigned long long probe_clk[16];\n" + I8_TICK
          + "\nconstexpr int kMaxC2"),
-        ("  int b = blockIdx.x, s = 0, set = 0;",
-         "  long long t_ = clock64();\n  int b = blockIdx.x, s = 0, set = 0;"),
+        ("  int b = b0, s = s0, set = 0;",
+         "  long long t_ = clock64();\n  int b = b0, s = s0, set = 0;"),
         ("    if (vec) mbar_wait(&full_bar[u & 1], (u >> 1) & 1);  // unit u has landed\n",
          "    TICK(0)\n    if (vec) mbar_wait(&full_bar[u & 1], (u >> 1) & 1);\n    TICK(1)\n"),
         ("    // t3 on the tensor cores: D[z, c]", "    TICK(2)\n    // t3 on the tensor cores: D[z, c]"),
@@ -273,8 +283,8 @@ def probe_i8(tmp: Path) -> None:
             return t
 
         line = (f"i8 {variant}: device "
-                f"{device_ms(lambda: tables(4096), 'onepass_tables_kernel', 20):.4f} ms at B=4096, "
-                f"{device_ms(lambda: tables(64), 'onepass_tables_kernel', 20):.4f} ms at B=64")
+                f"{device_ms(lambda: tables(4096), 'combo_tables_kernel', 20):.4f} ms at B=4096, "
+                f"{device_ms(lambda: tables(64), 'combo_tables_kernel', 20):.4f} ms at B=64")
         if variant == "clocks":
             lib.i8_score_probe_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
             out = (ctypes.c_ulonglong * 16)()
@@ -291,6 +301,83 @@ def probe_i8(tmp: Path) -> None:
                          + ", ".join(f"{n} {out[base + k] / slabs:.0f}"
                                      for k, n in enumerate(names))
                          + f" (sum {sum(out[base:base + 6]) / slabs:.0f})")
+        print(line, flush=True)
+
+
+TAILS_VARIANTS = {
+    "as_committed": [],
+    "loads_only": I8_SKIP,
+    # sel3 reads, waits at a block barrier and clears in its epilogue
+    # instead of clearing each set ahead of the next scan's last slab
+    "sel3_barrier": [("    cleared_ahead = ns > 1;\n", "    cleared_ahead = false;\n")],
+}
+
+
+def probe_tails(tmp: Path) -> None:
+    libs = build_variants("i8_score", TAILS_VARIANTS, tmp)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X, Y, Z, C2, T = 22, 31, 176, 6, 4
+    q = [torch.randint(-127, 128, (C2,) + sh, generator=gen, device=dev, dtype=torch.int8)
+         for sh in ((X, Z), (Y, Z), (X, Y))]
+    cube = torch.randint(-128, 128, (4096, X, Y, Z), generator=gen, device=dev, dtype=torch.int8)
+    ijk = torch.stack([torch.randint(0, n, (4096, T), generator=gen, device=dev)
+                       for n in (X, Y, Z)], -1).to(torch.int32)
+    qp = [t_.data_ptr() for t_ in q]
+    for variant, lib in libs.items():
+        i8_score._bind(lib)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        resident = lib.i8_score_lookup_resident(X, Y, Z, C2, 1, 1, 1)
+        width = lib.i8_score_slab_width(X, Y, Z, C2, 1, 1, 1)
+
+        def combo(B, lib=lib):
+            t = [torch.empty(sh, dtype=torch.int32, device=dev)
+                 for sh in ((B, C2, Y), (B, C2, X), (B, Z, C2))]
+            err = lib.i8_score_onepass_tables(cube.data_ptr(), *qp, *[t_.data_ptr() for t_ in t],
+                                              B, X, Y, Z, C2, stream)
+            if err != 0:
+                raise RuntimeError(f"i8_score_onepass_tables launch failed: CUDA error {err}")
+            return t
+
+        def lookup(B, plan=None, lib=lib):
+            P, XS = plan or i8_tails.lookup_plan(B, X, resident, width)
+            t = [torch.empty(sh, dtype=torch.int32, device=dev)
+                 for sh in ((B, C2, Y), (B, C2, X), (B, Z, C2))]
+            err = lib.i8_score_lookup_tables(cube.data_ptr(), *qp, *[t_.data_ptr() for t_ in t],
+                                             B, X, Y, Z, C2, XS, P, stream)
+            if err != 0:
+                raise RuntimeError(f"i8_score_lookup_tables launch failed: CUDA error {err}")
+            return t
+
+        def sel3(B, lib=lib):
+            s = [torch.empty((B, T, C2), dtype=torch.int32, device=dev) for _ in range(3)]
+            err = lib.i8_score_sel3_scores(cube.data_ptr(), *qp, ijk.data_ptr(), None,
+                                           *[s_.data_ptr() for s_ in s], B, X, Y, Z, C2, T,
+                                           stream)
+            if err != 0:
+                raise RuntimeError(f"i8_score_sel3_scores launch failed: CUDA error {err}")
+            return s
+
+        parts = []
+        for name, fn, symbol in (("combo", combo, "combo_tables_kernel"),
+                                 ("lookup", lookup, "lookup_tables_kernel"),
+                                 ("sel3", sel3, "sel3_scores_kernel")):
+            parts.append(f"{name} " + " / ".join(
+                f"{device_ms(lambda B=B, fn=fn: fn(B), symbol, 20):.4f}" for B in (4096, 64)))
+        line = (f"tails {variant}: device ms at B=4096 / 64: " + ", ".join(parts)
+                + f" (resident blocks {resident}, slab width {width})")
+        if variant == "as_committed":
+            sweep = []
+            for B in (1, 7, 100, 131, 132, 133):
+                P, XS = i8_tails.lookup_plan(B, X, resident, width)
+                sweep.append(f"B={B} (P {P}, XS {XS}) "
+                             f"{device_ms(lambda B=B: lookup(B), 'lookup_tables_kernel', 20):.4f}")
+            for B, plan in ((64, (3, 8)), (100, (1, width)), (131, (1, width))):
+                if not all(torch.equal(a, b) for a, b in zip(lookup(B, plan), lookup(B))):
+                    raise AssertionError(f"lookup tables at B={B} differ under the plan {plan}")
+                ms = device_ms(lambda B=B, plan=plan: lookup(B, plan), "lookup_tables_kernel", 20)
+                sweep.append(f"B={B} forced (P {plan[0]}, XS {plan[1]}) {ms:.4f}")
+            line += "; lookup " + ", ".join(sweep)
         print(line, flush=True)
 
 
@@ -438,7 +525,7 @@ def main(argv) -> None:
     if "--earlier" in argv:
         i = argv.index("--earlier")
         earlier, argv = argv[i + 1], argv[:i] + argv[i + 2:]
-    which = argv or ["rbf", "i8", "native"]
+    which = argv or ["rbf", "i8", "tails", "native"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -448,6 +535,8 @@ def main(argv) -> None:
             probe_rbf(Path(tmp))
         if "i8" in which:
             probe_i8(Path(tmp))
+        if "tails" in which:
+            probe_tails(Path(tmp))
         if "native" in which:
             probe_native(Path(tmp), earlier)
     if "traces" in which:

@@ -324,20 +324,113 @@ def test_wrappers_on_cpu_are_the_plain_versions(rng):
     assert torch.equal(pairs[0][0][0], m1)
 
 
+# (B, X, resident blocks, whole-scan slab width): the default arena on 132
+# SMs at one block each, a wide arena whose whole scans take several slabs,
+# one slab a scan, and a card with two blocks an SM.
+PLANS = [(B, 22, 132, 11) for B in (1, 2, 7, 33, 44, 64, 65, 66, 67, 100, 131)]
+PLANS += [(B, 40, 132, 6) for B in (1, 3, 10, 64)]
+PLANS += [(B, 5, 132, 5) for B in (1, 5, 33, 70)]
+PLANS += [(B, 22, 264, 11) for B in (1, 64, 132, 200)]
+
+
+def _busiest_rows(B, X, resident, P, XS):
+    """x rows the busiest block of the lookup kernel walks: it runs
+    min(B, resident // P) scans at a time, one block a part."""
+    rounds = -(-B // min(B, max(1, resident // P)))
+    return rounds * max(min(X, s1 * XS) - s0 * XS for s0, s1 in tt.part_slabs(X, XS, P))
+
+
+@pytest.mark.parametrize("B,X,resident,width", PLANS)
+def test_lookup_plan_covers_every_slab_once(B, X, resident, width):
+    """lookup_plan cuts a scan into 1..(its slab count) parts, each at
+    least one slab, together every slab exactly once, no wider than the
+    whole-scan slab; its busiest block walks no more x rows than with
+    whole scans, and it cuts scans whenever two parts a scan run at once."""
+    P, XS = tt.lookup_plan(B, X, resident, width)
+    nslab = -(-X // XS)
+    assert 1 <= XS <= width and 1 <= P <= nslab
+    parts = tt.part_slabs(X, XS, P)
+    assert len(parts) == P and all(s1 > s0 for s0, s1 in parts)
+    assert [s for s0, s1 in parts for s in range(s0, s1)] == list(range(nslab))
+    assert _busiest_rows(B, X, resident, P, XS) <= _busiest_rows(B, X, resident, 1, width)
+    if resident // B >= 2 and X > 1:
+        assert P > 1
+
+
+@pytest.mark.parametrize("X,resident,width", [(22, 132, 11), (40, 132, 6), (5, 132, 5)])
+def test_lookup_plan_takes_whole_scans_at_and_above_the_resident_blocks(X, resident, width):
+    """From one scan a resident block on, the lookup kernel walks whole
+    scans with the combo kernel's slab width."""
+    for B in (resident, resident + 1, 2 * resident, 4096):
+        assert tt.lookup_plan(B, X, resident, width) == (1, width)
+
+
+@pytest.mark.parametrize("dims,B", [((5, 7, 9), 1), ((9, 13, 180), 7), (DEFAULT, 64)])
+def test_parts_add_up_to_the_tables(rng, dims, B):
+    """The lookup kernel's split, worked in int64 numpy: each part's m1 and
+    m3 over its x rows, added, and its own m2 rows give the oracle tables."""
+    port_q, _ = _quant(rng, dims)
+    cubes = _cubes(rng, B, dims)
+    v = cubes.astype(np.int64) - 128
+    qxz, qyz, qxy = (q[0].astype(np.int64) for q in port_q)
+    X = dims[0]
+    P, XS = tt.lookup_plan(B, X, 132, -(-X // 2))
+    assert P > 1
+    m1, m3 = 0, 0
+    m2 = np.full((qyz.shape[0], X, B), -1, np.int64)
+    for s0, s1 in tt.part_slabs(X, XS, P):
+        x = slice(s0 * XS, min(X, s1 * XS))
+        m1 = m1 + np.einsum("cxz,bxyz->cyb", qxz[:, x], v[:, x])
+        m3 = m3 + np.einsum("cxy,bxyz->zcb", qxy[:, x], v[:, x])
+        assert (m2[:, x] == -1).all()  # each m2 row is stored by one part
+        m2[:, x] = np.einsum("cyz,bxyz->cxb", qyz, v[:, x])
+    for got, want in zip((m1, m2, m3), _oracle(port_q, cubes)):
+        np.testing.assert_array_equal(got, want)
+
+
+def _probe_variants():
+    from radarml_tpu_torch.utils import kernel_probe
+
+    return sorted(kernel_probe.TAILS_VARIANTS)
+
+
+@pytest.mark.parametrize("variant", _probe_variants())
+def test_probe_patches_fit_the_source(variant):
+    """utils/kernel_probe.py's tails section builds variants of
+    csrc/i8_score.cu by text patches that must each match the committed
+    source exactly once: an edit to the lookup or sel3 kernels that moves
+    a patched line must bring the patch along."""
+    from radarml_tpu_torch.ops import _cuda_build
+    from radarml_tpu_torch.utils import kernel_probe
+
+    source = (_cuda_build.CSRC / "i8_score.cu").read_text()
+    text = kernel_probe.patched(source, kernel_probe.TAILS_VARIANTS[variant])
+    assert (text == source) == (variant == "as_committed")
+
+
 @pytest.mark.cuda
 def test_kernels_on_the_card():
     """On a card: each of the four wrappers launches its kernel (counted)
     and equals its plain version bit for bit, at the default arena with
-    small and odd batches, each plane masked, levels 2 and 1, y-groups that
-    do not divide Y, and -1 / invalid slots."""
+    small and odd batches on both sides of the batch below which the
+    lookup kernel cuts scans, each plane masked, levels 2 and 1, y-groups
+    that do not divide Y, and -1 / past-the-end / invalid slots."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    w = tt.build_onepass_weights(_quant(rng, DEFAULT)[0], DEFAULT, device=dev)
+    assert tt.lookup_plan_on_card(1, w)[0] > 1
+    assert tt.lookup_plan_on_card(64, w)[0] > 1
+    assert tt.lookup_plan_on_card(133, w)[0] == 1
     for dims, B, masked, levels in (
             (DEFAULT, 7, None, 2), (DEFAULT, 3, 0, 2), (DEFAULT, 2, 1, 2),
             (DEFAULT, 1, 2, 2), ((5, 7, 9), 5, None, 2), ((9, 13, 180), 3, None, 2),
-            (DEFAULT, 5, None, 1), ((5, 7, 9), 4, 2, 1)):
+            (DEFAULT, 5, None, 1), ((5, 7, 9), 4, 2, 1),
+            (DEFAULT, 64, None, 2), (DEFAULT, 64, 0, 2), (DEFAULT, 64, 1, 2),
+            (DEFAULT, 64, 2, 2), (DEFAULT, 64, None, 1), (DEFAULT, 131, None, 2),
+            (DEFAULT, 132, None, 2), (DEFAULT, 133, 1, 2), (DEFAULT, 300, None, 2),
+            (DEFAULT, 300, None, 1), ((9, 13, 180), 131, 0, 1), ((5, 7, 9), 133, None, 2)):
         port_q, _ = _quant(rng, dims, masked, levels=levels)
         cube = ts.pack_cubes_i8(_cubes(rng, B, dims)).to(dev)
         ijk = torch.from_numpy(_ijk(rng, dims, B, 4)).to(dev)

@@ -6,24 +6,25 @@ Phases, one line of findings each; any failure raises (non-zero exit):
 
 1. device  — a CUDA card is present; its name and power limit.
 2. build   — every hand-written kernel (radarml_tpu_torch/ops/csrc/
-             i8_score.cu, i8_tails.cu, rbf_gram.cu and native_score.cu)
-             is compiled from the checkout's sources by nvcc, one process
-             per source, all started together.
+             i8_score.cu, rbf_gram.cu and native_score.cu) is compiled from
+             the checkout's sources by nvcc, one process per source, all
+             started together.
 3. kernel  — each int8 kernel equals its plain PyTorch version
              (torch.equal) on random int8 cubes. The combo kernel (B1) at
              the default arena, B 1 / 7 / 64 / 133 / 256 / 4096, levels 2
              and 1, each plane masked in turn, a cube view that starts one
              byte into its buffer (the byte-copy path), an odd arena
              (9, 13, 180) and a small one (5, 7, 9). The lookup (B3),
-             y-split (B2), sel (B4) and sel3 (B5) kernels at levels 2:
+             glookup (B2), sel (B4) and sel3 (B5) kernels at levels 2:
              B 1 / 7 / 64 / 131 / 132 / 133 / 300 / 4096 at the default
-             arena (both sides of the batch below which the lookup kernel
-             cuts scans into parts), each plane masked in turn, an odd
-             arena (9, 13, 180) and a small one (5, 7, 9); at levels 1
-             (C2 = 3): B 64 / 4096 at the default arena and the small one
-             with a masked plane; the y-split at y-groups 16 / 8 / 31 / 5;
-             sel and sel3 with 4 slots holding -1 indices, an index past
-             the end and (sel3) invalid slots. The bf16 table kernel (B7) against
+             arena (both sides of the batch below which the lookup and
+             glookup kernels cut scans into parts), each plane masked in
+             turn, an odd arena (9, 13, 180) and a small one (5, 7, 9, one
+             slab a scan); at levels 1 (C2 = 3): B 64 / 4096 at the
+             default arena and the small one with a masked plane; glookup
+             at y-groups 16 / 8 / 31 / 5; sel and sel3 with 4 slots holding
+             -1 indices, an index past the end and (sel3) invalid slots,
+             sel also with no slot. The bf16 table kernel (B7) against
              its plain float32 version and a float64 oracle on the same
              bf16 cube: B 1 / 7 / 64 / 300 / 4096 at the default arena
              with C 3 and 2, B 7 there with C 1 / 5 / 7 and with a cube
@@ -58,9 +59,10 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              and B=64, with the kernel's own device time from a
              torch.profiler trace beside it (at B=64 the wrapper's host
              dispatch can outlast the kernel), and B7 beside the fast f32
-             path's three float32 einsums on the same cube; the y-split
-             kernel's device time over y-groups 5 / 8 / 16 / 31; the lookup
-             kernel's at B 1 / 7 / 131 / 132 / 133 with its plan; and fused
+             path's three float32 einsums on the same cube; the lookup and
+             glookup kernels' at B 1 / 7 / 64 / 131 / 132 / 133 with their
+             plans (and the glookup plan at y-groups 5 / 16 / 31, which is
+             one plan); and fused
              (every tail) / fast int8 / fast f32 / pallas (bf16 and f32
              streams) / exact scans per second at B=4096 with inputs
              resident on the card.
@@ -109,8 +111,8 @@ TFLOP/s outside the tensor cores; for the RBF Gram the fastest
 float32-grade route, three TF32 products per product at 495 TFLOP/s, with
 the FP32-FMA bound kept beside it as bound_ms_fp32), computed from this
 run's shapes. Every other number in the kernel record was measured in
-this run; the times of the five earlier designs that were replaced
-(B1 and B6 by tensor-core kernels, B7 by its bulk-copy ring, B3 and B5 by
+this run; the times of the seven earlier designs that were replaced
+(B1 and B6 by tensor-core kernels, B7 by its bulk-copy ring, B2-B5 by
 B1's walk; PERF.md section 6) appear only in the progress lines, labelled
 as earlier. No single PyTorch call
 computes any of these functions, so library_ms is null (B7's record
@@ -157,7 +159,6 @@ KERNEL_SOURCE = "radarml_tpu_torch/ops/csrc/i8_score.cu"
 REPLACES = "radarml_tpu/ops/pallas_i8_score.py:804"
 RBF_SOURCE = "radarml_tpu_torch/ops/csrc/rbf_gram.cu"
 RBF_REPLACES = "radarml_tpu/ops/pallas_rbf.py:29"
-TAILS_SOURCE = "radarml_tpu_torch/ops/csrc/i8_tails.cu"
 NATIVE_SOURCE = "radarml_tpu_torch/ops/csrc/native_score.cu"
 NATIVE_REPLACES = "radarml_tpu/ops/pallas_score.py:78"
 # Entry point -> its CUDA kernel's function name, as a profiler trace shows
@@ -165,21 +166,20 @@ NATIVE_REPLACES = "radarml_tpu/ops/pallas_score.py:78"
 KERNEL_SYMBOLS = {
     "onepass_tables_combined_i8": "combo_tables_kernel",
     "onepass_tables_i8": "lookup_tables_kernel",
-    "onepass_tables_grouped_i8": "tables_ysplit_kernel",
-    "onepass_tables_sel_i8": "tables_sel_kernel",
+    "onepass_tables_grouped_i8": "grouped_tables_kernel",
+    "onepass_tables_sel_i8": "sel_tables_kernel",
     "onepass_scores_i8": "sel3_scores_kernel",
     "native_tables": "native_tables_kernel",
 }
 RBF_SYMBOLS = {"gram": "rbf_gram_kernel", "pack_x": "rbf_pack_kernel<false>",
                "pack_s": "rbf_pack_kernel<true>"}
-# The four other int8 kernels: entry point -> (fused_tail, TPU kernel body,
-# CUDA source).
+# The four other int8 kernels, all in KERNEL_SOURCE: entry point ->
+# (fused_tail, TPU kernel body).
 TAIL_KERNELS = {
-    "onepass_tables_i8": ("lookup", "radarml_tpu/ops/pallas_i8_score.py:376", KERNEL_SOURCE),
-    "onepass_tables_grouped_i8": ("glookup", "radarml_tpu/ops/pallas_i8_score.py:556",
-                                  TAILS_SOURCE),
-    "onepass_tables_sel_i8": ("sel", "radarml_tpu/ops/pallas_i8_score.py:250", TAILS_SOURCE),
-    "onepass_scores_i8": ("sel3", "radarml_tpu/ops/pallas_i8_score.py:998", KERNEL_SOURCE),
+    "onepass_tables_i8": ("lookup", "radarml_tpu/ops/pallas_i8_score.py:376"),
+    "onepass_tables_grouped_i8": ("glookup", "radarml_tpu/ops/pallas_i8_score.py:556"),
+    "onepass_tables_sel_i8": ("sel", "radarml_tpu/ops/pallas_i8_score.py:250"),
+    "onepass_scores_i8": ("sel3", "radarml_tpu/ops/pallas_i8_score.py:998"),
 }
 HBM_BYTES_S, INT8_OPS_S, FP32_FLOPS_S = 3.35e12, 1.979e15, 67e12  # H100 SXM peaks
 TF32_FLOPS_S = 495e12  # dense TF32 on the tensor cores
@@ -198,6 +198,11 @@ EARLIER_B7_DEVICE_MS = {4096: 1.8097, 64: 0.0787}
 # for the progress lines only, like the three above.
 EARLIER_B3_DEVICE_MS = {4096: 1.8404, 64: 0.0367}
 EARLIER_B5_DEVICE_MS = {4096: 1.1506, 64: 0.0617}
+# B2 as a y-split (y-groups of 16) and B4 as one block a scan, both on
+# __dp4a (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W): device ms at
+# B=4096 and B=64, for the progress lines only, like the five above.
+EARLIER_B2_DEVICE_MS = {4096: 0.9269, 64: 0.0344}
+EARLIER_B4_DEVICE_MS = {4096: 1.1478, 64: 0.0614}
 N_SLICE, BIG, SMALL_B, N_STREAM_SEL3 = 512, 4096, 64, 128
 GOLDEN_DECISION_MARGIN = 1e-4
 # The SVC's probabilities go through a 1823-term Gram row, the pair
@@ -415,7 +420,7 @@ def main() -> None:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 2. build ---------------------------------------------------------
-    sources = ("i8_score", "i8_tails", "rbf_gram", "native_score")
+    sources = ("i8_score", "rbf_gram", "native_score")
     for name in sources:
         stale = _cuda_build.library_path(name)
         if stale.exists():
@@ -424,7 +429,6 @@ def main() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         built = list(pool.map(_cuda_build.build, sources))
     i8_score._library()
-    i8_tails._library()
     rbf._library()
     score._library()
     say("build", ", ".join(p.name for p in built) + " by nvcc sm_90a, "
@@ -486,23 +490,26 @@ def main() -> None:
         for name, v in (("onepass_tables_i8", None), ("onepass_tables_sel_i8", None),
                         ("onepass_scores_i8", None), ("onepass_scores_i8", valid)):
             runs.append((name, tail_fns(name, w, cube, ijk, v)))
+        runs.append(("onepass_tables_sel_i8",  # no slot: only the tables leave
+                     tail_fns("onepass_tables_sel_i8", w, cube, ijk[:, :0], None)))
         for name, (kernel, plain) in runs:
             got = kernel()
             torch.cuda.synchronize()
             for g, r in zip(got, plain()):
                 check(g.shape == r.shape and g.dtype == torch.int32, f"{name} shape/dtype")
-                tail_err[name] = max(tail_err[name], int((g.long() - r.long()).abs().max()))
+                if g.numel():  # sel's reads are empty with no slot
+                    tail_err[name] = max(tail_err[name], int((g.long() - r.long()).abs().max()))
                 check(torch.equal(g, r), f"{name} != plain at dims={tdims} B={B} "
                       f"masked={masked} levels={levels}")
             if masked is not None:  # each output reads one plane's table
                 check(not got[masked].any(), f"{name}: masked plane gave non-zero")
             n_tail += 1
-    say("kernel", f"lookup, y-split, sel and sel3 equal their plain versions in "
+    say("kernel", f"lookup, glookup, sel and sel3 equal their plain versions in "
         f"{n_tail} runs ({len(tail_cases)} cases: B 1/7/64/131/132/133/300/4096, each "
         f"plane masked, "
         f"dims (9, 13, 180) and (5, 7, 9), levels 2 and (C2 = 3) 1; y-groups "
-        f"16/8/31/5; 4 slots with -1, past-the-end and invalid ones); "
-        f"max_abs_err {tail_err}")
+        f"16/8/31/5; 4 slots with -1, past-the-end and invalid ones, and sel with "
+        f"none); max_abs_err {tail_err}")
     native_err = native_f64 = 0.0
     # B 300: several scans a block, so the slab ring wraps; C 5 and 7 (the
     # most that fit at the default arena); "offset": a contiguous view 2
@@ -572,7 +579,7 @@ def main() -> None:
         "pallas": RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw),
         "pallas_f32": RadarPredictor(mode="pallas", **kw),
     }
-    for name, (tail, _, _) in TAIL_KERNELS.items():
+    for name, (tail, _) in TAIL_KERNELS.items():
         preds[f"fused_{tail}"] = RadarPredictor(mode="fused", fused_tail=tail, **kw)
     i8_score.KERNEL_LAUNCHES = 0  # count the main path's launches only
     for name in i8_tails.LAUNCHES:
@@ -594,7 +601,7 @@ def main() -> None:
               f"{name} shapes")
         check(np.isfinite(proba).all() and np.isfinite(best).all(), f"{name} finite")
         check((pr[~valid] == -1).all(), f"{name} padded slots not UNKNOWN")
-    split = ["fused"] + [f"fused_{tail}" for tail, _, _ in TAIL_KERNELS.values()]
+    split = ["fused"] + [f"fused_{tail}" for tail, _ in TAIL_KERNELS.values()]
     d_fused_fast = {}
     for name in split:
         check(np.array_equal(out[name][0], out["fast_i8"][0]),
@@ -672,7 +679,7 @@ def main() -> None:
     for d in dets3:
         check(d.label_index == pr3[d.seq, 0], f"sel3 stream label differs at {d.seq}")
         check(abs(d.proba - best3[d.seq, 0]) <= 1e-6, f"sel3 stream proba at {d.seq}")
-    for name, (tail, _, _) in TAIL_KERNELS.items():
+    for name, (tail, _) in TAIL_KERNELS.items():
         check(tail_launches[name] > 0, f"the {tail} path launched {name} no time")
     detsp, stp, wallp = drive_stream(preds["pallas"], u8, targets, N_STREAM_SEL3)
     native_launches = score.KERNEL_LAUNCHES
@@ -750,29 +757,31 @@ def main() -> None:
             log=retrace)["native_tables"]
         ms["bound"], ms["bound_by"] = native_bound(B, dims, tm_demo.dims[3])
         native_ms[B] = ms
-    # How the y-split kernel's device time moves with the y-group.
-    sweep = {}
-    for B in (BIG, SMALL_B):
-        for yg in (5, 8, 16, 31):
-            wy = i8_tails.build_grouped_weights(quant2, dims, yg, device=dev)
-            sweep[B, yg] = kernel_device_ms(
-                {"y": lambda c=packed[:B], wy=wy: i8_tails.onepass_tables_grouped_i8(c, wy)},
-                {"y": KERNEL_SYMBOLS["onepass_tables_grouped_i8"]}, reps=10,
-                log=retrace)["y"]
-    for B in (BIG, SMALL_B):
-        say("timing", f"B={B} y-split device ms by y_group: "
-            + ", ".join(f"{yg}: {v:.4f}" for (b, yg), v in sweep.items() if b == B))
-    # The lookup kernel on both sides of the batch below which it cuts scans.
-    lookup_ms = {
-        B: kernel_device_ms(
-            {"l": lambda c=packed[:B]: i8_tails.onepass_tables_i8(c, w_tails)},
-            {"l": KERNEL_SYMBOLS["onepass_tables_i8"]}, reps=20, log=retrace)["l"]
-        for B in (1, 7, 131, 132, 133)}
-    lookup_ms[SMALL_B] = int8_ms[SMALL_B]["onepass_tables_i8"]["device"]
-    say("timing", "lookup kernel device ms by batch, with its plan's parts P and slab "
-        "width XS: " + ", ".join(
-            "B={} (P {}, XS {}) {:.4f}".format(B, *i8_tails.lookup_plan_on_card(B, w_tails), v)
-            for B, v in sorted(lookup_ms.items())))
+    # The lookup and glookup kernels on both sides of the batch below which
+    # they cut scans, with the plan each launched.
+    for kernel, name, fn in (
+            ("lookup", "onepass_tables_i8", i8_tails.onepass_tables_i8),
+            ("grouped", "onepass_tables_grouped_i8", i8_tails.onepass_tables_grouped_i8)):
+        by_batch = {
+            B: kernel_device_ms({"k": lambda c=packed[:B], fn=fn: fn(c, w_tails)},
+                                {"k": KERNEL_SYMBOLS[name]}, reps=20, log=retrace)["k"]
+            for B in (1, 7, 131, 132, 133)}
+        by_batch[SMALL_B] = int8_ms[SMALL_B][name]["device"]
+        say("timing", f"{name} device ms by batch, with its plan's parts P and slab width "
+            "XS: " + ", ".join(
+                "B={} (P {}, XS {}) {:.4f}".format(
+                    B, *i8_tails.lookup_plan_on_card(B, w_tails, kernel), v)
+                for B, v in sorted(by_batch.items())))
+    # The y-group is the JAX kernel's tiling: the glookup plan ignores it.
+    yg_plans = {}
+    for yg in (5, 16, 31):
+        wy = i8_tails.build_grouped_weights(quant2, dims, yg, device=dev)
+        yg_plans[yg] = [i8_tails.lookup_plan_on_card(B, wy, "grouped")
+                        for B in (1, 7, SMALL_B, 131, 132, 133, BIG)]
+    check(len({tuple(p) for p in yg_plans.values()}) == 1,
+          f"the glookup plan depends on the y-group: {yg_plans}")
+    say("timing", "glookup plans (P, XS) at B 1/7/64/131/132/133/4096 for y-groups 5 / 16 / "
+        f"31: one plan, {yg_plans[16]}")
     inputs = {name: packed for name in split + ["fast_i8"]}
     inputs |= {"exact": f32_all, "fast": f32_all, "pallas": bf16_all, "pallas_f32": f32_all}
     step_ms = interleaved(
@@ -788,7 +797,9 @@ def main() -> None:
             + f"; earlier designs (PERF.md section 6, not measured here): "
             f"onepass_tables_combined_i8 on __dp4a device {EARLIER_B1_DEVICE_MS[B]} ms, "
             f"onepass_tables_i8 as a z-split {EARLIER_B3_DEVICE_MS[B]} ms, "
-            f"onepass_scores_i8 on __dp4a {EARLIER_B5_DEVICE_MS[B]} ms")
+            f"onepass_scores_i8 on __dp4a {EARLIER_B5_DEVICE_MS[B]} ms, "
+            f"onepass_tables_grouped_i8 as a y-split {EARLIER_B2_DEVICE_MS[B]} ms, "
+            f"onepass_tables_sel_i8 on __dp4a {EARLIER_B4_DEVICE_MS[B]} ms")
     for B in (BIG, SMALL_B):
         t = native_ms[B]
         say("timing", f"B={B} on {smi}: B7 native_tables {t['kernel']:.4f} ms (device "
@@ -1068,8 +1079,8 @@ def main() -> None:
                            launches, max_err)
                | {"ms_single": kernel_single["kernel"],
                   "plain_ms_single": kernel_single["plain"], "scans_per_s": rates}]
-    for name, (tail, replaces, source) in TAIL_KERNELS.items():
-        records.append(int8_record(name, source, replaces, tail_launches[name],
+    for name, (tail, replaces) in TAIL_KERNELS.items():
+        records.append(int8_record(name, KERNEL_SOURCE, replaces, tail_launches[name],
                                    tail_err[name])
                        | {"fused_tail": tail, "scans_per_s": rates[f"fused_{tail}"]})
     big, small = native_ms[BIG], native_ms[SMALL_B]

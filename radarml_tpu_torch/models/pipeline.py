@@ -456,7 +456,7 @@ class RadarPredictor:
         dims = scan.grid_shape
         if tail == "combo":
             weights = build_combined_weights(quant, dims, levels, device=self.device)
-        elif tail == "glookup":  # y-groups of 16 rows, or one group of Y
+        elif tail == "glookup":  # the JAX kernel's y-group; the card's plan ignores it
             weights = build_grouped_weights(
                 quant, dims, y_group=min(16, dims[1]), device=self.device
             )

@@ -1,15 +1,22 @@
 // One-pass int8 contraction tables for the fused predict path (Hopper, sm_90a).
 //
-// Three kernels share one block routine, walk_scans, and differ in how a
+// Five kernels share one block routine, walk_scans, and differ in how a
 // batch is cut and in what they write where a scan is complete:
-//   combo_tables_kernel  <- radarml_tpu/ops/pallas_i8_score.py ::
-//                           onepass_tables_combined_i8 (body _kernel_combined_zc),
-//                           the "combo" tail: the three tables
-//   lookup_tables_kernel <- onepass_tables_i8 (body _kernel), the "lookup"
-//                           tail: the same tables, a scan cut into parts
-//                           across blocks when the batch is small
-//   sel3_scores_kernel   <- onepass_scores_i8 (body _kernel_scores), the
-//                           "sel3" tail: only the target reads leave the block
+//   combo_tables_kernel   <- radarml_tpu/ops/pallas_i8_score.py ::
+//                            onepass_tables_combined_i8 (body _kernel_combined_zc),
+//                            the "combo" tail: the three tables
+//   lookup_tables_kernel  <- onepass_tables_i8 (body _kernel), the "lookup"
+//                            tail: the same tables, a scan cut into parts
+//                            across blocks when the batch is small
+//   grouped_tables_kernel <- onepass_tables_grouped_i8 (body
+//                            _kernel_grouped_tables), the "glookup" tail:
+//                            the lookup kernel under its own symbol (the
+//                            TPU kernel's y-groups are its tiling only)
+//   sel_tables_kernel     <- onepass_tables_sel_i8 (body _kernel_sel), the
+//                            "sel" tail: t1 and t2, and of t3 only the
+//                            target reads
+//   sel3_scores_kernel    <- onepass_scores_i8 (body _kernel_scores), the
+//                            "sel3" tail: only the target reads leave the block
 // For each scan b of an int8 cube batch v (B, X, Y, Z) holding value-128,
 // and int8 class templates qxz (C2, X, Z), qyz (C2, Y, Z), qxy (C2, X, Y),
 // the tables are
@@ -27,9 +34,9 @@
 // the MACs are 9 us of the int8 tensor cores. The kernels these replaced
 // took every dot product with __dp4a, and the dp4a rate set their pace:
 // the combo kernel's 2.2e9 dp4a per 4096 scans in 0.80 ms are 12 lanes a
-// clock per SM; the lookup and sel3 kernels (one block per tile of a scan,
-// synchronous loads, templates re-read from L2 per tile) took 1.84 and
-// 1.15 ms.
+// clock per SM; the lookup, sel3, glookup and sel kernels (one block per
+// tile of a scan, synchronous loads, templates re-read from L2 per tile)
+// took 1.84, 1.15, 0.93 and 1.15 ms.
 //
 // What the design does about it: all three contractions run on the int8
 // tensor cores as mma.sync m16n8k32 (s8 x s8 -> s32), the templates as the
@@ -38,9 +45,9 @@
 //   p takes slabs [p * nslab / P, (p + 1) * nslab / P), as
 //   ops/i8_tails.part_slabs computes them); block i takes part i % P of
 //   scans i / P, + G, + 2G, ... with G = gridDim.x / P, so a block keeps
-//   one part for its life. The combo and sel3 kernels take whole scans
+//   one part for its life. The combo, sel and sel3 kernels take whole scans
 //   (P = 1: one persistent block per SM walking scans b = blockIdx.x,
-//   + gridDim.x, ...). The lookup kernel takes P from the host
+//   + gridDim.x, ...). The lookup and glookup kernels take P from the host
 //   (ops/i8_tails.lookup_plan): 1 while the batch fills the resident
 //   blocks; below that resident / B parts, rounded down or up, whichever
 //   leaves the busiest block the fewest x rows, with a narrower slab where
@@ -85,20 +92,26 @@
 // - The scan's tables exist twice in shared memory and scans alternate, so
 //   a finished scan's set is handed to the kernel's epilogue while the next
 //   scan already sums into the other. The epilogues:
-//     StoreTables (combo; lookup at P = 1): every output element exactly
-//       once by plain stores, each cleared by the thread that wrote it, with
-//       no block barrier of its own (the set is next used two scans on);
-//     AddPart (lookup at P > 1): a part owns its x, so it stores its t2
-//       rows; it adds its t1 and t3 partials by int32 atomicAdd, exact in
-//       any order, into outputs its C entry zeroes on the stream first;
+//     StoreTables (combo; lookup and glookup at P = 1): every output
+//       element exactly once by plain stores, each cleared by the thread
+//       that wrote it, with no block barrier of its own (the set is next
+//       used two scans on);
+//     AddPart (lookup and glookup at P > 1): a part owns its x, so it
+//       stores its t2 rows; it adds its t1 and t3 partials by int32
+//       atomicAdd, exact in any order, into outputs its C entry zeroes on
+//       the stream first;
 //     ReadScores (sel3): the T x C2 reads s1 = t1[c, j], s2 = t2[c, i],
 //       s3 = t3[k, c] of each slot of the (B, T, 3) indices (zero for an
 //       index outside its range, -1 included, and for a slot whose valid
-//       byte is 0). Threads read elements that other threads clear, so a
-//       block barrier must separate the two: the set is cleared ahead of
-//       the next scan's last slab, after that scan's first slab barrier
-//       (a barrier in the epilogue, read / wait / clear, cost 5%), or,
-//       with one slab a scan, read / wait / clear.
+//       byte is 0);
+//     SelTables (sel): t1 and t2 stored as StoreTables stores them, and
+//       d3 = t3[k, c] of each slot's z index, read as ReadScores reads.
+//     In the last two, threads read elements that other threads clear, so
+//       a block barrier must separate the two (ReadThenClear, shared by
+//       both): the set is cleared ahead of the next scan's last slab, after
+//       that scan's first slab barrier (a barrier in the epilogue, read /
+//       wait / clear, cost 5%), or, with one slab a scan, read / wait /
+//       clear.
 // Where they stand (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
 // radarml_tpu_torch/utils/kernel_probe.py; PERF.md section 6): the combo
 // kernel 0.27 ms device at B=4096 against 0.800 for the dp4a kernel it
@@ -110,7 +123,9 @@
 // write-out. 24 warps were slower (0.279 ms), and so was giving each warp
 // a run of each kind (more, shorter runs). The lookup kernel takes the
 // combo kernel's time at B=4096 and 0.013 ms at B=64 (two parts a scan;
-// 0.016 with three); the sel3 kernel 0.274 and 0.019.
+// 0.016 with three), and the glookup kernel the lookup kernel's; the sel3
+// kernel 0.274 and 0.019, the sel kernel 0.268 and 0.019 (0.296 and 0.019
+// with a barrier in its epilogue).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (radarml_tpu_torch/ops/_cuda_build.py)
@@ -593,21 +608,15 @@ struct LookupTables {
   }
 };
 
-// The T x C2 target reads of scan b: s1 = t1[c, j], s2 = t2[c, i], s3 =
-// t3[k, c] for the slot's (i, j, k), each zero for an index outside its
-// range (-1 included) and for a slot whose valid byte is 0. Threads read
-// elements that other threads clear, so every read must precede a block
-// barrier that precedes the clearing: with more than one slab a scan, the
-// set is cleared ahead of the next scan's last slab (after that scan's
-// first slab barrier; the scan after it is the next to use the set); with
-// one, the epilogue reads, waits at a block barrier and clears.
-struct ReadScores {
-  const int* ijk;
-  const uint8_t* valid;  // (B, T) bytes, or null: every slot valid
-  int T;
-  int* s1;
-  int* s2;
-  int* s3;
+// Epilogues whose threads read table elements that other threads clear
+// (sel, sel3): every read must precede a block barrier that precedes the
+// clearing. With more than one slab a scan, the set is cleared ahead of the
+// next scan's last slab (after that scan's first slab barrier; the scan
+// after it is the next to use the set); with one, the epilogue reads, waits
+// at a block barrier and clears. `reads` does the reads (and any stores).
+template <class Reads>
+struct ReadThenClear {
+  Reads reads;
   bool cleared_ahead;  // more than one slab a scan
 
   __device__ __forceinline__ void ahead(int* other, int words, int ns) {
@@ -617,6 +626,31 @@ struct ReadScores {
   }
   __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
                                              int* m3_s, int, int) const {
+    reads(w, b, m1_s, m2_s, m3_s);
+    if (cleared_ahead) return;
+    __syncthreads();  // every read of the set precedes its clearing
+    const int n1 = w.C2 * w.Y, n2 = w.C2 * w.X, n3 = w.Z * w.C2;
+    for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
+      if (i < n1) m1_s[i] = 0;
+      if (i < n2) m2_s[i] = 0;
+      if (i < n3) m3_s[i] = 0;
+    }
+  }
+};
+
+// sel3: the T x C2 target reads of scan b, s1 = t1[c, j], s2 = t2[c, i],
+// s3 = t3[k, c] for the slot's (i, j, k), each zero for an index outside
+// its range (-1 included) and for a slot whose valid byte is 0.
+struct ReadScores {
+  const int* ijk;
+  const uint8_t* valid;  // (B, T) bytes, or null: every slot valid
+  int T;
+  int* s1;
+  int* s2;
+  int* s3;
+
+  __device__ __forceinline__ void operator()(const Walk& w, int b, const int* m1_s,
+                                             const int* m2_s, const int* m3_s) const {
     const int C2 = w.C2, X = w.X, Y = w.Y, Z = w.Z;
     for (int i = threadIdx.x; i < T * C2; i += blockDim.x) {
       const int t = i / C2, c = i % C2;
@@ -628,13 +662,29 @@ struct ReadScores {
       s2[o] = ok && x >= 0 && x < X ? m2_s[c * X + x] : 0;
       s3[o] = ok && z >= 0 && z < Z ? m3_s[z * C2 + c] : 0;
     }
-    if (cleared_ahead) return;
-    __syncthreads();  // every read of the set precedes its clearing
-    const int n1 = C2 * Y, n2 = C2 * X, n3 = Z * C2;
-    for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
-      if (i < n1) m1_s[i] = 0;
-      if (i < n2) m2_s[i] = 0;
-      if (i < n3) m3_s[i] = 0;
+  }
+};
+
+// sel: scan b's t1 and t2 stored whole, as StoreTables stores them, and of
+// t3 only the T x C2 reads d3 = t3[k, c] of each slot's z index k (zero
+// outside [0, Z), -1 included).
+struct SelTables {
+  const int* kidx;
+  int T;
+  int* t1;
+  int* t2;
+  int* d3;
+
+  __device__ __forceinline__ void operator()(const Walk& w, int b, const int* m1_s,
+                                             const int* m2_s, const int* m3_s) const {
+    const int C2 = w.C2, Z = w.Z, n1 = C2 * w.Y, n2 = C2 * w.X;
+    for (int i = threadIdx.x; i < max(n1, n2); i += blockDim.x) {
+      if (i < n1) t1[(size_t)b * n1 + i] = m1_s[i];
+      if (i < n2) t2[(size_t)b * n2 + i] = m2_s[i];
+    }
+    for (int i = threadIdx.x; i < T * C2; i += blockDim.x) {
+      const int k = kidx[(size_t)b * T + i / C2];
+      d3[(size_t)b * T * C2 + i] = k >= 0 && k < Z ? m3_s[k * C2 + i % C2] : 0;
     }
   }
 };
@@ -652,11 +702,28 @@ lookup_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __
   walk_scans(w, done);
 }
 
+// The lookup kernel's plan and epilogue under a symbol of its own. The
+// y-group of its weights is the TPU kernel's tiling and changes nothing
+// here.
+__global__ void __launch_bounds__(kThreads, 1)
+grouped_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
+  LookupTables done{t1, t2, t3};
+  walk_scans(w, done);
+}
+
+// Outputs t1 (B, C2, Y), t2 (B, C2, X) and d3 (B, T, C2); kidx (B, T) int32.
+__global__ void __launch_bounds__(kThreads, 1)
+sel_tables_kernel(Walk w, const int* __restrict__ kidx, int T, int* __restrict__ t1,
+                  int* __restrict__ t2, int* __restrict__ d3) {
+  ReadThenClear<SelTables> done{{kidx, T, t1, t2, d3}};
+  walk_scans(w, done);
+}
+
 // Outputs s1, s2, s3 (B, T, C2); ijk (B, T, 3) int32.
 __global__ void __launch_bounds__(kThreads, 1)
 sel3_scores_kernel(Walk w, const int* __restrict__ ijk, const uint8_t* __restrict__ valid, int T,
                    int* __restrict__ s1, int* __restrict__ s2, int* __restrict__ s3) {
-  ReadScores done{ijk, valid, T, s1, s2, s3};
+  ReadThenClear<ReadScores> done{{ijk, valid, T, s1, s2, s3}};
   walk_scans(w, done);
 }
 
@@ -721,26 +788,55 @@ int launch(Kernel kernel, const Walk& w, void* stream, Ts... outs) {
   return (int)cudaGetLastError();
 }
 
+// Blocks of `kernel` resident at once when it takes whole scans (the batch
+// at and above which the work plan does not cut scans), or minus a CUDA
+// error (cudaErrorInvalidValue for shapes it does not take).
+template <typename Kernel>
+int whole_scan_resident(Kernel kernel, int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  const int XS = slab_width(X, Y, Z, C2, h1, h2, h3);
+  if (XS == 0 || C2 < 1 || C2 > kMaxC2) return -(int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int n = resident_blocks(kernel, make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total, err);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launch a tables kernel that takes the work plan (XS, P) from the host.
+// Every element is written: at P > 1 t1 and t3 are first zeroed on
+// `stream`, and the parts add into them.
+template <typename Kernel>
+int split_tables(Kernel kernel, const void* cube, const void* qxz, const void* qyz,
+                 const void* qxy, void* t1, void* t2, void* t3, int B, int X, int Y, int Z,
+                 int C2, int XS, int P, void* stream) {
+  Walk w;
+  if (XS > slab_width(X, Y, Z, C2, qxz, qyz, qxy) ||
+      !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, XS, P))
+    return (int)cudaErrorInvalidValue;
+  if (P > 1) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaMemsetAsync(t1, 0, sizeof(int) * B * C2 * Y, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(t3, 0, sizeof(int) * B * Z * C2, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch(kernel, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
+                static_cast<int*>(t3));
+}
+
 }  // namespace
 
 extern "C" {
 
 // The x-slab width of whole scans (exposed so the wrapper can report it and
-// plan the lookup kernel's parts).
+// plan the lookup and glookup kernels' parts).
 int i8_score_slab_width(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
   return slab_width(X, Y, Z, C2, h1, h2, h3);
 }
 
-// Blocks of the lookup kernel resident at once when it takes whole scans
-// (the batch at and above which it does not cut scans), or minus a CUDA
-// error (cudaErrorInvalidValue for shapes it does not take).
+// whole_scan_resident of the lookup and the glookup kernel.
 int i8_score_lookup_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  const int XS = slab_width(X, Y, Z, C2, h1, h2, h3);
-  if (XS == 0 || C2 < 1 || C2 > kMaxC2) return -(int)cudaErrorInvalidValue;
-  cudaError_t err;
-  const int n = resident_blocks(lookup_tables_kernel,
-                                make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total, err);
-  return err == cudaSuccess ? n : -(int)err;
+  return whole_scan_resident(lookup_tables_kernel, X, Y, Z, C2, h1, h2, h3);
+}
+int i8_score_grouped_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  return whole_scan_resident(grouped_tables_kernel, X, Y, Z, C2, h1, h2, h3);
 }
 
 // The combo kernel on `stream`: whole scans. Outputs are scan-major int32
@@ -758,25 +854,34 @@ int i8_score_onepass_tables(const void* cube, const void* qxz, const void* qyz,
                 static_cast<int*>(t3));
 }
 
-// The lookup kernel: the same tables, each scan cut into P parts of x-slabs
-// XS wide (1 <= P <= the slab count; XS at most the whole-scan width).
-// Every element is written: at P > 1 t1 and t3 are first zeroed on
-// `stream`, and the parts add into them.
+// The lookup and glookup kernels: the same tables, each scan cut into P
+// parts of x-slabs XS wide (1 <= P <= the slab count; XS at most the
+// whole-scan width).
 int i8_score_lookup_tables(const void* cube, const void* qxz, const void* qyz,
                            const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                            int Y, int Z, int C2, int XS, int P, void* stream) {
+  return split_tables(lookup_tables_kernel, cube, qxz, qyz, qxy, t1, t2, t3, B, X, Y, Z, C2, XS,
+                      P, stream);
+}
+int i8_score_grouped_tables(const void* cube, const void* qxz, const void* qyz,
+                            const void* qxy, void* t1, void* t2, void* t3, int B, int X,
+                            int Y, int Z, int C2, int XS, int P, void* stream) {
+  return split_tables(grouped_tables_kernel, cube, qxz, qyz, qxy, t1, t2, t3, B, X, Y, Z, C2, XS,
+                      P, stream);
+}
+
+// The sel kernel: whole scans; t1 (B, C2, Y) and t2 (B, C2, X) and the
+// selected z-table reads d3 (B, T, C2) of the int32 kidx (B, T); every
+// output element is written.
+int i8_score_sel_tables(const void* cube, const void* qxz, const void* qyz, const void* qxy,
+                        const void* kidx, void* t1, void* t2, void* d3, int B, int X, int Y,
+                        int Z, int C2, int T, void* stream) {
   Walk w;
-  if (XS > slab_width(X, Y, Z, C2, qxz, qyz, qxy) ||
-      !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, XS, P))
+  if (T < 0 || !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2,
+                          slab_width(X, Y, Z, C2, qxz, qyz, qxy), 1))
     return (int)cudaErrorInvalidValue;
-  if (P > 1) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaMemsetAsync(t1, 0, sizeof(int) * B * C2 * Y, s);
-    if (err == cudaSuccess) err = cudaMemsetAsync(t3, 0, sizeof(int) * B * Z * C2, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return launch(lookup_tables_kernel, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
-                static_cast<int*>(t3));
+  return launch(sel_tables_kernel, w, stream, static_cast<const int*>(kidx), T,
+                static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(d3));
 }
 
 // The sel3 kernel: whole scans; the three selected reads s1, s2, s3

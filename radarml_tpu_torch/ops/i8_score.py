@@ -223,15 +223,20 @@ def launches_kernel(cube: torch.Tensor, weights: CombinedWeights) -> bool:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of csrc/i8_score.cu: the combo kernel's
-    here, the lookup and sel3 kernels' for ops/i8_tails.py."""
+    here, the lookup, glookup, sel and sel3 kernels' for ops/i8_tails.py."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.i8_score_onepass_tables.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.i8_score_lookup_tables.argtypes = [p] * 7 + [i] * 7 + [p]
-    lib.i8_score_sel3_scores.argtypes = [p] * 9 + [i] * 6 + [p]
-    lib.i8_score_slab_width.argtypes = [i] * 7
-    lib.i8_score_lookup_resident.argtypes = [i] * 7
-    for fn in ("i8_score_onepass_tables", "i8_score_lookup_tables", "i8_score_sel3_scores",
-               "i8_score_slab_width", "i8_score_lookup_resident"):
+    argtypes = {
+        "i8_score_onepass_tables": [p] * 7 + [i] * 5 + [p],
+        "i8_score_lookup_tables": [p] * 7 + [i] * 7 + [p],
+        "i8_score_grouped_tables": [p] * 7 + [i] * 7 + [p],
+        "i8_score_sel_tables": [p] * 8 + [i] * 6 + [p],
+        "i8_score_sel3_scores": [p] * 9 + [i] * 6 + [p],
+        "i8_score_slab_width": [i] * 7,
+        "i8_score_lookup_resident": [i] * 7,
+        "i8_score_grouped_resident": [i] * 7,
+    }
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
         getattr(lib, fn).restype = i
     return lib
 

@@ -16,8 +16,9 @@ in int32, the tables
 * onepass_tables_i8: the three tables, a scan cut into parts of
   contiguous x-slabs across CUDA blocks when the batch is too small to
   fill the card (more blocks in flight at small batches; `lookup_plan`);
-* onepass_tables_grouped_i8: the three tables, the scan cut into groups
-  of `y_group` rows across blocks;
+* onepass_tables_grouped_i8: the same tables under the same plan from
+  GroupedWeights, whose `y_group` is the JAX kernel's tiling and does not
+  change the card's work;
 * onepass_tables_sel_i8: m1 and m2, and d3[c, t, b] = m3[kidx[b, t], c]
   selected in the kernel, so m3 never reaches device memory;
 * onepass_scores_i8: only the three reads m1[c, j], m2[c, i], m3[k, c]
@@ -28,20 +29,18 @@ slot whose `valid` is False, reads zero. Selected reads come back as
 (C2, T, B), the JAX contract without its padding.
 
 On a CUDA tensor each entry point launches its hand-written Hopper
-kernel or raises: onepass_tables_i8 and onepass_scores_i8 the lookup and
-sel3 kernels of `csrc/i8_score.cu` (the combo kernel's int8 mma walk with
-another work plan or epilogue), the other two theirs in
-`csrc/i8_tails.cu`; each header says what bounds the kernels and how they
-cut the work. On a CPU tensor each runs its plain version `*_ref`.
-Nothing falls back from one to the other. The TPU
-kernels' δ-block and grouped weight arrays, scan-minor packing, lane
-padding and SEL_TP slot padding are not carried over: the weights are
-the quantized templates themselves, as for the combo kernel.
+kernel or raises: the lookup, glookup, sel and sel3 kernels of
+`csrc/i8_score.cu`, each the combo kernel's int8 mma walk with another
+work plan or epilogue under a profiler symbol of its own; its header says
+what bounds the kernels and how they cut the work. On a CPU tensor each
+runs its plain version `*_ref`. Nothing falls back from one to the other.
+The TPU kernels' δ-block and grouped weight arrays, scan-minor packing,
+y-groups, lane padding and SEL_TP slot padding are not carried over: the
+weights are the quantized templates themselves, as for the combo kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from typing import List, Optional, Sequence, Tuple
@@ -93,8 +92,9 @@ OnepassWeights = CombinedWeights
 
 @dataclasses.dataclass(frozen=True)
 class GroupedWeights(CombinedWeights):
-    """The quantized templates plus the y-group size of the y-split
-    kernel: a block takes `y_group` rows of one scan (any 1..Y)."""
+    """The quantized templates plus the y-group size of the JAX grouped
+    kernel (any 1..Y). The y-group is TPU tiling: the card's glookup
+    kernel takes the lookup kernel's plan whatever its value."""
 
     y_group: int = 16
 
@@ -118,7 +118,8 @@ def build_grouped_weights(
     device=None,
 ) -> GroupedWeights:
     """GroupedWeights: the templates of build_onepass_weights and the
-    y-group size (1..Y; groups need not divide Y)."""
+    y-group size (1..Y; groups need not divide Y), kept as the JAX
+    package's contract has it; it does not change the card's work."""
     if not 1 <= y_group <= dims[1]:
         raise ValueError(f"y_group must be in 1..{dims[1]}, got {y_group}")
     w = build_combined_weights(quant, dims, levels=levels, device=device)
@@ -147,8 +148,8 @@ def _read(table: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 # The plain versions of the two table kernels are the combo kernel's exact
-# einsums (int64 on the CPU, float64 on the card): the cut of a scan
-# changes only how a kernel shares out the work.
+# einsums (int64 on the CPU, float64 on the card): the cut of a scan (or
+# the y-group) changes only how a kernel shares out the work.
 onepass_tables_i8_ref = onepass_tables_combined_i8_ref
 onepass_tables_grouped_i8_ref = onepass_tables_combined_i8_ref
 
@@ -180,12 +181,12 @@ def onepass_scores_i8_ref(
     return _read(m1, idx[..., 1], 1), _read(m2, idx[..., 0], 1), _read(m3, idx[..., 2], 0)
 
 
-# -- the lookup kernel's work plan ---------------------------------------------
+# -- the lookup and glookup kernels' work plan ---------------------------------
 
 
 def lookup_plan(B: int, X: int, resident: int, slab_width: int) -> Tuple[int, int]:
-    """How the lookup kernel cuts a batch of B scans: (P, XS), each scan in
-    P parts of contiguous x-slabs XS wide (`part_slabs`).
+    """How the lookup and glookup kernels cut a batch of B scans: (P, XS),
+    each scan in P parts of contiguous x-slabs XS wide (`part_slabs`).
 
     `resident` is the number of its blocks the card holds at once with
     whole scans and `slab_width` that plan's slab width (the combo
@@ -228,39 +229,31 @@ def part_slabs(X: int, XS: int, P: int) -> List[Tuple[int, int]]:
 # -- CUDA kernels --------------------------------------------------------------
 
 
-def _library() -> ctypes.CDLL:
-    from radarml_tpu_torch.ops._cuda_build import load_library
-
-    lib = load_library("i8_tails")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.i8_tails_tables_ysplit.argtypes = [p] * 7 + [i] * 6 + [p]
-    lib.i8_tails_tables_sel.argtypes = [p] * 8 + [i] * 6 + [p]
-    for fn in ("i8_tails_tables_ysplit", "i8_tails_tables_sel"):
-        getattr(lib, fn).restype = i
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
-def _lookup_shape(device: int, dims: Tuple[int, int, int], c2: int,
-                  planes: Tuple[bool, bool, bool]) -> Tuple[int, int]:
-    """(resident blocks, slab width) of the lookup kernel's whole-scan plan
-    on CUDA card `device`; raises on a CUDA error."""
+def _plan_shape(device: int, kernel: str, dims: Tuple[int, int, int], c2: int,
+                planes: Tuple[bool, bool, bool]) -> Tuple[int, int]:
+    """(resident blocks, slab width) of the lookup or glookup kernel's
+    whole-scan plan on CUDA card `device`; raises on a CUDA error."""
     lib = i8_score._library()
+    fn = f"i8_score_{kernel}_resident"
     with torch.cuda.device(device):
-        resident = lib.i8_score_lookup_resident(*dims, c2, *planes)
+        resident = getattr(lib, fn)(*dims, c2, *planes)
     if resident <= 0:
-        raise RuntimeError(f"i8_score_lookup_resident failed: CUDA error {-resident} "
-                           f"(dims={dims}, C2={c2})")
+        raise RuntimeError(f"{fn} failed: CUDA error {-resident} (dims={dims}, C2={c2})")
     return resident, lib.i8_score_slab_width(*dims, c2, *planes)
 
 
-def lookup_plan_on_card(B: int, weights: CombinedWeights) -> Tuple[int, int]:
+def lookup_plan_on_card(B: int, weights: CombinedWeights,
+                        kernel: str = "lookup") -> Tuple[int, int]:
     """`lookup_plan` for B scans with these weights on their CUDA card:
-    (P, XS), as onepass_tables_i8 launches it (builds the kernel if
-    needed)."""
+    (P, XS), as onepass_tables_i8 (kernel "lookup") or
+    onepass_tables_grouped_i8 ("grouped") launches it, from that kernel's
+    own resident-block count (builds the kernels if needed)."""
+    if kernel not in ("lookup", "grouped"):
+        raise ValueError(f"kernel must be 'lookup' or 'grouped', got {kernel!r}")
     planes = tuple(q is not None for q in (weights.q_xz, weights.q_yz, weights.q_xy))
-    resident, width = _lookup_shape(weights.device.index, weights.dims[:3], weights.c2,
-                                    planes)
+    resident, width = _plan_shape(weights.device.index, kernel, weights.dims[:3], weights.c2,
+                                  planes)
     return lookup_plan(B, weights.dims[0], resident, width)
 
 
@@ -268,15 +261,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, lib: ctypes.CDLL, fn: str, cube: torch.Tensor,
-            weights: CombinedWeights, extra_in: tuple, outs: tuple, *ints: int) -> None:
-    """Call the library's `fn` on the cube's current stream, raise on a
-    CUDA error, and count the launch under `name`."""
+def _launch(name: str, fn: str, cube: torch.Tensor, weights: CombinedWeights,
+            extra_in: tuple, outs: tuple, *ints: int) -> None:
+    """Call csrc/i8_score.cu's `fn` on the cube's current stream, raise on
+    a CUDA error, and count the launch under `name`."""
     X, Y, Z, _ = weights.dims
     dev = cube.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(
+        err = getattr(i8_score._library(), fn)(
             cube.data_ptr(), _ptr(weights.q_xz), _ptr(weights.q_yz),
             _ptr(weights.q_xy), *extra_in, *(o.data_ptr() for o in outs),
             cube.shape[0], X, Y, Z, weights.c2, *ints, stream,
@@ -289,19 +282,23 @@ def _launch(name: str, lib: ctypes.CDLL, fn: str, cube: torch.Tensor,
     LAUNCHES[name] += 1
 
 
-def _table_outputs(cube, weights, zeroed: Tuple[bool, bool, bool]):
-    """Scan-major int32 outputs (B, C2, Y), (B, C2, X), (B, Z, C2); the
-    ones the kernel adds into start at zero."""
+def _int32(cube: torch.Tensor, *shapes) -> tuple:
+    """Uninitialised int32 outputs of these shapes on the cube's device
+    (each kernel writes every element)."""
+    return tuple(torch.empty(s, dtype=torch.int32, device=cube.device) for s in shapes)
+
+
+def _split_tables(name: str, kernel: str, cube: torch.Tensor,
+                  weights: CombinedWeights) -> Tables:
+    """Launch the lookup or glookup kernel under its plan; the tables in
+    the JAX axis order, permuted views of scan-major buffers."""
     X, Y, Z, _ = weights.dims
     B, C2 = cube.shape[0], weights.c2
-    return tuple(
-        (torch.zeros if z else torch.empty)(shape, dtype=torch.int32, device=cube.device)
-        for z, shape in zip(zeroed, ((B, C2, Y), (B, C2, X), (B, Z, C2)))
-    )
-
-
-def _jax_order(t1, t2, t3) -> Tables:
-    return t1.permute(1, 2, 0), t2.permute(1, 2, 0), t3.permute(1, 2, 0)
+    P, XS = lookup_plan_on_card(B, weights, kernel)
+    # at P > 1 the C entry zeroes the m1 and m3 that the parts add into
+    outs = _int32(cube, (B, C2, Y), (B, C2, X), (B, Z, C2))
+    _launch(name, f"i8_score_{kernel}_tables", cube, weights, (), outs, XS, P)
+    return tuple(o.permute(1, 2, 0) for o in outs)
 
 
 def onepass_tables_i8(cube: torch.Tensor, weights: CombinedWeights) -> Tables:
@@ -313,27 +310,21 @@ def onepass_tables_i8(cube: torch.Tensor, weights: CombinedWeights) -> Tables:
     """
     if not launches_kernel(cube, weights):
         return onepass_tables_i8_ref(cube, weights)
-    P, XS = lookup_plan_on_card(cube.shape[0], weights)
-    # at P > 1 the C entry zeroes the m1 and m3 that the parts add into
-    outs = _table_outputs(cube, weights, (False, False, False))
-    _launch("onepass_tables_i8", i8_score._library(), "i8_score_lookup_tables", cube,
-            weights, (), outs, XS, P)
-    return _jax_order(*outs)
+    return _split_tables("onepass_tables_i8", "lookup", cube, weights)
 
 
 def onepass_tables_grouped_i8(cube: torch.Tensor, weights: GroupedWeights) -> Tables:
-    """The three one-pass tables, the kernel cutting each scan into
-    ⌈Y / y_group⌉ blocks of y rows. Same contract as onepass_tables_i8."""
+    """The three one-pass tables from GroupedWeights. Same contract as
+    onepass_tables_i8, and on the card the same plan (its own kernel
+    symbol and resident-block count): the y-group, the JAX kernel's
+    tiling, does not change the card's work."""
     if not isinstance(weights, GroupedWeights):
         raise TypeError(
             "onepass_tables_grouped_i8 takes GroupedWeights (build_grouped_weights)"
         )
     if not launches_kernel(cube, weights):
         return onepass_tables_grouped_i8_ref(cube, weights)
-    outs = _table_outputs(cube, weights, (False, True, True))
-    _launch("onepass_tables_grouped_i8", _library(), "i8_tails_tables_ysplit", cube,
-            weights, (), outs, weights.y_group)
-    return _jax_order(*outs)
+    return _split_tables("onepass_tables_grouped_i8", "grouped", cube, weights)
 
 
 def _slots(idx, cube: torch.Tensor, trailing: tuple, what: str) -> torch.Tensor:
@@ -360,11 +351,11 @@ def onepass_tables_sel_i8(
     k = _slots(kidx, cube, (), "kidx")
     if not cuda:
         return onepass_tables_sel_i8_ref(cube, weights, k)
-    B = cube.shape[0]
-    t1, t2, _ = _table_outputs(cube, weights, (False, False, False))
-    d3 = torch.empty((B, k.shape[1], weights.c2), dtype=torch.int32, device=cube.device)
-    _launch("onepass_tables_sel_i8", _library(), "i8_tails_tables_sel", cube, weights,
-            (k.data_ptr(),), (t1, t2, d3), k.shape[1])
+    X, Y, _, _ = weights.dims
+    B, T, C2 = cube.shape[0], k.shape[1], weights.c2
+    t1, t2, d3 = _int32(cube, (B, C2, Y), (B, C2, X), (B, T, C2))
+    _launch("onepass_tables_sel_i8", "i8_score_sel_tables", cube, weights, (k.data_ptr(),),
+            (t1, t2, d3), T)
     return t1.permute(1, 2, 0), t2.permute(1, 2, 0), d3.permute(2, 1, 0)
 
 
@@ -387,10 +378,7 @@ def onepass_scores_i8(
         ok = ok.contiguous()
     if not cuda:
         return onepass_scores_i8_ref(cube, weights, idx, ok)
-    outs = tuple(
-        torch.empty((B, T, weights.c2), dtype=torch.int32, device=cube.device)
-        for _ in range(3)
-    )
-    _launch("onepass_scores_i8", i8_score._library(), "i8_score_sel3_scores", cube,
-            weights, (idx.data_ptr(), _ptr(ok)), outs, T)
+    outs = _int32(cube, *[(B, T, weights.c2)] * 3)
+    _launch("onepass_scores_i8", "i8_score_sel3_scores", cube, weights,
+            (idx.data_ptr(), _ptr(ok)), outs, T)
     return tuple(o.permute(2, 1, 0) for o in outs)

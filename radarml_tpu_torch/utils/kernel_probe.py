@@ -29,15 +29,17 @@ and 64):
   warps_24      24 warps a block instead of 16
   clocks        clock64 around the phases of a slab, summed over the
                 blocks by warp 0 and warp 15: clocks per slab
-tails (the lookup and sel3 kernels, which share the combo kernel's walk;
-the same shapes, 4 target slots a scan for sel3), beside the combo kernel
-in the same build: device ms at B = 4096 and 64, as_committed, loads_only
-(the i8 patches of that name) and sel3_barrier (sel3 reads, waits at a
-block barrier and clears its set in the epilogue instead of ahead of the
-next scan's last slab); the lookup kernel also at B = 1, 7, 100, 131, 132 and 133
-under ops/i8_tails.lookup_plan, and under other plans, each checked
-against the committed plan's tables: B = 64 with 3 parts (resident / B
-rounded up), B = 100 and 131 with whole scans
+tails (the lookup, glookup, sel and sel3 kernels, which share the combo
+kernel's walk; the same shapes, 4 target slots a scan for sel and sel3),
+beside the combo kernel in the same build: device ms at B = 4096 and 64,
+as_committed, loads_only (the i8 patches of that name) and sel3_barrier
+(sel and sel3, whose epilogues share the clearing code, read, wait at a
+block barrier and clear their set in the epilogue instead of ahead of the
+next scan's last slab); the lookup and glookup kernels also at B = 1, 7,
+100, 131, 132 and 133 under ops/i8_tails.lookup_plan, and the lookup
+kernel under other plans, each checked against the committed plan's
+tables: B = 64 with 3 parts (resident / B rounded up), B = 100 and 131
+with whole scans
 native (B7; default arena, 3 random classes, B = 4096 and 64; each
 variant's registers and spills as ptxas reports them, and its largest
 |error| against the plain version):
@@ -307,7 +309,7 @@ def probe_i8(tmp: Path) -> None:
 TAILS_VARIANTS = {
     "as_committed": [],
     "loads_only": I8_SKIP,
-    # sel3 reads, waits at a block barrier and clears in its epilogue
+    # sel and sel3 read, wait at a block barrier and clear in their epilogue
     # instead of clearing each set ahead of the next scan's last slab
     "sel3_barrier": [("    cleared_ahead = ns > 1;\n", "    cleared_ahead = false;\n")],
 }
@@ -323,11 +325,13 @@ def probe_tails(tmp: Path) -> None:
     cube = torch.randint(-128, 128, (4096, X, Y, Z), generator=gen, device=dev, dtype=torch.int8)
     ijk = torch.stack([torch.randint(0, n, (4096, T), generator=gen, device=dev)
                        for n in (X, Y, Z)], -1).to(torch.int32)
+    kidx = ijk[..., 2].contiguous()
     qp = [t_.data_ptr() for t_ in q]
     for variant, lib in libs.items():
         i8_score._bind(lib)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        resident = lib.i8_score_lookup_resident(X, Y, Z, C2, 1, 1, 1)
+        resident = {k: getattr(lib, f"i8_score_{k}_resident")(X, Y, Z, C2, 1, 1, 1)
+                    for k in ("lookup", "grouped")}
         width = lib.i8_score_slab_width(X, Y, Z, C2, 1, 1, 1)
 
         def combo(B, lib=lib):
@@ -339,14 +343,28 @@ def probe_tails(tmp: Path) -> None:
                 raise RuntimeError(f"i8_score_onepass_tables launch failed: CUDA error {err}")
             return t
 
-        def lookup(B, plan=None, lib=lib):
-            P, XS = plan or i8_tails.lookup_plan(B, X, resident, width)
+        def lookup(B, plan=None, kernel="lookup", lib=lib):
+            P, XS = plan or i8_tails.lookup_plan(B, X, resident[kernel], width)
             t = [torch.empty(sh, dtype=torch.int32, device=dev)
                  for sh in ((B, C2, Y), (B, C2, X), (B, Z, C2))]
-            err = lib.i8_score_lookup_tables(cube.data_ptr(), *qp, *[t_.data_ptr() for t_ in t],
-                                             B, X, Y, Z, C2, XS, P, stream)
+            err = getattr(lib, f"i8_score_{kernel}_tables")(
+                cube.data_ptr(), *qp, *[t_.data_ptr() for t_ in t], B, X, Y, Z, C2, XS, P,
+                stream)
             if err != 0:
-                raise RuntimeError(f"i8_score_lookup_tables launch failed: CUDA error {err}")
+                raise RuntimeError(f"i8_score_{kernel}_tables launch failed: CUDA error {err}")
+            return t
+
+        def grouped(B):
+            return lookup(B, kernel="grouped")
+
+        def sel(B, lib=lib):
+            t = [torch.empty(sh, dtype=torch.int32, device=dev)
+                 for sh in ((B, C2, Y), (B, C2, X), (B, T, C2))]
+            err = lib.i8_score_sel_tables(cube.data_ptr(), *qp, kidx.data_ptr(),
+                                          *[t_.data_ptr() for t_ in t], B, X, Y, Z, C2, T,
+                                          stream)
+            if err != 0:
+                raise RuntimeError(f"i8_score_sel_tables launch failed: CUDA error {err}")
             return t
 
         def sel3(B, lib=lib):
@@ -361,6 +379,8 @@ def probe_tails(tmp: Path) -> None:
         parts = []
         for name, fn, symbol in (("combo", combo, "combo_tables_kernel"),
                                  ("lookup", lookup, "lookup_tables_kernel"),
+                                 ("grouped", grouped, "grouped_tables_kernel"),
+                                 ("sel", sel, "sel_tables_kernel"),
                                  ("sel3", sel3, "sel3_scores_kernel")):
             parts.append(f"{name} " + " / ".join(
                 f"{device_ms(lambda B=B, fn=fn: fn(B), symbol, 20):.4f}" for B in (4096, 64)))
@@ -369,9 +389,11 @@ def probe_tails(tmp: Path) -> None:
         if variant == "as_committed":
             sweep = []
             for B in (1, 7, 100, 131, 132, 133):
-                P, XS = i8_tails.lookup_plan(B, X, resident, width)
+                P, XS = i8_tails.lookup_plan(B, X, resident["lookup"], width)
                 sweep.append(f"B={B} (P {P}, XS {XS}) "
-                             f"{device_ms(lambda B=B: lookup(B), 'lookup_tables_kernel', 20):.4f}")
+                             f"{device_ms(lambda B=B: lookup(B), 'lookup_tables_kernel', 20):.4f}"
+                             f" / glookup "
+                             f"{device_ms(lambda B=B: grouped(B), 'grouped_tables_kernel', 20):.4f}")
             for B, plan in ((64, (3, 8)), (100, (1, width)), (131, (1, width))):
                 if not all(torch.equal(a, b) for a, b in zip(lookup(B, plan), lookup(B))):
                     raise AssertionError(f"lookup tables at B={B} differ under the plan {plan}")

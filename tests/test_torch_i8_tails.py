@@ -12,6 +12,8 @@ here) runs on the card without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_i8_tails.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -365,10 +367,17 @@ def test_lookup_plan_takes_whole_scans_at_and_above_the_resident_blocks(X, resid
         assert tt.lookup_plan(B, X, resident, width) == (1, width)
 
 
-@pytest.mark.parametrize("dims,B", [((5, 7, 9), 1), ((9, 13, 180), 7), (DEFAULT, 64)])
-def test_parts_add_up_to_the_tables(rng, dims, B):
+PARTS = [((5, 7, 9), 1), ((9, 13, 180), 7), (DEFAULT, 64)]
+
+
+@pytest.mark.parametrize("dims,B,y_group", [
+    pytest.param(dims, B, y_group, id=f"dims{n}-{B}" + (f"-yg{y_group}" if y_group else ""))
+    for y_group in (None, 5, 16, 31) for n, (dims, B) in enumerate(PARTS)])
+def test_parts_add_up_to_the_tables(rng, dims, B, y_group):
     """The lookup kernel's split, worked in int64 numpy: each part's m1 and
-    m3 over its x rows, added, and its own m2 rows give the oracle tables."""
+    m3 over its x rows, added, and its own m2 rows give the oracle tables.
+    The glookup kernel takes the same plan whatever its weights' y-group
+    (5, 16 or 31, at most Y): the parts add up to its tables too."""
     port_q, _ = _quant(rng, dims)
     cubes = _cubes(rng, B, dims)
     v = cubes.astype(np.int64) - 128
@@ -386,6 +395,35 @@ def test_parts_add_up_to_the_tables(rng, dims, B):
         m2[:, x] = np.einsum("cyz,bxyz->cxb", qyz, v[:, x])
     for got, want in zip((m1, m2, m3), _oracle(port_q, cubes)):
         np.testing.assert_array_equal(got, want)
+    if y_group is not None:
+        w = tt.build_grouped_weights(port_q, dims, min(y_group, dims[1]))
+        _equal(tt.onepass_tables_grouped_i8(ts.pack_cubes_i8(cubes), w), (m1, m2, m3))
+
+
+# A __global__ function's name, past its return type and launch bounds.
+KERNEL_NAME = r"__global__\s+void\s+(?:__launch_bounds__\(.*\)\s*)?(\w+)\s*\("
+
+
+def test_kernel_symbols_name_one_kernel_each():
+    """Each profiler symbol chip_smoke.py times a kernel by names exactly
+    one __global__ function of csrc/*.cu, and none is a substring of
+    another (a trace's kernel names are matched by substring)."""
+    import importlib.util
+    import re
+
+    from radarml_tpu_torch.ops import _cuda_build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    kernels = [name for src in sorted(_cuda_build.CSRC.glob("*.cu"))
+               for name in re.findall(KERNEL_NAME, src.read_text())]
+    symbols = list(smoke.KERNEL_SYMBOLS.values())
+    for sym in symbols:
+        assert kernels.count(sym) == 1, (sym, kernels)
+        assert not [o for o in symbols if o != sym and sym in o], sym
+    assert "i8_tails.cu" not in {p.name for p in _cuda_build.CSRC.glob("*.cu")}
 
 
 def _probe_variants():
@@ -398,8 +436,8 @@ def _probe_variants():
 def test_probe_patches_fit_the_source(variant):
     """utils/kernel_probe.py's tails section builds variants of
     csrc/i8_score.cu by text patches that must each match the committed
-    source exactly once: an edit to the lookup or sel3 kernels that moves
-    a patched line must bring the patch along."""
+    source exactly once: an edit to the lookup, glookup, sel or sel3
+    kernels that moves a patched line must bring the patch along."""
     from radarml_tpu_torch.ops import _cuda_build
     from radarml_tpu_torch.utils import kernel_probe
 
@@ -413,16 +451,26 @@ def test_kernels_on_the_card():
     """On a card: each of the four wrappers launches its kernel (counted)
     and equals its plain version bit for bit, at the default arena with
     small and odd batches on both sides of the batch below which the
-    lookup kernel cuts scans, each plane masked, levels 2 and 1, y-groups
-    that do not divide Y, and -1 / past-the-end / invalid slots."""
+    lookup and glookup kernels cut scans, each plane masked, levels 2 and
+    1, y-groups 1 / 5 / 16 / Y (some not dividing Y), -1 / past-the-end /
+    invalid slots, and sel with no slot (T = 0) and with one slab a scan
+    at (5, 7, 9), where it reads, waits and clears."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    w = tt.build_onepass_weights(_quant(rng, DEFAULT)[0], DEFAULT, device=dev)
-    assert tt.lookup_plan_on_card(1, w)[0] > 1
-    assert tt.lookup_plan_on_card(64, w)[0] > 1
-    assert tt.lookup_plan_on_card(133, w)[0] == 1
+    quant = _quant(rng, DEFAULT)[0]
+    w = tt.build_onepass_weights(quant, DEFAULT, device=dev)
+    plans = {yg: tt.build_grouped_weights(quant, DEFAULT, yg, device=dev) for yg in (1, 31)}
+    for kernel in ("lookup", "grouped"):
+        assert tt.lookup_plan_on_card(1, w, kernel)[0] > 1
+        assert tt.lookup_plan_on_card(64, w, kernel)[0] > 1
+        assert tt.lookup_plan_on_card(133, w, kernel)[0] == 1
+    for B in (1, 64, 133):
+        assert (tt.lookup_plan_on_card(B, plans[1], "grouped")
+                == tt.lookup_plan_on_card(B, plans[31], "grouped"))
+    assert ts.slab_width(tt.build_onepass_weights(_quant(rng, (5, 7, 9))[0], (5, 7, 9),
+                                                  device=dev)) == 5
     for dims, B, masked, levels in (
             (DEFAULT, 7, None, 2), (DEFAULT, 3, 0, 2), (DEFAULT, 2, 1, 2),
             (DEFAULT, 1, 2, 2), ((5, 7, 9), 5, None, 2), ((9, 13, 180), 3, None, 2),
@@ -441,10 +489,12 @@ def test_kernels_on_the_card():
              lambda: tt.onepass_tables_i8_ref(cube, w)),
             ("onepass_tables_sel_i8", lambda: tt.onepass_tables_sel_i8(cube, w, ijk[..., 2]),
              lambda: tt.onepass_tables_sel_i8_ref(cube, w, ijk[..., 2])),
+            ("onepass_tables_sel_i8", lambda: tt.onepass_tables_sel_i8(cube, w, ijk[:, :0, 2]),
+             lambda: tt.onepass_tables_sel_i8_ref(cube, w, ijk[:, :0, 2])),
             ("onepass_scores_i8", lambda: tt.onepass_scores_i8(cube, w, ijk, valid),
              lambda: tt.onepass_scores_i8_ref(cube, w, ijk, valid)),
         ]
-        for yg in (16, 5, dims[1]):
+        for yg in (16, 5, 1, dims[1]):
             wg = tt.build_grouped_weights(port_q, dims, min(yg, dims[1]),
                                           levels=levels, device=dev)
             runs.append(("onepass_tables_grouped_i8",
@@ -456,4 +506,4 @@ def test_kernels_on_the_card():
             torch.cuda.synchronize()
             assert tt.LAUNCHES[name] == before + 1
             for g, r in zip(got, plain()):
-                assert torch.equal(g, r), (name, dims, B, masked, levels)
+                assert g.shape == r.shape and torch.equal(g, r), (name, dims, B, masked, levels)

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict and SVC paths on one CUDA card.
+"""Drive the PyTorch port's predict, SVC and serving paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -99,11 +99,39 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              included, and each of its three kernels' device time from a
              profiler trace), SVC exact scans per second at B=4096 and where
              its time goes, and svc_fit seconds (warm).
+11. apps   — the serving slice through its entry points, on the card
+             (~30-60 s): the predict app (python -m radarml_tpu_torch.apps.
+             predict) over the demo linear model written as a v1 artifact,
+             512 synthetic scans in batches of 128 with --mode fused, equal
+             to --mode fast --cube_dtype int8 on the same scans (names, and
+             probabilities within 1e-6), B1 launched once a batch; 64 scans
+             with --derived_targets, whose targets equal derive_targets of
+             the same cubes on the CPU (within 1e-4 cm; amplitudes 1e-6
+             relative); 128 scans with the JAX-fitted SVC of phase 9 as a v1
+             artifact in exact mode, B6 launched, equal to a direct
+             RadarPredictor call (1e-6). The serve app with the native C++
+             source, --mode fused --max_batch 128 for 5 s (its latency p50 /
+             p95, classify rate and mean batch printed beside the card's name
+             and power limit), and with 4 synthetic sensors for 2 s; both
+             with predict_errors 0. Hot reload: serve with --reload_poll 0.2
+             for 5 s while a thread rewrites the artifact with another
+             intercept 1 s after the first detection; a swap happens, no
+             batch fails, and the last detection equals a direct call of the
+             new model on its scan. gRPC, where grpc and the copied
+             radar_serving_pb2 import (else one line names the missing
+             module and the part is "skipped: <module> not installed"): a
+             RadarServingServer over the fused predictor with dynamic
+             batching and 8 leader slots answers 64 concurrent Classify calls
+             and a 128-scan ClassifyStream like a direct call (1e-6, in
+             order), GetStats counts the 192 requests, and B1's launch count
+             rises by exactly the server's device batches.
 
 Each kernel's launch count is reset just before its main path and read
 just after: the int8 kernels and B7 over phases 4-5 (each fused tail's
 kernel on its own tail's path, B7 on the pallas path), the RBF kernel
-over phase 9 (and, reported apart, over the fit of phase 8). bound_ms is
+over phase 9 (and, reported apart, over the fit of phase 8); B1's and B6's
+again over phase 11's predict app and B1's over its serve loop, reported
+apart as launches_predict_app / launches_serve_app. bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
@@ -124,10 +152,12 @@ before last is the kernel record as JSON; the last line is
 from __future__ import annotations
 
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -137,7 +167,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from radarml_tpu_torch.core.arena import DEFAULT_ARENA  # noqa: E402
+from radarml_tpu_torch.apps import common_cli  # noqa: E402
+from radarml_tpu_torch.apps import predict as predict_app  # noqa: E402
+from radarml_tpu_torch.apps import serve as serve_app  # noqa: E402
+from radarml_tpu_torch.core.arena import DEFAULT_ARENA, derive_targets  # noqa: E402
+from radarml_tpu_torch.data.labels import LabelEncoder  # noqa: E402
+from radarml_tpu_torch.drivers import RadarSession, SyntheticRadar  # noqa: E402
 from radarml_tpu_torch.data.synthetic import (  # noqa: E402
     make_dataset,
     make_grid_probe,
@@ -404,6 +439,293 @@ def rbf_errors(X, S, gammas):
         out.append((g, float(dk.abs().max()), float(dr.abs().max()),
                     float(dk.mean()), float(dr.mean())))
     return out
+
+
+class DetectionLog(logging.Handler):
+    """Keeps the (seq, target, label, proba) of every detection that
+    `serve --log_detections` logs."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+        self.on_first = None  # called once, at the first detection
+
+    def emit(self, record):
+        if record.msg.startswith("scan %d target %d"):
+            self.rows.append(record.args[:4])
+            if self.on_first is not None:
+                first, self.on_first = self.on_first, None
+                first()
+
+
+def synthetic_scans(n: int, seed: int):
+    """The first n scans of `--driver synthetic --driver_seed seed`, as
+    the apps see them: (cubes, target lists)."""
+    cubes, lists = [], []
+    with RadarSession(SyntheticRadar(arena=DEFAULT_ARENA, seed=seed, max_targets=2)) as r:
+        for _ in range(n):
+            r.trigger()
+            lists.append([(t.x, t.y, t.z) for t in r.get_sensor_targets()])
+            cubes.append(r.get_raw_image().copy())
+    return np.stack(cubes), lists
+
+
+def phase_apps(dev, smi, g, gs, S, fused, cubes, targets) -> dict:
+    """Phase 11: the predict and serve apps, hot reload and the gRPC
+    endpoint on the card, through their entry points, with the artifacts
+    in a temporary directory. Returns B1's and B6's launch counts, each
+    over its own app path, and the gRPC part's outcome."""
+    with tempfile.TemporaryDirectory() as d:
+        return apps_in(d, dev, smi, g, gs, S, fused, cubes, targets)
+
+
+def apps_in(d, dev, smi, g, gs, S, fused, cubes, targets) -> dict:
+    classes = [str(c) for c in g["classes"]]
+    lin, le = os.path.join(d, "linear.pkl"), os.path.join(d, "le.pkl")
+    common_cli.save_label_encoder(le, LabelEncoder(tuple(classes)))
+
+    def write_linear(intercept):
+        common_cli.save_model(lin, "linear", coef=g["coef"], intercept=intercept,
+                              calib_a=g["calib_a"], calib_b=g["calib_b"], classes=classes)
+
+    write_linear(g["intercept"])
+    minp = str(float(g["min_proba"]))
+    logging.getLogger("radarml_tpu_torch.apps.predict").setLevel(logging.WARNING)
+    base = ["--svm_model", lin, "--label_encoder", le, "--min_proba", minp]
+    pbase = base + ["--log_file", os.path.join(d, "predict.log"), "--driver", "synthetic",
+                    "--driver_seed", "1234"]
+
+    # predict: fused, then fast + int8 on the same scans
+    n_scans, batch = 512, 128
+    i8_score.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res_fused = predict_app.main(pbase + ["--mode", "fused", "--batch_scans", str(batch),
+                                          "--num_scans", str(n_scans)])
+    fused_s = time.perf_counter() - t0
+    b1_predict = i8_score.KERNEL_LAUNCHES
+    res_fast = predict_app.main(pbase + ["--mode", "fast", "--cube_dtype", "int8",
+                                         "--batch_scans", str(batch),
+                                         "--num_scans", str(n_scans)])
+    check(len(res_fused) >= n_scans and len(res_fused) == len(res_fast),
+          f"predict answered {len(res_fused)} / {len(res_fast)} targets")
+    check([n for n, _ in res_fused] == [n for n, _ in res_fast],
+          "predict fused names != fast int8 names")
+    d_pf = float(np.abs(np.array([p for _, p in res_fused])
+                        - np.array([p for _, p in res_fast])).max())
+    check(d_pf <= 1e-6, f"predict fused vs fast int8 proba delta {d_pf}")
+    check(b1_predict == n_scans // batch,
+          f"B1 launched {b1_predict} times for {n_scans // batch} fused batches")
+
+    # predict --derived_targets: the targets derived on the card equal
+    # derive_targets of the same cubes on the CPU
+    derived = []
+    real_derive = predict_app.derive_targets
+
+    def spy(cube, arena, num_targets=1):
+        out = real_derive(cube, arena, num_targets)
+        derived.append((cube.cpu(), [v.cpu() for v in out]))
+        return out
+
+    predict_app.derive_targets = spy
+    try:
+        res_der = predict_app.main(pbase + ["--mode", "fused", "--batch_scans", "64",
+                                            "--num_scans", "64", "--derived_targets"])
+    finally:
+        predict_app.derive_targets = real_derive
+    check(len(derived) == 64 and len(res_der) == 64, "derived targets: one a scan")
+    d_xyz = d_amp = 0.0
+    for cube, got in derived:
+        check(got[0].device.type == "cpu" and cube.device.type == "cpu", "copied back")
+        want = derive_targets(cube, DEFAULT_ARENA, 1)
+        d_xyz = max(d_xyz, max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3])))
+        d_amp = max(d_amp, float(((got[3] - want[3]) / want[3]).abs().max()))
+    check(d_xyz <= 1e-4 and d_amp <= 1e-6,
+          f"derived targets: card vs CPU xyz {d_xyz} cm, amplitude rel {d_amp}")
+
+    # predict with the SVC artifact (exact mode): B6 launches, and the
+    # decisions equal a direct RadarPredictor call on the same scans
+    svc_path = os.path.join(d, "svc.pkl")
+    common_cli.save_model(
+        svc_path, "svc", support_vectors=S, dual_coef=gs["dual_coef"],
+        intercept=gs["intercept"], n_support=[int(v) for v in gs["n_support"]],
+        kernel="rbf", gamma=float(gs["gamma"]), probA=gs["probA"], probB=gs["probB"],
+        classes=classes,
+    )
+    n_svc, smin = 128, str(float(gs["min_proba"]))
+    sargs = ["--svm_model", svc_path, "--label_encoder", le, "--min_proba", smin,
+             "--log_file", os.path.join(d, "predict.log"), "--driver", "synthetic",
+             "--driver_seed", "1234", "--mode", "exact", "--batch_scans", str(n_svc),
+             "--num_scans", str(n_svc)]
+    rbf.KERNEL_LAUNCHES = 0
+    res_svc = predict_app.main(sargs)
+    b6_predict = rbf.KERNEL_LAUNCHES
+    check(b6_predict > 0, "the SVC predict path launched the rbf kernel no time")
+    model, _ = common_cli.load_model(svc_path, device=dev)
+    direct = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, model, min_proba=float(smin),
+                            device=dev)
+    scans, lists = synthetic_scans(n_svc, 1234)
+    xyz, valid = pad_targets(lists, 4)
+    pr, best, _ = (r.cpu().numpy() for r in direct(scans, xyz, valid))
+    want = [("Unknown" if pr[b, t] == -1 else classes[int(pr[b, t])], float(best[b, t]))
+            for b in range(n_svc) for t in range(4) if valid[b, t]]
+    check([n for n, _ in res_svc] == [n for n, _ in want], "SVC predict names != direct")
+    d_svc = float(np.abs(np.array([p for _, p in res_svc])
+                         - np.array([p for _, p in want])).max())
+    check(d_svc <= 1e-6, f"SVC predict proba vs direct call {d_svc}")
+    say("apps", f"on {smi}: predict --mode fused {n_scans} scans x batch {batch} in "
+        f"{fused_s:.2f} s: {len(res_fused)} targets, names == fast int8, proba delta "
+        f"{d_pf:.2e}, B1 launches {b1_predict} == {n_scans // batch} batches; "
+        f"--derived_targets 64 scans: card vs CPU derive_targets xyz {d_xyz:.2e} cm, "
+        f"amplitude rel {d_amp:.2e}; SVC exact {n_svc} scans: B6 launches {b6_predict}, "
+        f"{len(res_svc)} targets == a direct call (proba delta {d_svc:.2e})")
+
+    # serve: the native source, fused, 5 s; then 4 synthetic sensors, 2 s
+    sbase = base + ["--mode", "fused", "--max_batch", "128"]
+    i8_score.KERNEL_LAUNCHES = 0
+    st = serve_app.main(sbase + ["--driver", "native", "--duration", "5"])
+    b1_serve = i8_score.KERNEL_LAUNCHES
+    check(st["predict_errors"] == 0 and st["processed"] > 0,
+          f"serve native: processed {st['processed']}, errors {st['predict_errors']}")
+    check(b1_serve > 0, "the serve loop launched B1 no time")
+    st4 = serve_app.main(sbase + ["--driver", "synthetic", "--sensors", "4", "--duration", "2"])
+    check(st4["predict_errors"] == 0 and st4["processed"] > 0,
+          f"serve 4 sensors: processed {st4['processed']}, errors {st4['predict_errors']}")
+    say("apps", f"on {smi}: serve --driver native --mode fused --max_batch 128, 5 s: "
+        f"processed {st['processed']}, dropped {st['dropped']}, latency_p50_ms "
+        f"{st['latency_p50_ms']}, latency_p95_ms {st['latency_p95_ms']}, classify_rate "
+        f"{st['classify_rate']} scans/s, ingest_rate {st['ingest_rate']}, mean_batch "
+        f"{st['mean_batch']}, predict_errors 0, B1 launches {b1_serve}; 4 synthetic "
+        f"sensors, 2 s: processed {st4['processed']}, latency_p50_ms "
+        f"{st4['latency_p50_ms']}, latency_p95_ms {st4['latency_p95_ms']}, classify_rate "
+        f"{st4['classify_rate']}, mean_batch {st4['mean_batch']}")
+
+    # hot reload: 1 s after the first detection, a thread rewrites the
+    # artifact with another intercept; the last detection must follow the
+    # new model (its scan is kept as the loop's source returned it)
+    # the demo decisions run to hundreds and its Platt slopes are ~1e-3
+    new_intercept = g["intercept"] + np.array([3000.0, -3000.0, -3000.0], np.float32)
+    grab = DetectionLog()
+    rewrite = threading.Timer(1.0, write_linear, args=(new_intercept,))
+    grab.on_first = rewrite.start
+    served = []  # seq -> (uint8 cube, targets): one sensor, so seq = order
+    real_source = serve_app.driver_scan_source
+
+    def keeping_source(driver):
+        source = real_source(driver)
+
+        def keep():
+            out = source()
+            if out is not None:
+                served.append((out[0].astype(np.uint8), out[1]))
+            return out
+
+        return keep
+
+    serve_log = logging.getLogger("radarml_tpu_torch.apps.serve")
+    serve_log.addHandler(grab)
+    serve_log.propagate = False  # the detections go to `grab`, not stdout
+    serve_app.driver_scan_source = keeping_source
+    try:
+        st_r = serve_app.main(sbase + ["--driver", "synthetic", "--duration", "5",
+                                       "--reload_poll", "0.2", "--log_detections"])
+    finally:
+        serve_app.driver_scan_source = real_source
+        serve_log.removeHandler(grab)
+        serve_log.propagate = True
+        if rewrite.is_alive():
+            rewrite.join()
+    check(st_r.get("model_reloads", 0) >= 1, f"model_reloads {st_r.get('model_reloads')}")
+    check(st_r["predict_errors"] == 0, f"reload predict_errors {st_r['predict_errors']}")
+    seq, tgt, name, proba = grab.rows[-1]
+    cube, tl = served[seq]
+    xyz, valid = pad_targets([tl], 4)
+    outs = {}
+    new_model, new_calib = common_cli.load_model(lin, device=dev)
+    for key, (m, c) in (("new", (new_model, new_calib)),
+                        ("old", from_numpy(g["coef"], g["intercept"], g["calib_a"],
+                                           g["calib_b"], device=dev))):
+        p_ = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, m, c, min_proba=float(minp),
+                            mode="fused", device=dev)
+        pr, best, row = (r.cpu().numpy() for r in p_(cube[None], xyz, valid))
+        outs[key] = ("" if pr[0, tgt] == -1 else classes[int(pr[0, tgt])],
+                     float(best[0, tgt]), row[0, tgt])
+    check((name if name != "Unknown" else "") == outs["new"][0]
+          and abs(proba - outs["new"][1]) <= 1e-6,
+          f"after the swap scan {seq} target {tgt}: {name} {proba} vs the new model's "
+          f"{outs['new']}")
+    moved = float(np.abs(outs["new"][2] - outs["old"][2]).max())
+    check(moved > 1e-3, f"the new intercept moved the probabilities by {moved} only")
+    say("apps", f"hot reload: {st_r['model_reloads']} swap(s), predict_errors 0, "
+        f"processed {st_r['processed']}; the last detection (scan {seq} target {tgt}: "
+        f"{name} {proba:.6f}) equals a direct call of the new model "
+        f"({outs['new'][0] or 'Unknown'} {outs['new'][1]:.6f}; the old model gives "
+        f"{outs['old'][0] or 'Unknown'} "
+        f"{outs['old'][1]:.6f}, probabilities {moved:.3f} apart)")
+
+    # gRPC: only where grpc and the copied radar_serving_pb2 import
+    try:
+        import grpc  # noqa: F401
+        from radarml_tpu_torch.rpc import radar_serving_pb2  # noqa: F401
+    except ImportError as e:
+        missing = e.name or "grpc"
+        if missing.split(".")[0] not in ("grpc", "google", "radarml_tpu_torch"):
+            raise
+        grpc_status = f"skipped: {missing} not installed"
+        say("apps", f"gRPC part {grpc_status}")
+    else:
+        grpc_status = grpc_part(smi, fused, cubes, targets)
+    return {"b1_predict": b1_predict, "b1_serve": b1_serve, "b6_predict": b6_predict,
+            "grpc": grpc_status}
+
+
+def grpc_part(smi, fused, cubes, targets) -> str:
+    """A RadarServingServer over the fused predictor with 8 leader slots:
+    64 concurrent unary Classify calls and a 128-scan ClassifyStream each
+    equal a direct call; GetStats counts them, and B1's launch count
+    rises by exactly the server's device batches (the counter is exact
+    under concurrent leaders)."""
+    from radarml_tpu_torch.rpc import RadarServingClient, RadarServingServer
+
+    n_unary, n_stream = 64, 128
+    u8 = np.rint(cubes[:n_stream]).astype(np.uint8)
+    tl = [[(t.x, t.y, t.z)] for t in targets[:n_stream]]
+    xyz, valid = pad_targets(tl, 4)
+    want = fused(u8, xyz, valid)[2].cpu().numpy()[:, 0]
+    classes = ["cat", "dog", "person"]
+    server = RadarServingServer(fused, classes=classes, grid_shape=DEFAULT_ARENA.grid_shape,
+                                batch_window_ms=1.0, max_concurrent_batches=8).start()
+    client = RadarServingClient(f"127.0.0.1:{server.port}", timeout_s=120)
+    try:
+        i8_score.KERNEL_LAUNCHES = 0
+        s0 = client.get_stats()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n_unary) as pool:
+            unary = list(pool.map(lambda s: client.classify(u8[s], tl[s]), range(n_unary)))
+        unary_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed = list(client.classify_stream(zip(u8, tl)))
+        stream_s = time.perf_counter() - t0
+        s1 = client.get_stats()
+        launches = i8_score.KERNEL_LAUNCHES
+    finally:
+        client.close()
+        server.stop()
+    d = 0.0
+    for got in (unary, streamed):
+        for s, dets in enumerate(got):
+            check(len(dets) == 1, f"gRPC answer {s} has {len(dets)} detections")
+            d = max(d, float(np.abs(np.asarray(dets[0].class_probas) - want[s]).max()))
+    check(len(streamed) == n_stream, f"ClassifyStream answered {len(streamed)}")
+    check(d <= 1e-6, f"gRPC answers vs a direct call: proba delta {d}")
+    reqs = s1.classify_requests - s0.classify_requests
+    batches = s1.classify_batches - s0.classify_batches
+    check(reqs == n_unary + n_stream, f"GetStats counted {reqs} requests")
+    check(launches == batches, f"B1 launches {launches} != {batches} device batches")
+    say("apps", f"on {smi}: gRPC {n_unary} concurrent Classify in {unary_s:.2f} s and a "
+        f"{n_stream}-scan ClassifyStream in {stream_s:.2f} s, in order, == a direct call "
+        f"(proba delta {d:.2e}); GetStats {reqs} requests in {batches} device batches; "
+        f"B1 launches {launches} == batches (8 leader slots)")
+    return "passed"
 
 
 def main() -> None:
@@ -1052,6 +1374,11 @@ def main() -> None:
         f"{queries.shape[0] * n_sv * 4 / 2**20:.1f} MiB, the rest the packed operands; plain "
         f"{gram_plain_peak / 2**20:.1f} MiB), one SVC exact step {step_peak / 2**20:.1f} MiB")
 
+    # -- 11. apps ----------------------------------------------------------
+    t0 = time.perf_counter()
+    apps = phase_apps(dev, smi, g, gs, S.cpu().numpy(), fused, cubes, targets)
+    say("apps", f"phase 11 in {time.perf_counter() - t0:.1f} s; gRPC {apps['grpc']}")
+
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
         return {
@@ -1078,7 +1405,9 @@ def main() -> None:
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
                            launches, max_err)
                | {"ms_single": kernel_single["kernel"],
-                  "plain_ms_single": kernel_single["plain"], "scans_per_s": rates}]
+                  "plain_ms_single": kernel_single["plain"], "scans_per_s": rates,
+                  "launches_predict_app": apps["b1_predict"],
+                  "launches_serve_app": apps["b1_serve"]}]
     for name, (tail, replaces) in TAIL_KERNELS.items():
         records.append(int8_record(name, KERNEL_SOURCE, replaces, tail_launches[name],
                                    tail_err[name])
@@ -1121,6 +1450,7 @@ def main() -> None:
         "mean_signed_err_serving": {f"{kind} gamma {gamma}": mk
                                     for (kind, gamma), (mk, _) in signed.items()},
         "fit_launches": fit_launches,
+        "launches_predict_app": apps["b6_predict"],
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,
     })

@@ -1,2 +1,3 @@
-"""Application helpers of the port. Only the model-artifact half of
-common_cli is ported; the command-line apps wait for ROADMAP A8."""
+"""Command-line apps of the port: `predict` and `serve`
+(python -m radarml_tpu_torch.apps.<name>), and common_cli, their flags,
+drivers and model artifacts."""

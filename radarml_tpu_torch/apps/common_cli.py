@@ -1,17 +1,21 @@
-"""Model artifacts: the `radarml_tpu.v1` pickles of the JAX package.
+"""Shared CLI plumbing: logging, flags, drivers, model artifacts.
 
-Port of the model-artifact half of radarml_tpu/apps/common_cli.py
-(`save_model`, `load_model_meta`, `load_model`). An artifact is a
-pickled dict {"format": "radarml_tpu.v1", "kind": ..., arrays...} whose
-arrays are numpy, so one that the JAX package trained loads here and
-serves on the card.
+Port of radarml_tpu/apps/common_cli.py.
 
-- `linear` and `svc` load as the port's models.
-- `cnn` and `sgan_classifier` raise NotImplementedError (ROADMAP A12,
-  A13).
-- Reference sklearn pickles raise NotImplementedError (ROADMAP A4):
-  sklearn is not installed where the port runs, and the port never
-  imports it.
+- Logging: the reference's format string, FileHandler(mode='w') plus a
+  stdout StreamHandler, info/debug level flag.
+- `--platform` picks the torch device: "" (the default) is the CUDA
+  card, "cpu" the CPU. `device_of(args)` resolves it, and without a card
+  the default raises instead of carrying on quietly on the CPU.
+- Model artifacts are the `radarml_tpu.v1` pickles of the JAX package:
+  a pickled dict {"format": "radarml_tpu.v1", "kind": ..., arrays...}
+  whose arrays are numpy, so one that the JAX package trained loads
+  here and serves on the card. `linear` and `svc` load as the port's
+  models; `cnn` and `sgan_classifier` raise NotImplementedError (ROADMAP
+  A12, A13). Label encoders are v1 dicts {"format", "classes"}.
+- Reference sklearn pickles (models and label encoders) raise
+  NotImplementedError (ROADMAP A4): sklearn is not installed where the
+  port runs, and the port never imports it.
 
 Loading unpickles with an allow-list (numpy arrays and plain Python
 containers); any other class is refused before it is imported.
@@ -19,20 +23,45 @@ containers); any other class is refused before it is imported.
 
 from __future__ import annotations
 
+import argparse
+import logging
 import os
 import pickle
-from typing import Optional, Tuple, Union
+import sys
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from radarml_tpu_torch.core.arena import DEFAULT_ARENA, Arena, ProjMask
+from radarml_tpu_torch.core.device import resolve_device
+from radarml_tpu_torch.data.labels import LabelEncoder
+from radarml_tpu_torch.drivers.base import DEFAULT_THRESHOLD
 from radarml_tpu_torch.models.linear import LinearModel, SigmoidCalibration
 from radarml_tpu_torch.models.linear import from_numpy as linear_from_numpy
 from radarml_tpu_torch.models.svc import SVCModel
 from radarml_tpu_torch.models.svc import from_numpy as svc_from_numpy
 
-__all__ = ["FORMAT", "load_model", "load_model_meta", "save_model"]
+__all__ = [
+    "FORMAT",
+    "LOG_FORMAT",
+    "add_common_flags",
+    "add_driver_flags",
+    "add_scan_arena_flag",
+    "build_driver",
+    "device_of",
+    "load_label_encoder",
+    "load_model",
+    "load_model_meta",
+    "parse_arena",
+    "parse_proj_mask",
+    "save_label_encoder",
+    "save_model",
+    "setup_logging",
+    "warm_transfers",
+]
 
 FORMAT = "radarml_tpu.v1"
+LOG_FORMAT = "%(asctime)s %(name)-12s %(levelname)-8s %(message)s"
 
 _BUILTINS = frozenset({
     "dict", "list", "tuple", "set", "frozenset", "int", "float", "complex",
@@ -43,6 +72,152 @@ _NOT_PORTED = {
     "sgan_classifier": "the SGAN classifier is not ported yet (ROADMAP A13)",
 }
 
+
+def setup_logging(log_file: Optional[str], level: str):
+    handlers: List[logging.Handler] = [logging.StreamHandler(sys.stdout)]
+    if log_file:
+        os.makedirs(os.path.dirname(log_file) or ".", exist_ok=True)
+        handlers.append(logging.FileHandler(log_file, mode="w"))
+    logging.basicConfig(
+        format=LOG_FORMAT,
+        level=logging.DEBUG if level == "debug" else logging.INFO,
+        handlers=handlers,
+        force=True,
+    )
+
+
+def add_common_flags(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--logging_level", type=str, default="info",
+        help='logging level, "info" or "debug"',
+    )
+    parser.add_argument(
+        "--platform", type=str, default="",
+        help="torch device to compute on: '' (default) is the CUDA card, "
+             "and raises where there is none; 'cpu' is the CPU",
+    )
+
+
+def device_of(args) -> torch.device:
+    """The device `--platform` picks: the card unless it says 'cpu'.
+    Without a card the default raises; it never falls back to the CPU."""
+    try:
+        return resolve_device(args.platform or None)
+    except RuntimeError as e:
+        raise RuntimeError(f"{e} (on the command line: --platform cpu)") from e
+
+
+def warm_transfers(device: torch.device) -> None:
+    """One small host→device→host round trip. On the card it also
+    creates the CUDA context, so the first batch does not pay for it."""
+    (torch.zeros(8, device=device) + 1.0).cpu()
+
+
+def parse_proj_mask(values: Sequence) -> ProjMask:
+    """Reference flag order is (xz, yz, xy) booleans."""
+    vals = [v if isinstance(v, bool) else _parse_bool(v) for v in values]
+    if len(vals) != 3:
+        raise ValueError("--proj_mask needs exactly 3 values")
+    return ProjMask(*vals)
+
+
+def add_scan_arena_flag(parser: argparse.ArgumentParser):
+    """--scan_arena: serve scans from a differently configured arena.
+
+    The reference predictor classifies scans from an arena that may
+    differ from the training arena: it zooms each projection by
+    train_size/scan_size per axis (reference predict.py:34-54
+    calc_proj_zoom; here ops/features.predict_zoom through
+    RadarPredictor(scan_arena=...)).
+    """
+    parser.add_argument(
+        "--scan_arena", type=str, default="",
+        help="scan arena if it differs from the training arena, as "
+             "9 comma-separated values "
+             "r_min,r_max,r_res,theta_min,theta_max,theta_res,"
+             "phi_min,phi_max,phi_res (cm / deg; default: the "
+             "training arena, i.e. 10,360,2,-42,42,4,-30,30,2)",
+    )
+
+
+def parse_arena(spec: str, default: Arena = DEFAULT_ARENA) -> Arena:
+    """Parse a --scan_arena value; '' → the default (training) arena."""
+    if not spec:
+        return default
+    vals = [float(v) for v in spec.replace(" ", "").split(",")]
+    if len(vals) != 9:
+        raise ValueError(
+            "--scan_arena needs 9 comma-separated values "
+            "(r_min,r_max,r_res,theta_min,theta_max,theta_res,"
+            "phi_min,phi_max,phi_res); got %d" % len(vals)
+        )
+    return Arena(
+        r_min=vals[0], r_max=vals[1], r_res=vals[2],
+        theta_min=vals[3], theta_max=vals[4], theta_res=vals[5],
+        phi_min=vals[6], phi_max=vals[7], phi_res=vals[8],
+    )
+
+
+def _parse_bool(value) -> bool:
+    return str(value).lower() not in ("0", "false", "no", "")
+
+
+def add_driver_flags(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--driver", type=str, default="synthetic",
+        choices=["synthetic", "native", "walabot"],
+        help="radar backend (walabot requires the vendor SDK)",
+    )
+    parser.add_argument(
+        "--scan_period", type=float, default=0.0,
+        help="simulated sensor scan period in seconds",
+    )
+    parser.add_argument("--driver_seed", type=int, default=1234)
+    parser.add_argument(
+        "--threshold", type=float, default=DEFAULT_THRESHOLD,
+        help="radar sensitivity threshold applied at session configure "
+             "(reference predict.py:203 SetThreshold(5))",
+    )
+    parser.add_argument(
+        "--mti", type=_parse_bool, default=True,
+        help="enable the MTI dynamic image filter; with --mti=false the "
+             "session runs the explicit calibration loop before scanning "
+             "(reference predict.py:207-213 SetDynamicImageFilter + "
+             "common.calibrate)",
+    )
+
+
+def build_driver(args, arena: Arena = DEFAULT_ARENA):
+    threshold = getattr(args, "threshold", DEFAULT_THRESHOLD)
+    mti = getattr(args, "mti", True)
+    if args.driver == "synthetic":
+        from radarml_tpu_torch.drivers import SyntheticRadar
+
+        return SyntheticRadar(
+            arena=arena, seed=args.driver_seed,
+            scan_period_s=args.scan_period, max_targets=2,
+            threshold=threshold, mti=mti,
+        )
+    if args.driver == "native":
+        from radarml_tpu_torch.drivers import NativeRadar
+
+        return NativeRadar(
+            arena=arena, seed=args.driver_seed,
+            scan_period_us=args.scan_period * 1e6,
+            threshold=threshold, mti=mti,
+        )
+    from radarml_tpu_torch.drivers import WalabotRadar, walabot_available
+
+    if not walabot_available():
+        raise SystemExit(
+            "walabot driver requires the vendor WalabotAPI SDK wheel"
+        )
+    return WalabotRadar(arena=arena, threshold=threshold, mti=mti)
+
+
+# --------------------------------------------------------------------------
+# Model artifacts
+# --------------------------------------------------------------------------
 
 class _ArtifactUnpickler(pickle.Unpickler):
     """Unpickles numpy arrays and plain containers; refuses the rest."""
@@ -77,6 +252,22 @@ def save_model(path: str, kind: str, **arrays) -> None:
     payload.update(arrays)
     with open(path, "wb") as fp:
         pickle.dump(payload, fp)
+
+
+def save_label_encoder(path: str, le: LabelEncoder) -> None:
+    """Write a label encoder in the JAX package's v1 format."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as fp:
+        pickle.dump({"format": FORMAT, "classes": list(le.classes_)}, fp)
+
+
+def load_label_encoder(path: str) -> LabelEncoder:
+    """Read a v1 label encoder; a reference sklearn pickle is refused
+    (NotImplementedError, ROADMAP A4) before sklearn is imported."""
+    obj = _load(path)
+    if not (isinstance(obj, dict) and obj.get("format") == FORMAT):
+        raise ValueError(f"{path} is not a {FORMAT} label encoder")
+    return LabelEncoder(classes_=tuple(str(c) for c in obj["classes"]))
 
 
 def load_model_meta(path: str) -> dict:

@@ -10,7 +10,6 @@ indexed (i, j, k) = (theta, phi, r), so the default arena yields a
 The index transforms take torch tensors (or anything `torch.as_tensor`
 accepts) and compute in float32, the JAX package's precision, so the
 truncated cube indices agree with it; host-side helpers stay numpy.
-`derive_targets` is not ported yet.
 """
 
 from __future__ import annotations
@@ -227,6 +226,45 @@ def spherical_to_cartesian(r, theta, phi):
     y = r * torch.cos(theta) * torch.sin(phi)
     z = r * torch.cos(theta) * torch.cos(phi)
     return x, y, z
+
+
+def derive_targets(cube, arena: Arena, num_targets: int = 1):
+    """Derive the strongest targets from a raw scan cube, on the device
+    the cube lies on.
+
+    Software replacement for the radar SDK's target extraction, in the
+    spirit of the reference's DerivedTarget path (common.py:45-80): sum
+    the cube down to per-axis profiles, take the top-`num_targets`
+    indices per axis, and map grid nodes back to cartesian coordinates.
+
+    The profiles are summed in float64, so the card and the CPU rank
+    them alike (a float32 sum's rounding depends on its order), and
+    ranked by a stable descending sort: among equal sums the lower index
+    counts as stronger, as `jax.lax.top_k` orders them (`torch.topk`
+    promises no order for ties).
+
+    Args:
+        cube: (size_x, size_y, size_z) array or tensor.
+        arena: scan arena describing the cube geometry.
+        num_targets: number of targets to emit.
+
+    Returns:
+        float32 (x, y, z, amplitude) tensors of shape (num_targets,),
+        weakest to strongest, matching the reference's argsort ordering.
+    """
+    cube = torch.as_tensor(cube).to(torch.float64)
+
+    def top(profile):
+        idx = torch.sort(profile, descending=True, stable=True).indices[:num_targets]
+        # descending; the reference emits ascending-by-strength
+        idx = idx.flip(0)
+        return idx, profile[idx].to(torch.float32)
+
+    i, amp = top(cube.sum(dim=(1, 2)))
+    j, _ = top(cube.sum(dim=(0, 2)))
+    k, _ = top(cube.sum(dim=(0, 1)))
+    x, y, z = arena.grid_to_cartesian(i, j, k)
+    return x, y, z, amp
 
 
 def slice_projections(

@@ -1,3 +1,10 @@
+from radarml_tpu_torch.data.labels import (
+    CLASS_ALIAS,
+    LabelEncoder,
+    apply_aliases,
+    class_weights,
+    filter_samples,
+)
 from radarml_tpu_torch.data.synthetic import (
     DEFAULT_CLASSES,
     SyntheticTarget,
@@ -9,6 +16,11 @@ from radarml_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "CLASS_ALIAS",
+    "LabelEncoder",
+    "apply_aliases",
+    "class_weights",
+    "filter_samples",
     "DEFAULT_CLASSES",
     "SyntheticTarget",
     "make_dataset",

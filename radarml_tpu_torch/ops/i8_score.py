@@ -34,6 +34,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from radarml_tpu_torch.ops._cuda_build import count_launch
+
 __all__ = [
     "CombinedWeights",
     "KERNEL_LAUNCHES",
@@ -265,7 +267,6 @@ def onepass_tables_combined_i8(
     kernel writes scan-major buffers (coalesced per scan) and these are
     permuted views of them; on a CPU tensor this is the plain version.
     """
-    global KERNEL_LAUNCHES
     if not launches_kernel(cube, weights):
         return onepass_tables_combined_i8_ref(cube, weights)
     X, Y, Z, _ = weights.dims
@@ -292,5 +293,5 @@ def onepass_tables_combined_i8(
             f"i8_score_onepass_tables launch failed: CUDA error {err} "
             f"(B={B}, dims={(X, Y, Z)}, C2={C2})"
         )
-    KERNEL_LAUNCHES += 1
+    count_launch(globals(), "KERNEL_LAUNCHES")
     return t1.permute(1, 2, 0), t2.permute(1, 2, 0), t3.permute(1, 2, 0)

@@ -48,6 +48,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from radarml_tpu_torch.ops import i8_score
+from radarml_tpu_torch.ops._cuda_build import count_launch
 from radarml_tpu_torch.ops.i8_score import (
     CombinedWeights,
     build_combined_weights,
@@ -279,7 +280,7 @@ def _launch(name: str, fn: str, cube: torch.Tensor, weights: CombinedWeights,
             f"{fn} launch failed: CUDA error {err} (B={cube.shape[0]}, "
             f"dims={(X, Y, Z)}, C2={weights.c2}, args={ints})"
         )
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 def _int32(cube: torch.Tensor, *shapes) -> tuple:

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from radarml_tpu_torch.ops._cuda_build import count_launch
+
 __all__ = ["KERNEL_LAUNCHES", "rbf_gram", "rbf_gram_ref"]
 
 #: Launches of the CUDA kernel in this process. Only the wrapper adds to
@@ -85,7 +87,6 @@ def rbf_gram(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
     passes write the operands as tiles into scratch allocated here (about
     n F + 2 m F floats). On a CPU tensor this is `rbf_gram_ref`.
     """
-    global KERNEL_LAUNCHES
     _check(X, S)
     if X.device.type == "cpu":
         return rbf_gram_ref(X, S, gamma)
@@ -113,5 +114,5 @@ def rbf_gram(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
         raise RuntimeError(
             f"rbf_gram_f32 launch failed: CUDA error {err} (n={n}, m={m}, F={F})"
         )
-    KERNEL_LAUNCHES += 1
+    count_launch(globals(), "KERNEL_LAUNCHES")
     return out

@@ -41,6 +41,8 @@ from typing import Tuple
 
 import torch
 
+from radarml_tpu_torch.ops._cuda_build import count_launch
+
 __all__ = [
     "KERNEL_LAUNCHES",
     "NativeTemplates",
@@ -216,7 +218,6 @@ def native_tables(
     it takes a contiguous cube and raises on any other. On a CPU tensor
     this is `native_tables_ref`.
     """
-    global KERNEL_LAUNCHES
     _check(cubes, templates)
     if cubes.device.type == "cpu":
         return native_tables_ref(cubes, templates)
@@ -245,7 +246,7 @@ def native_tables(
             f"native_score_tables launch failed: CUDA error {err} "
             f"(B={B}, dims={(X, Y, Z)}, C={C})"
         )
-    KERNEL_LAUNCHES += 1
+    count_launch(globals(), "KERNEL_LAUNCHES")
     return m1, m2, m3
 
 

@@ -32,7 +32,14 @@ from radarml_tpu_torch.utils.profiling import RateMeter
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Scan", "Detection", "StreamConfig", "StreamingClassifier"]
+__all__ = [
+    "Scan",
+    "Detection",
+    "StreamConfig",
+    "StreamingClassifier",
+    "driver_scan_source",
+    "native_scan_source",
+]
 
 
 class Scan(NamedTuple):
@@ -280,3 +287,34 @@ class StreamingClassifier:
             "predict_errors": self.predict_errors,
         }
 
+
+def driver_scan_source(driver):
+    """Adapt a RadarDriver to the scan_source callable contract."""
+
+    def source():
+        driver.trigger()
+        targets = driver.get_sensor_targets()
+        if not targets:
+            return None
+        return driver.get_raw_image(), [(t.x, t.y, t.z) for t in targets]
+
+    return source
+
+
+def native_scan_source(src, arena):
+    """Adapt a NativeScanSource: C++ thread produces, we pop."""
+
+    def source():
+        out = src.next(timeout_s=0.5)
+        if out is None:
+            return None
+        cube, rows, _seq = out
+        targets = []
+        for i, j, k, _amp in rows:
+            x, y, z = arena.grid_to_cartesian_np(float(i), float(j), float(k))
+            targets.append((float(x), float(y), float(z)))
+        if not targets:
+            return None
+        return cube, targets
+
+    return source

@@ -1,3 +1,3 @@
-from radarml_tpu_torch.utils.profiling import RateMeter, StageTimer
+from radarml_tpu_torch.utils.profiling import RateMeter, StageTimer, device_trace
 
-__all__ = ["RateMeter", "StageTimer"]
+__all__ = ["RateMeter", "StageTimer", "device_trace"]

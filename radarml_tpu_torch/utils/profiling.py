@@ -2,10 +2,9 @@
 
 Port of radarml_tpu/utils/profiling.py: lightweight per-stage wall
 timers around the capture/predict loops and throughput counters with
-EMA rates. Both are host-side only. `kernel_device_ms` reads the device
-time of named CUDA kernels from a torch.profiler trace. The JAX package's
-`device_trace` (a jax.profiler scope) is not ported yet; its counterpart
-here will be a torch.profiler/NVTX scope.
+EMA rates. Both are host-side only. `device_trace` is a torch.profiler
+scope that writes a Chrome trace, and `kernel_device_ms` reads the device
+time of named CUDA kernels from a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -13,13 +12,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StageTimer", "RateMeter", "kernel_device_ms"]
+__all__ = ["StageTimer", "RateMeter", "device_trace", "kernel_device_ms"]
 
 
 @dataclasses.dataclass
@@ -111,6 +111,28 @@ class RateMeter:
                 )
         self._last = now
         return self.rate
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """torch.profiler scope over the CPU and, where a card is present,
+    CUDA activity; writes a Chrome trace (`trace-<pid>.json`) into
+    `log_dir`. Does nothing when log_dir is empty."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("device trace written to %s", path)
 
 
 #: Profiler traces `kernel_device_ms` took in this process, and how many of

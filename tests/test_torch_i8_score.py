@@ -238,3 +238,41 @@ def test_kernel_on_the_card():
                               for s in ((5, 9), (7, 9), (5, 7))], dims=(5, 7, 9, 9), levels=1)
     with pytest.raises(ValueError, match="class rows"):
         tk.onepass_tables_combined_i8(torch.zeros((1, 5, 7, 9), dtype=torch.int8, device=dev), w9)
+
+
+def test_count_launch_is_exact_under_threads():
+    """Leader threads of the serving layers call one predictor at once;
+    the launch counters go through one locked increment, so 8 threads
+    lose no count (a bare `+= 1` on a module global can). Driven on a
+    plain dict and on a module counter, as the wrappers call it."""
+    import sys
+    import threading
+    from pathlib import Path
+
+    from radarml_tpu_torch.ops import _cuda_build, i8_tails, rbf, score
+
+    for wrapper in (tk, rbf, score, i8_tails):
+        assert "count_launch(" in Path(wrapper.__file__).read_text()
+    n_threads, per_thread = 8, 20000
+    counts = {"n": 0}
+    saved = rbf.KERNEL_LAUNCHES
+    rbf.KERNEL_LAUNCHES = 0
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(per_thread):
+                _cuda_build.count_launch(counts, "n")
+                _cuda_build.count_launch(vars(rbf), "KERNEL_LAUNCHES")
+
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert counts["n"] == n_threads * per_thread
+        assert rbf.KERNEL_LAUNCHES == n_threads * per_thread
+    finally:
+        sys.setswitchinterval(interval)
+        rbf.KERNEL_LAUNCHES = saved

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict, SVC and serving paths on one CUDA card.
+"""Drive the PyTorch port's predict, SVC, serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -125,13 +125,41 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              and a 128-scan ClassifyStream like a direct call (1e-6, in
              order), GetStats counts the 192 requests, and B1's launch count
              rises by exactly the server's device batches.
+12. train  — the train app (python -m radarml_tpu_torch.apps.train) on
+             the card at full width (10,010 features), on make_dataset(
+             2280, hardness=1.0) written as a dataset pickle (a training
+             split of 1,881 balanced samples): --use_svc with the 30-
+             candidate grid and 5 folds (seconds, best parameters and CV
+             score, SMO iterations, test accuracy; B6 launched exactly as
+             the path implies: the refit's Gram, which its Platt folds
+             reuse, and the test-split decisions, 2 when the best kernel
+             is rbf, and it must be), B6 timed at those two shapes against
+             plain and bound, and the predict app over the artifact in
+             exact mode equal to a direct RadarPredictor call (1e-6); the
+             35-candidate SGD grid (seconds, epochs per penalty group,
+             every walk a CUDA graph replay, ms per epoch of the graph
+             against the eager walk for the largest CV group and the
+             refit) and the predict app over it with --mode fused (B1
+             launched once a batch) equal to --mode fast --cube_dtype int8;
+             --online_learn --grid_epochs 20 continuing that artifact (the
+             label encoder untouched); --epochs 1 augmentation for each
+             family on make_dataset(570); and both families on the dataset
+             of radarml_tpu_torch/assets/golden_train.npz (the JAX train
+             app's run, xy features) held to its bars (golden_train_check:
+             SVC best parameters equal, decisions within atol 5e-4 / rtol
+             1e-3, >= 98% equal predictions; fold scores and the SGD
+             choice within the JAX package's own one-ulp spread). Where
+             matplotlib is missing one line names it and the app writes no
+             confusion-matrix figure.
 
 Each kernel's launch count is reset just before its main path and read
 just after: the int8 kernels and B7 over phases 4-5 (each fused tail's
 kernel on its own tail's path, B7 on the pallas path), the RBF kernel
 over phase 9 (and, reported apart, over the fit of phase 8); B1's and B6's
 again over phase 11's predict app and B1's over its serve loop, reported
-apart as launches_predict_app / launches_serve_app. bound_ms is
+apart as launches_predict_app / launches_serve_app; B6's over phase 12's
+SVC train app, as launches_train_app beside the count the path implies,
+with its ms at the train path's two shapes (train_shapes). bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
@@ -151,6 +179,7 @@ before last is the kernel record as JSON; the last line is
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import logging
 import os
@@ -170,21 +199,26 @@ import torch  # noqa: E402
 from radarml_tpu_torch.apps import common_cli  # noqa: E402
 from radarml_tpu_torch.apps import predict as predict_app  # noqa: E402
 from radarml_tpu_torch.apps import serve as serve_app  # noqa: E402
-from radarml_tpu_torch.core.arena import DEFAULT_ARENA, derive_targets  # noqa: E402
-from radarml_tpu_torch.data.labels import LabelEncoder  # noqa: E402
+from radarml_tpu_torch.apps import train as train_app  # noqa: E402
+from radarml_tpu_torch.core.arena import DEFAULT_ARENA, RADAR_MAX, derive_targets  # noqa: E402
+from radarml_tpu_torch.data.balance import balance_classes  # noqa: E402
+from radarml_tpu_torch.data.labels import LabelEncoder, filter_samples  # noqa: E402
+from radarml_tpu_torch.data.split import train_val_test_split  # noqa: E402
+from radarml_tpu_torch.data.store import load_datasets, save_dataset  # noqa: E402
 from radarml_tpu_torch.drivers import RadarSession, SyntheticRadar  # noqa: E402
 from radarml_tpu_torch.data.synthetic import (  # noqa: E402
     make_dataset,
     make_grid_probe,
     make_scan_batch,
 )
-from radarml_tpu_torch.models import svc  # noqa: E402
+from radarml_tpu_torch.models import linear, svc  # noqa: E402
 from radarml_tpu_torch.models.linear import from_numpy  # noqa: E402
 from radarml_tpu_torch.models.pipeline import RadarPredictor, pad_targets  # noqa: E402
 from radarml_tpu_torch.ops import _cuda_build  # noqa: E402
 from radarml_tpu_torch.ops import i8_score, i8_tails, rbf, score  # noqa: E402
-from radarml_tpu_torch.ops.features import process_samples  # noqa: E402
+from radarml_tpu_torch.ops.features import FeatureSpec, process_samples  # noqa: E402
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
+from radarml_tpu_torch.train.gridsearch import SGD_PARAM_GRID, parameter_grid  # noqa: E402
 from radarml_tpu_torch.utils.profiling import TRACES, kernel_device_ms  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -726,6 +760,339 @@ def grpc_part(smi, fused, cubes, targets) -> str:
         f"(proba delta {d:.2e}); GetStats {reqs} requests in {batches} device batches; "
         f"B1 launches {launches} == batches (8 leader slots)")
     return "passed"
+
+
+# -- phase 12: the train app -------------------------------------------------
+
+N_TRAIN, TRAIN_HARDNESS, N_AUG, ONLINE_EPOCHS, N_TRAIN_SCANS = 2280, 1.0, 570, 20, 128
+GOLD_ASSET = os.path.join(HERE, "radarml_tpu_torch", "assets", "golden_train.npz")
+GOLD_MASK = ["False", "False", "True"]
+
+
+def rbf_bound(A, B_, peak=TF32_FLOPS_S / 3):
+    """Least ms for the Gram of A against B_: its bytes, or its 2 n m F
+    float32-grade operations by the fastest route on the card, three TF32
+    tensor-core products per product (FP32_FLOPS_S: by FP32 FMAs)."""
+    n, F = A.shape
+    m = B_.shape[0]
+    ms, by = bound(4 * (n * F + m * F + n * m), 2 * n * m * F, peak)
+    if by == "operations":
+        by = "operations, 3xTF32" if peak != FP32_FLOPS_S else "operations, FP32 FMA"
+    return ms, by
+
+
+def train_args(d, name, *extra):
+    return ["--svm_model", os.path.join(d, f"{name}.pkl"),
+            "--label_encoder", os.path.join(d, f"{name}_le.pkl"),
+            "--svm_cm", os.path.join(d, f"{name}_cm.png"),
+            "--log_file", os.path.join(d, f"{name}.log"), *extra]
+
+
+def write_dataset(path, n, seed, hardness) -> float:
+    t0 = time.perf_counter()
+    samples, labels = make_dataset(n, seed=seed, hardness=hardness)
+    save_dataset(path, samples, labels, append=False)
+    return time.perf_counter() - t0
+
+
+def app_split(path, proj_mask, dev):
+    """The train app's flow on the dataset at `path`, by the port's own
+    helpers: ((val features, y_val), (test features, y_test), balanced
+    training labels); the features on `dev`."""
+    data = load_datasets([path])
+    samples, labels = filter_samples(data["samples"], data["labels"],
+                                     ["person", "dog", "cat"])
+    samples = [tuple(np.asarray(p) / RADAR_MAX for p in s) for s in samples]
+    _, y = LabelEncoder.fit_transform(labels)
+    (_, y_train), (X_val, y_val), (X_test, y_test) = train_val_test_split(
+        samples, y, (0.8, 0.1, 0.1), seed=1234)
+    y_bal, _ = balance_classes(y_train, np.zeros(len(y_train)))
+    mask = common_cli.parse_proj_mask(proj_mask)
+    return ((process_samples(X_val, proj_mask=mask, device=dev), np.asarray(y_val)),
+            (process_samples(X_test, proj_mask=mask, device=dev), np.asarray(y_test)),
+            np.asarray(y_bal))
+
+
+def predict_matches_direct(d, dev, model_path, le_path, classes, mode, n, batch,
+                           min_proba=0.7):
+    """The predict app over `n` synthetic scans equals a direct
+    RadarPredictor call on the same scans (names, probabilities within
+    1e-6); returns (targets answered, proba delta)."""
+    res = predict_app.main([
+        "--svm_model", model_path, "--label_encoder", le_path,
+        "--min_proba", str(min_proba), "--log_file", os.path.join(d, "predict.log"),
+        "--driver", "synthetic", "--driver_seed", "1234", "--mode", mode,
+        "--batch_scans", str(batch), "--num_scans", str(n)])
+    model, calib = common_cli.load_model(model_path, device=dev)
+    direct = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, model, calib,
+                            min_proba=min_proba, mode="exact", device=dev)
+    scans, lists = synthetic_scans(n, 1234)
+    xyz, valid = pad_targets(lists, 4)
+    pr, best, _ = (r.cpu().numpy() for r in direct(scans, xyz, valid))
+    want = [("Unknown" if pr[b, t] == -1 else classes[int(pr[b, t])], float(best[b, t]))
+            for b in range(n) for t in range(4) if valid[b, t]]
+    check([m for m, _ in res] == [m for m, _ in want], f"predict {mode} names != direct")
+    delta = float(np.abs(np.array([p for _, p in res]) - np.array([p for _, p in want])).max())
+    check(delta <= 1e-6, f"predict {mode} proba vs a direct call {delta}")
+    return len(res), delta
+
+
+def walk_epoch_ms(walk, n_epochs: int) -> dict:
+    """ms per epoch of a cached SGD walk: graph replays and the eager
+    walk, on the same buffers (CUDA events, after one warm epoch each)."""
+    perms = np.random.default_rng(0)
+    out = {}
+    for name, capture in (("graph", True), ("eager", False)):
+        walk.epoch(perms.permutation(walk.shape[2]), capture=capture)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_epochs):
+            walk.epoch(perms.permutation(walk.shape[2]), capture=capture)
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / n_epochs
+    return out
+
+
+def golden_train_check(got: dict, g: dict) -> dict:
+    """The bars that hold a train run to radarml_tpu_torch/assets/
+    golden_train.npz (tests/test_torch_train_golden.py explains them and
+    holds the JAX run to them); returns what was measured, fold-score
+    deviations in test samples. Raises AssertionError past a bar."""
+    out = {}
+    size = g["fold_sizes"][None, :].astype(np.float64)
+    for fam in ("sgd", "svc"):
+        dev = np.abs(got[f"{fam}_scores"] - g[f"{fam}_scores"]) * size
+        self_dev = np.abs(g[f"{fam}_ulp_scores"] - g[f"{fam}_scores"][None]) * size[None]
+        out[f"{fam}_fold_dev_max"] = float(dev.max())
+        out[f"{fam}_fold_dev_mean"] = float(dev.mean())
+        out[f"{fam}_jax_ulp_dev_max"] = float(self_dev.max())
+        out[f"{fam}_jax_ulp_dev_mean"] = float(self_dev.mean())
+        out[f"{fam}_fold_bar"] = out[f"{fam}_jax_ulp_dev_max"] + 1.0
+        check(out[f"{fam}_fold_dev_max"] <= out[f"{fam}_fold_bar"] + 1e-9,
+              f"{fam} fold scores off the golden: {out}")
+    # SVC: equal best parameters; decisions and predictions
+    check(json.loads(str(got["svc_params"])) == json.loads(str(g["svc_params"])),
+          f"SVC best {got['svc_params']} != golden {g['svc_params']}")
+    dj, dt = g["svc_test_dec"], got["svc_test_dec"]
+    out["svc_dec_excess"] = float((np.abs(dt - dj) / (5e-4 + 1e-3 * np.abs(dj))).max())
+    out["svc_agree"] = float((got["svc_test_pred"] == g["svc_test_pred"]).mean())
+    check(out["svc_dec_excess"] <= 1.0 and out["svc_agree"] >= 0.98,
+          f"SVC test split off the golden: {out}")
+    # SGD: the chosen candidate scores within the JAX runs' spread of the best
+    means = np.concatenate([g["sgd_scores"].mean(1)[None], g["sgd_ulp_scores"].mean(2)])
+    spread = float((means.max(0) - means.min(0)).max())
+    cands = [json.dumps(p, sort_keys=True) for p in parameter_grid(SGD_PARAM_GRID)]
+    check(len(cands) == g["sgd_scores"].shape[0], "the golden's SGD grid")
+    chosen = cands.index(json.dumps(json.loads(str(got["sgd_params"])), sort_keys=True))
+    out["sgd_params_equal"] = chosen == cands.index(
+        json.dumps(json.loads(str(g["sgd_params"])), sort_keys=True))
+    out["sgd_best_gap"] = float(means[0].max() - means[0][chosen])
+    out["sgd_mean_spread"] = spread
+    out["sgd_agree"] = float((got["sgd_test_pred"] == g["sgd_test_pred"]).mean())
+    out["sgd_agree_bar"] = min(0.98, float(g["sgd_self_agree"]))
+    check(out["sgd_best_gap"] <= spread + 1e-12, f"SGD best off the golden: {out}")
+    check(out["sgd_agree"] >= out["sgd_agree_bar"], f"SGD test split off the golden: {out}")
+    return out
+
+
+def golden_train_record(d, dev) -> dict:
+    """Both families of the train app on the golden asset's dataset, on
+    `dev`: the fields golden_train_check compares."""
+    g = dict(np.load(GOLD_ASSET))
+    path = os.path.join(d, "golden.pickle")
+    write_dataset(path, int(g["n_samples"]), int(g["data_seed"]), float(g["hardness"]))
+    base = ["--datasets", path, "--proj_mask", *GOLD_MASK, "--folds", str(int(g["folds"]))]
+    if dev.type == "cpu":
+        base += ["--platform", "cpu"]
+    sgd = train_app.main(base + train_args(d, "golden_sgd"))
+    svc_out = train_app.main(base + train_args(d, "golden_svc", "--use_svc"))
+    _, (F_test, y_test), y_bal = app_split(path, GOLD_MASK, dev)
+    model = svc_out["model"]
+
+    def scores(grid):
+        return np.asarray([r["split_scores"] for r in grid.cv_results], np.float64)
+
+    check(np.array_equal(y_test, g["y_test"]), "the golden's test split")
+    return g, {
+        "sgd_params": json.dumps(sgd["grid"].best_params, sort_keys=True),
+        "sgd_scores": scores(sgd["grid"]), "sgd_test_pred": sgd["y_pred"],
+        "svc_params": json.dumps(svc_out["grid"].best_params, sort_keys=True),
+        "svc_scores": scores(svc_out["grid"]),
+        "svc_test_dec": svc.decision_function_ovo(model, F_test).cpu().numpy(),
+        "svc_test_pred": svc.predict(model, F_test).cpu().numpy(),
+        "svc_n_support": np.asarray(model.n_support),
+    }
+
+
+def phase_train(dev, smi) -> dict:
+    """Phase 12: the train app on the card, both families, at full width,
+    with the artifacts in a temporary directory. Returns B6's numbers on
+    the train path."""
+    with tempfile.TemporaryDirectory() as d:
+        return train_in(d, dev, smi)
+
+
+def train_in(d, dev, smi) -> dict:
+    logging.getLogger("radarml_tpu_torch").setLevel(logging.WARNING)
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    say("train", "matplotlib " + ("imports" if have_mpl else "is not installed: the "
+        "train app runs with no confusion-matrix figure"))
+    ds = os.path.join(d, "train.pickle")
+    data_s = write_dataset(ds, N_TRAIN, 1234, TRAIN_HARDNESS)
+    classes = ["cat", "dog", "person"]
+
+    # SVC: the 30-candidate grid, 5 folds; B6 in the refit and the
+    # test-split decisions
+    rbf.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = train_app.main(["--use_svc", "--datasets", ds, *train_args(d, "svc")])
+    torch.cuda.synchronize()
+    svc_s = time.perf_counter() - t0
+    b6_train = rbf.KERNEL_LAUNCHES
+    grid, model = out["grid"], out["model"]
+    check(model.support_vectors.device.type == "cuda", "the SVC was fitted off the card")
+    # the refit's Gram (reused by its Platt folds) and the test decisions
+    expected = 2 if model.kernel == "rbf" else 0
+    check(b6_train == expected, f"B6 launched {b6_train} times on the train path, "
+          f"which implies {expected}")
+    check(b6_train > 0, f"the train path's best SVC is {model.kernel}: B6 launched no time")
+    _, (F_test, y_test), y_bal = app_split(ds, [True] * 3, dev)
+    n_feat = F_test.shape[1]
+    check(n_feat == FeatureSpec.for_arena(DEFAULT_ARENA).feature_length == 10010,
+          f"{n_feat} features, not the default arena's full width")
+    svc_acc = out["metrics"]["accuracy"]
+    say("train", f"on {smi}: train --use_svc on make_dataset({N_TRAIN}, hardness "
+        f"{TRAIN_HARDNESS}) ({len(y_bal)} balanced training samples x {n_feat} features, "
+        f"data made in {data_s:.1f} s): {svc_s:.2f} s; best {grid.best_params}, CV score "
+        f"{grid.best_score:.4f}; most SMO iterations in the CV per kernel group "
+        f"{grid.smo_iters}, refit per pair {model.fit_stats['pairs']}, per Platt sub-fit "
+        f"{model.fit_stats['platt']}; n_sv {model.support_vectors.shape[0]}; B6 launches "
+        f"{b6_train} == {expected} (refit Gram + test decisions); test accuracy "
+        f"{svc_acc:.4f} on {len(y_test)} scans")
+    n_ans, d_svc = predict_matches_direct(
+        d, dev, os.path.join(d, "svc.pkl"), os.path.join(d, "svc_le.pkl"), classes,
+        "exact", N_TRAIN_SCANS, N_TRAIN_SCANS)
+    say("train", f"predict --mode exact over the trained SVC, {N_TRAIN_SCANS} scans: "
+        f"{n_ans} targets == a direct RadarPredictor call (proba delta {d_svc:.2e})")
+
+    # B6 at the train path's shapes: the refit Gram and the test decisions
+    S = model.support_vectors
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    shapes = {"refit": (torch.rand((len(y_bal), n_feat), generator=gen, device=dev),) * 2,
+              "test": (F_test.contiguous(), S)}
+    b6_ms = {}
+    for name, (A, B_) in shapes.items():
+        t = interleaved({"plain": lambda A=A, B_=B_: rbf.rbf_gram_ref(A, B_, model.gamma),
+                         "kernel": lambda A=A, B_=B_: rbf.rbf_gram(A, B_, model.gamma)},
+                        inner=3, rounds=5)
+        b6_ms[name] = {"shape": [A.shape[0], B_.shape[0], A.shape[1]], "ms": t["kernel"],
+                       "plain_ms": t["plain"], "bound_ms": rbf_bound(A, B_)[0],
+                       "bound_by": rbf_bound(A, B_)[1]}
+    say("train", "B6 at the train path's shapes on " + smi + ": " + "; ".join(
+        f"{k} {v['shape']}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+        f"{v['bound_ms']:.4f} ms ({v['bound_by']})" for k, v in b6_ms.items()))
+
+    # SGD: the 35-candidate grid, 5 folds; the walk replays CUDA graphs
+    linear.WALK_LOG.clear()
+    t0 = time.perf_counter()
+    out = train_app.main(["--datasets", ds, *train_args(d, "sgd")])
+    torch.cuda.synchronize()
+    sgd_s = time.perf_counter() - t0
+    walks = list(linear.WALK_LOG)
+    check(all(w["graph"] for w in walks), "an SGD walk ran without its CUDA graph")
+    sgd_grid = out["grid"]
+    cv = walks[:-1]
+    big = max(cv, key=lambda w: w["shape"][1])
+    key = (big["penalty"], big["average"], 3, big["shape"], str(dev), True)
+    epoch_ms = {"cv": walk_epoch_ms(linear._WALKS[key], 3)}
+    refit = walks[-1]
+    rkey = (refit["penalty"], refit["average"], 3, refit["shape"], str(dev), True)
+    epoch_ms["refit"] = walk_epoch_ms(linear._WALKS[rkey], 3)
+    say("train", f"on {smi}: train (SGD) on the same data: {sgd_s:.2f} s; best "
+        f"{sgd_grid.best_params}, CV score {sgd_grid.best_score:.4f}; test accuracy "
+        f"{out['metrics']['accuracy']:.4f}; epochs run per group "
+        + ", ".join(f"{w['penalty']}{' avg' if w['average'] else ''} {w['shape']}: "
+                    f"{w['epochs']} in {w['seconds']:.2f} s" for w in walks)
+        + f"; ms per epoch, graph replay vs eager walk: largest CV group "
+        f"{big['shape']} {epoch_ms['cv']['graph']:.2f} vs {epoch_ms['cv']['eager']:.2f}, "
+        f"refit {refit['shape']} {epoch_ms['refit']['graph']:.2f} vs "
+        f"{epoch_ms['refit']['eager']:.2f}")
+    lin_path, lin_le = os.path.join(d, "sgd.pkl"), os.path.join(d, "sgd_le.pkl")
+    n_fused, batch = 256, 128
+    i8_score.KERNEL_LAUNCHES = 0
+    fused_res = predict_app.main([
+        "--svm_model", lin_path, "--label_encoder", lin_le, "--log_file",
+        os.path.join(d, "predict.log"), "--driver", "synthetic", "--driver_seed", "1234",
+        "--mode", "fused", "--batch_scans", str(batch), "--num_scans", str(n_fused)])
+    b1 = i8_score.KERNEL_LAUNCHES
+    fast_res = predict_app.main([
+        "--svm_model", lin_path, "--label_encoder", lin_le, "--log_file",
+        os.path.join(d, "predict.log"), "--driver", "synthetic", "--driver_seed", "1234",
+        "--mode", "fast", "--cube_dtype", "int8", "--batch_scans", str(batch),
+        "--num_scans", str(n_fused)])
+    check([n for n, _ in fused_res] == [n for n, _ in fast_res],
+          "trained SGD: predict fused names != fast int8")
+    d_ff = float(np.abs(np.array([p for _, p in fused_res])
+                        - np.array([p for _, p in fast_res])).max())
+    check(d_ff <= 1e-6, f"trained SGD: fused vs fast int8 proba delta {d_ff}")
+    check(b1 == n_fused // batch, f"B1 launched {b1} times for {n_fused // batch} batches")
+    say("train", f"predict --mode fused over the trained SGD model, {n_fused} scans: "
+        f"{len(fused_res)} targets, names == --mode fast --cube_dtype int8, proba delta "
+        f"{d_ff:.2e}, B1 launches {b1}")
+
+    # --online_learn continues that artifact (ONLINE_EPOCHS epochs)
+    before = common_cli.load_model_meta(lin_path)
+    le_mtime = os.path.getmtime(lin_le)
+    linear.WALK_LOG.clear()
+    t0 = time.perf_counter()
+    out = train_app.main(["--online_learn", "--datasets", ds, "--grid_epochs",
+                          str(ONLINE_EPOCHS), *train_args(d, "sgd")])
+    online_s = time.perf_counter() - t0
+    after = common_cli.load_model_meta(lin_path)
+    check(os.path.getmtime(lin_le) == le_mtime, "online learning rewrote the label encoder")
+    check(after["sgd_cfg"] == before["sgd_cfg"], "online learning changed the config")
+    walk = linear.WALK_LOG[-1]
+    check(walk["graph"], "the online walk ran without its CUDA graph")
+    check(walk["epochs"] == ONLINE_EPOCHS and walk["shape"][2] == len(y_bal),
+          f"online learning walked {walk['epochs']} epochs of {walk['shape'][2]} samples")
+    # t counts the steps in float32 from a fractional t0, so each +1 rounds
+    steps = after["sgd_t"] - before["sgd_t"]
+    check(abs(steps - ONLINE_EPOCHS * len(y_bal)) <= 1e-3 * ONLINE_EPOCHS * len(y_bal),
+          f"online learning moved t by {steps}, not {ONLINE_EPOCHS} x {len(y_bal)}")
+    say("train", f"--online_learn --grid_epochs {ONLINE_EPOCHS}: {online_s:.2f} s, "
+        f"{int(steps)} steps from t {before['sgd_t']:.0f}, test accuracy "
+        f"{out['metrics']['accuracy']:.4f}; the label encoder untouched")
+
+    # --epochs 1: augmentation once for each family, on a smaller dataset
+    ds_aug = os.path.join(d, "aug.pickle")
+    write_dataset(ds_aug, N_AUG, 1234, TRAIN_HARDNESS)
+    aug = {}
+    for fam in ("sgd", "svc"):
+        t0 = time.perf_counter()
+        out = train_app.main(["--epochs", "1", "--datasets", ds_aug,
+                              *train_args(d, f"aug_{fam}"), *(["--use_svc"] if fam == "svc" else [])])
+        aug[fam] = (time.perf_counter() - t0, out["metrics"]["accuracy"])
+        check(out["kind"] == ("svc" if fam == "svc" else "linear"), f"augment {fam}")
+    say("train", f"--epochs 1 on make_dataset({N_AUG}): SGD {aug['sgd'][0]:.2f} s "
+        f"(test accuracy {aug['sgd'][1]:.4f}), SVC {aug['svc'][0]:.2f} s (test accuracy "
+        f"{aug['svc'][1]:.4f})")
+
+    # held against the JAX package's golden run, without importing it
+    t0 = time.perf_counter()
+    g, got = golden_train_record(d, dev)
+    measured = golden_train_check(got, g)
+    say("train", f"golden (radarml_tpu_torch/assets/golden_train.npz, make_dataset("
+        f"{int(g['n_samples'])}, hardness {float(g['hardness'])}), xy features) in "
+        f"{time.perf_counter() - t0:.1f} s: SVC best {got['svc_params']} == golden; SGD "
+        f"best {got['sgd_params']} (golden {str(g['sgd_params'])}); "
+        + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in measured.items()))
+    return {"launches_train_app": b6_train, "expected_train_app": expected,
+            "shapes": b6_ms}
 
 
 def main() -> None:
@@ -1379,6 +1746,11 @@ def main() -> None:
     apps = phase_apps(dev, smi, g, gs, S.cpu().numpy(), fused, cubes, targets)
     say("apps", f"phase 11 in {time.perf_counter() - t0:.1f} s; gRPC {apps['grpc']}")
 
+    # -- 12. train -----------------------------------------------------------
+    t0 = time.perf_counter()
+    train = phase_train(dev, smi)
+    say("train", f"phase 12 in {time.perf_counter() - t0:.1f} s")
+
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
         return {
@@ -1390,17 +1762,6 @@ def main() -> None:
             "ms_b64": small["kernel"], "plain_ms_b64": small["plain"],
             "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
         }
-
-    def rbf_bound(A, B_, peak=TF32_FLOPS_S / 3):
-        """Least ms for the Gram of A against B_: its bytes, or its 2 n m F
-        float32-grade operations by the fastest route on the card, three
-        TF32 tensor-core products per product (FP32_FLOPS_S: by FP32 FMAs)."""
-        n, F = A.shape
-        m = B_.shape[0]
-        ms, by = bound(4 * (n * F + m * F + n * m), 2 * n * m * F, peak)
-        if by == "operations":
-            by = "operations, 3xTF32" if peak != FP32_FLOPS_S else "operations, FP32 FMA"
-        return ms, by
 
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
                            launches, max_err)
@@ -1451,6 +1812,9 @@ def main() -> None:
                                     for (kind, gamma), (mk, _) in signed.items()},
         "fit_launches": fit_launches,
         "launches_predict_app": apps["b6_predict"],
+        "launches_train_app": train["launches_train_app"],
+        "launches_train_app_implied": train["expected_train_app"],
+        "train_shapes": train["shapes"],
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,
     })

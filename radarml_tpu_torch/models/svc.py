@@ -14,10 +14,12 @@ Port of radarml_tpu/models/svc.py, the reference's
   one-vs-one pairs at once as a batched loop over a leading problem
   axis (the JAX package's `lax.while_loop` under `vmap`): a finished
   problem is frozen by a mask, and the host looks at the masks only
-  every few iterations. Platt scaling fits on the same deterministic
-  stratified folds as the JAX package.
+  every few iterations. The grid search's candidates, which differ only
+  in C, share one Q along a leading candidate axis of the caps. Platt
+  scaling fits on the same deterministic stratified folds as the JAX
+  package.
 * **Interop** — `from_numpy` carries a JAX-fitted SVC (as numpy arrays)
-  across. `from_sklearn_svc` is not ported (ROADMAP A9).
+  across. `from_sklearn_svc` is not ported (ROADMAP A4, parked).
 
 Float32 products run in full float32 (no TF32), as the JAX package
 scores at Precision.HIGHEST.
@@ -297,13 +299,18 @@ class _SMOResult(NamedTuple):
 def _smo_kernel_solve(
     Q: torch.Tensor,  # (P, m, m) y_i y_j K_ij with zero-C padding rows/cols
     y: torch.Tensor,  # (P, m) ±1 (padding arbitrary)
-    C: torch.Tensor,  # (P, m) per-sample box caps (0 for padding)
+    C: torch.Tensor,  # (P, m) or (nC, P, m) per-sample box caps (0 for padding)
     eps: float,
     max_iter: int,
     check_every: int = CHECK_EVERY,
 ) -> _SMOResult:
     """Solve min ½αᵀQα − eᵀα, 0≤α≤C, yᵀα=0 for P problems at once by
     maximal-violating-pair SMO.
+
+    With caps of shape (nC, P, m) the nC × P problems share Q and y
+    along the leading axis (the grid search's candidates differ only in
+    C): Q is read in place, never copied per candidate, and the result's
+    fields carry the leading (nC, P) axes.
 
     Each iteration is O(m) vector work per problem (two gradient rank-1
     updates and two masked argmax reductions). As in the JAX package's
@@ -314,10 +321,16 @@ def _smo_kernel_solve(
     the masks every `check_every` iterations and stops when none is
     active. Padded entries have C=0, so they never enter the working set.
     """
+    lead = C.shape[:-1]
+    if C.dim() == 3:
+        C = C.reshape(-1, C.shape[-1])
+        y = y.repeat(lead[0], 1)
     P, m = y.shape
     dev, dt = Q.device, Q.dtype
     NEG, POS = -1e30, 1e30
     rows = torch.arange(P, device=dev)
+    # each problem's Q: its own, or the one it shares with other candidates
+    q_rows = rows if Q.shape[0] == P else rows % Q.shape[0]
     alpha = torch.zeros((P, m), dtype=dt, device=dev)
     grad = torch.full((P, m), -1.0, dtype=dt, device=dev)
     it = torch.zeros((P,), dtype=torch.int64, device=dev)
@@ -340,7 +353,7 @@ def _smo_kernel_solve(
         new_gap = up_vals[rows, i] - low_vals[rows, j]
 
         yi, yj = y[rows, i], y[rows, j]
-        Qi, Qj = Q[rows, i], Q[rows, j]  # (P, m) rows of the working pair
+        Qi, Qj = Q[q_rows, i], Q[q_rows, j]  # (P, m) rows of the working pair
         Qii, Qjj, Qij = Qi[rows, i], Qj[rows, j], Qi[rows, j]
         ai, aj = alpha[rows, i], alpha[rows, j]
         Ci, Cj = C[rows, i], C[rows, j]
@@ -382,7 +395,8 @@ def _smo_kernel_solve(
     lb = torch.amax(torch.where(in_up, ygrad, NEG), dim=1)
     rho_free = torch.where(free, ygrad, 0.0).sum(dim=1) / torch.clamp(n_free, min=1)
     rho = torch.where(n_free > 0, rho_free, (ub + lb) / 2.0)
-    return _SMOResult(alpha=alpha, rho=-rho, n_iter=it)
+    return _SMOResult(alpha=alpha.reshape(lead + (m,)), rho=-rho.reshape(lead),
+                      n_iter=it.reshape(lead))
 
 
 # --------------------------------------------------------------------------

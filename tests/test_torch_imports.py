@@ -2,9 +2,11 @@
 radarml_tpu nor sklearn, and importing it builds nothing.
 
 Checked in a fresh interpreter where `import jax` fails outright: once
-over every module of the package, and once over the package and its two
-apps where grpc and protobuf are missing too, as they may be where the
-card is (only rpc/ and serve's --grpc_port branch import them).
+over every module of the package, once over the package and its two
+serving apps where grpc and protobuf are missing too, as they may be
+where the card is (only rpc/ and serve's --grpc_port branch import them),
+and once over the train app and the metrics where matplotlib is missing
+(the card's machine has none; only plot_confusion_matrix imports it).
 """
 
 import json
@@ -20,13 +22,17 @@ REPO = Path(__file__).resolve().parents[1]
 PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
-WITHOUT_GRPC = %r
-if WITHOUT_GRPC:
+WITHOUT = %r
+if WITHOUT == "grpc":
     sys.modules["grpc"] = None
     sys.modules["google.protobuf"] = None
+if WITHOUT == "matplotlib":
+    sys.modules["matplotlib"] = None
 import radarml_tpu_torch
-if WITHOUT_GRPC:
+if WITHOUT == "grpc":
     mods = ["radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve"]
+elif WITHOUT == "matplotlib":
+    mods = ["radarml_tpu_torch.apps.train", "radarml_tpu_torch.train"]
 else:
     mods = [m.name for m in pkgutil.walk_packages(radarml_tpu_torch.__path__,
                                                   "radarml_tpu_torch.")]
@@ -61,17 +67,30 @@ ALL_MODULES = (
     "radarml_tpu_torch.drivers.native",
     "radarml_tpu_torch.serving.reload",
     "radarml_tpu_torch.rpc.radar_server",
+    "radarml_tpu_torch.data.store",
+    "radarml_tpu_torch.data.split",
+    "radarml_tpu_torch.data.balance",
+    "radarml_tpu_torch.ops.augment",
+    "radarml_tpu_torch.models.linear",
+    "radarml_tpu_torch.train.metrics",
+    "radarml_tpu_torch.train.gridsearch",
+    "radarml_tpu_torch.apps.train",
 )
 APPS = ("radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve",
         "radarml_tpu_torch.apps.common_cli", "radarml_tpu_torch.drivers.native")
 
 
-@pytest.mark.parametrize("without_grpc,expected", [(False, ALL_MODULES), (True, APPS)],
-                         ids=["all_modules", "apps_without_grpc"])
-def test_port_imports_without_jax_or_reference(without_grpc, expected):
+TRAIN = ("radarml_tpu_torch.apps.train", "radarml_tpu_torch.train.metrics",
+         "radarml_tpu_torch.train.gridsearch", "radarml_tpu_torch.ops.augment")
+
+
+@pytest.mark.parametrize("without,expected",
+                         [("", ALL_MODULES), ("grpc", APPS), ("matplotlib", TRAIN)],
+                         ids=["all_modules", "apps_without_grpc", "train_without_matplotlib"])
+def test_port_imports_without_jax_or_reference(without, expected):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(
-        [sys.executable, "-c", PROBE % without_grpc], cwd=REPO, env=env,
+        [sys.executable, "-c", PROBE % without], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
@@ -80,5 +99,5 @@ def test_port_imports_without_jax_or_reference(without_grpc, expected):
     assert res["loaded"] == []  # no kernel built at import
     for name in expected:
         assert name in res["modules"]
-    if without_grpc:
+    if without == "grpc":
         assert not any(m.startswith("radarml_tpu_torch.rpc") for m in res["modules"])

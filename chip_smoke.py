@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict, SVC, serving and training paths on one CUDA card.
+"""Drive the PyTorch port's predict, SVC, serving, training and neural paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -151,6 +151,25 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              choice within the JAX package's own one-ulp spread). Where
              matplotlib is missing one line names it and the app writes no
              confusion-matrix figure.
+13. neural — the CNN and SGAN families at full width, no hand-written
+             kernel on their path (cuDNN / cuBLAS in float32, TF32 off):
+             the golden run of radarml_tpu_torch/assets/golden_neural.npz
+             (the JAX package's outputs from seeds: CNN logits at 80x80;
+             the discriminator's train-mode logits and statistics, pooled
+             precise-BN statistics and eval-mode logits, the generator's
+             eval outputs at 128x128; each family's predictor over 64
+             scans) held to golden_neural_check's bars; the dnn app on
+             make_dataset(2280, hardness=1.0) as a dataset pickle under its
+             default schedule (100 epochs, patience 10, batch 64: epochs run,
+             seconds an epoch in the app and warm, ms a step by CUDA events,
+             one traced step's kernels, device ms and idle share, best val
+             loss and accuracy, peak memory) and the sgan app on the same
+             data (128x128, n_batch 32, 150 supervised samples, 15 epochs:
+             steps, seconds, ms a fused four-phase step by CUDA events and
+             traced, both precise-BN recalibrations' ms, the c head's val
+             accuracy, peak memory); each artifact served by the predict app
+             in exact mode equal to a direct RadarPredictor call (1e-6). Its
+             record is printed as a {"neural": ...} JSON line.
 
 Each kernel's launch count is reset just before its main path and read
 just after: the int8 kernels and B7 over phases 4-5 (each fused tail's
@@ -1095,6 +1114,286 @@ def train_in(d, dev, smi) -> dict:
             "shapes": b6_ms}
 
 
+# -- phase 13: the neural families -------------------------------------------
+
+NEURAL_ASSET = os.path.join(HERE, "radarml_tpu_torch", "assets", "golden_neural.npz")
+N_GOLD_SCANS = 64
+# The bars of the golden run (tests/test_torch_neural_golden.py explains
+# them): network outputs within NEURAL_OUT_TOL x max|golden|, BatchNorm
+# statistics within NEURAL_OUT_TOL (1 + |golden|), probabilities within
+# NEURAL_PROBA_ATOL and decisions equal where the golden top-2 margin
+# exceeds NEURAL_MARGIN.
+NEURAL_OUT_TOL, NEURAL_PROBA_ATOL, NEURAL_MARGIN = 1e-4, 1e-4, 1e-3
+# The SGAN app's epochs on the card: 5, cut from the reference's 15
+# (sgan.py:800-810), which took 212 s of a 284 s phase 13 on an H100
+# (PERF.md section 4), to keep the phase near 150 s.
+SGAN_EPOCHS = 5
+N_NEURAL_SCANS, NEURAL_BATCH = 128, 64  # scans served by the predict app, a batch
+
+
+def flat_stats(state) -> np.ndarray:
+    """The BatchNorm running statistics of a state dict, flat, in sorted
+    key order (the golden asset's layout)."""
+    return np.concatenate([
+        state[k].detach().cpu().numpy().ravel() for k in sorted(state)
+        if k.endswith(("running_mean", "running_var"))])
+
+
+def golden_neural_inputs(g) -> dict:
+    """The golden run's inputs, made from its seeds with numpy: views for
+    the CNN (80x80) and the discriminator (128x128), latents, and 64
+    synthetic scans with 1 or 2 target slots each."""
+    rng = np.random.default_rng(int(g["input_seed"]))
+    out = {"x_cnn": rng.uniform(-1, 1, (16, 80, 80, 3)).astype(np.float32),
+           "x_disc": rng.uniform(-1, 1, (8, 128, 128, 3)).astype(np.float32),
+           "x_eval": rng.uniform(-1, 1, (8, 128, 128, 3)).astype(np.float32),
+           "z": rng.standard_normal((2, 100)).astype(np.float32)}
+    cubes, targets = make_scan_batch(N_GOLD_SCANS, seed=int(g["scan_seed"]), hardness=1.0)
+    lists = [[(t.x, t.y, t.z), (t.x + 9.0, t.y - 6.0, t.z + 25.0)][: 1 + b % 2]
+             for b, t in enumerate(targets)]
+    out["cubes"] = cubes
+    out["xyz"], out["valid"] = pad_targets(lists, 2)
+    return out
+
+
+def golden_neural_record(dev, g, n_scans: int = N_GOLD_SCANS) -> dict:
+    """The port's side of the golden run on `dev`, through the port's own
+    weight init (from the asset's seeds), modules and RadarPredictor:
+    CNN logits; the discriminator's train-mode logits and statistics after
+    that call, its pooled (precise-BN) statistics over the same batch and
+    its eval-mode logits under them; the generator's eval-mode outputs
+    (every 4th pixel); each family's predictor over the first `n_scans`
+    scans."""
+    from radarml_tpu_torch.models.cnn import init_cnn
+    from radarml_tpu_torch.models.sgan import (Discriminator, Generator, sgan_init_trees,
+                                               sgan_params_from_numpy)
+    from radarml_tpu_torch.train.sgan_trainer import pooled_disc_stats
+
+    inp = golden_neural_inputs(g)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in inp.items() if k.startswith(("x_", "z"))}
+    out = {}
+    with torch.no_grad():
+        cnn_model = init_cnn(3, (80, 80), seed=int(g["cnn_seed"]), device=dev)
+        out["cnn_logits"] = cnn_model(t["x_cnn"])
+        (gp, gs), (dp, ds) = sgan_init_trees(3, (128, 128), seed=int(g["sgan_seed"]))
+        gen, disc = Generator(4), Discriminator(3, (128, 128))
+        gen.load_state_dict(sgan_params_from_numpy(gp, gs))
+        disc.load_state_dict(sgan_params_from_numpy(dp, ds))
+        gen, disc = gen.to(dev), disc.to(dev)
+        out["disc_train"] = disc(t["x_disc"], train=True)
+        out["disc_train_stats"] = flat_stats(disc.state_dict())
+        pooled = pooled_disc_stats(disc, t["x_disc"][None])
+        disc.load_state_dict(pooled, strict=False)
+        out["disc_pooled_stats"] = flat_stats(pooled)
+        out["disc_eval"] = disc(t["x_eval"], train=False)
+        out["gen_eval"] = torch.cat(gen(t["z"], train=False), -1)[:, ::4, ::4]
+    for fam, module, rescale in (("cnn", cnn_model, (80, 80)), ("sgan", disc, (128, 128))):
+        model = common_cli.neural_classifier(module, rescale, dev)
+        pred, _, proba = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, model, min_proba=0.0,
+                                        device=dev)(inp["cubes"][:n_scans],
+                                                    inp["xyz"][:n_scans],
+                                                    inp["valid"][:n_scans])
+        out[f"{fam}_pred"], out[f"{fam}_proba"] = pred, proba
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+def golden_neural_check(got: dict, g: dict) -> dict:
+    """Hold a golden_neural_record to the asset's JAX outputs (over as many
+    scans as `got` has); returns what was measured, each output's error
+    as a share of its bar. Raises AssertionError past a bar."""
+    out = {}
+    for k in ("cnn_logits", "disc_train", "disc_eval", "gen_eval"):
+        err = float(np.abs(got[k] - g[k]).max())
+        out[k] = err / (NEURAL_OUT_TOL * float(np.abs(g[k]).max()))
+    for k in ("disc_train_stats", "disc_pooled_stats"):
+        out[k] = float((np.abs(got[k] - g[k]) / (NEURAL_OUT_TOL * (1 + np.abs(g[k])))).max())
+    n = got["cnn_proba"].shape[0]
+    valid = golden_neural_inputs(g)["valid"][:n]
+    for fam in ("cnn", "sgan"):
+        want, proba = g[f"{fam}_proba"][:n], got[f"{fam}_proba"]
+        out[f"{fam}_proba"] = float(np.abs(proba - want)[valid].max()) / NEURAL_PROBA_ATOL
+        top2 = np.sort(want, axis=-1)
+        sure = valid & (top2[..., -1] - top2[..., -2] > NEURAL_MARGIN)
+        out[f"{fam}_decided"] = int(sure.sum())
+        check(np.array_equal(got[f"{fam}_pred"][sure], g[f"{fam}_pred"][:n][sure]),
+              f"{fam} predictor decisions differ from the golden")
+        check((got[f"{fam}_pred"][~valid] == -1).all(), f"{fam}: a padded slot was classified")
+    bad = {k: v for k, v in out.items() if not k.endswith("_decided") and not v <= 1.0}
+    check(not bad, f"off the golden (error / bar): {bad}")
+    return out
+
+
+def device_share(fn, reps: int, top_n: int = 6) -> dict:
+    """One torch.profiler trace of `reps` calls of fn: the window's wall ms
+    (host clock, synchronized), the kernels' summed device ms, their
+    count, the device's idle share of the window, and the `top_n` kernels
+    by device ms (name, ms and launches a call), all per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    TRACES["taken"] += 1
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    check(kernels and busy > 0, "the profiler trace shows no device time")
+    by_name = {}
+    for e in kernels:
+        ms_n = by_name.setdefault(e.name[:70], [0.0, 0])
+        ms_n[0] += e.time_range.elapsed_us() / 1e3 / reps
+        ms_n[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"wall_ms": wall / reps, "device_ms": busy / reps,
+            "kernels": len(kernels) / reps, "idle_share": max(0.0, 1.0 - busy / wall),
+            "top": [(name, ms, n // reps) for name, (ms, n) in top]}
+
+
+def phase_neural(dev, smi) -> dict:
+    """Phase 13: the neural families on the card, with the artifacts in a
+    temporary directory."""
+    with tempfile.TemporaryDirectory() as d:
+        return neural_in(d, dev, smi)
+
+
+def neural_in(d, dev, smi) -> dict:
+    from radarml_tpu_torch.apps import dnn as dnn_app
+    from radarml_tpu_torch.apps import sgan as sgan_app
+    from radarml_tpu_torch.models.cnn import dropout_masks, init_cnn
+    from radarml_tpu_torch.train import sgan_trainer as st
+    from radarml_tpu_torch.train.trainer import (TrainConfig, make_cnn_step,
+                                                 seeded_generator, train_cnn)
+
+    logging.getLogger("radarml_tpu_torch").setLevel(logging.WARNING)
+    res = {}
+    # a. the golden run at full width
+    t0 = time.perf_counter()
+    with np.load(NEURAL_ASSET) as f:
+        g = {k: f[k] for k in f.files}
+    res["golden"] = golden_neural_check(golden_neural_record(dev, g), g)
+    say("neural", f"golden (radarml_tpu_torch/assets/golden_neural.npz: CNN 80x80, SGAN "
+        f"128x128 n_upsamples 4, {N_GOLD_SCANS} scans each family) in "
+        f"{time.perf_counter() - t0:.1f} s; error / bar: "
+        + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in res["golden"].items()))
+
+    ds = os.path.join(d, "neural.pickle")
+    write_dataset(ds, N_TRAIN, 1234, TRAIN_HARDNESS)
+    le_path = os.path.join(d, "neural_le.pkl")
+
+    # b. the dnn app at the reference data scale and default schedule; peak
+    # memory is read above what earlier phases still hold
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = dnn_app.main(["--datasets", ds, "--results_dir", os.path.join(d, "dnn")])
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    cnn_peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    hist, classes = out["history"], out["classes"]
+    epochs = len(hist["loss"])
+    best = int(np.argmin(hist["val_loss"]))
+    n_train = int(N_TRAIN * 0.8)
+    steps_per_epoch = n_train // 64
+    model = init_cnn(3, (80, 80), seed=1234, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=2e-4, betas=(0.5, 0.999), fused=True)
+    step = make_cnn_step(model, opt, torch.ones(3, device=dev))
+    rng_t = seeded_generator(dev, 0, 0)
+    xb = torch.rand((64, 80, 80, 3), generator=rng_t, device=dev) * 2 - 1
+    yb = torch.randint(0, 3, (64,), generator=rng_t, device=dev)
+    cnn_step = lambda: step(xb, yb, dropout_masks(2, (64, 64), 0.5, rng_t))  # noqa: E731
+    step_ms = interleaved({"step": cnn_step}, inner=20, rounds=5)["step"]
+    cnn_share = device_share(cnn_step, 20)
+    # a warm epoch: train_cnn at the app's shapes, after a run that warms
+    # cuDNN (the app's own epochs include its first-call set-up)
+    Xw = torch.rand((N_TRAIN, 80, 80, 3), generator=rng_t, device=dev) * 2 - 1
+    yw = np.arange(N_TRAIN) % 3
+    warm_cfg = TrainConfig(epochs=1)
+    train_cnn(init_cnn(3, (80, 80), device=dev), Xw[:n_train], yw[:n_train],
+              Xw[n_train:], yw[n_train:], config=warm_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_cnn(init_cnn(3, (80, 80), device=dev), Xw[:n_train], yw[:n_train],
+              Xw[n_train:], yw[n_train:], config=TrainConfig(epochs=3, patience=100))
+    torch.cuda.synchronize()
+    warm_epoch_s = (time.perf_counter() - t0) / 3
+    res["cnn"] = {"epochs": epochs, "s_per_epoch": out["train_seconds"] / epochs,
+                  "s_per_epoch_warm": warm_epoch_s, "ms_per_step": step_ms,
+                  "steps_per_epoch": steps_per_epoch, "app_s": app_s,
+                  "best_val_loss": hist["val_loss"][best],
+                  "best_val_accuracy": hist["val_accuracy"][best],
+                  "peak_mib": cnn_peak, "trace": cnn_share}
+    common_cli.save_label_encoder(le_path, LabelEncoder(tuple(classes)))
+    n_ans, d_cnn = predict_matches_direct(d, dev, out["model_path"], le_path, classes,
+                                          "exact", N_NEURAL_SCANS, NEURAL_BATCH)
+    say("neural", f"on {smi}: dnn app on make_dataset({N_TRAIN}, hardness {TRAIN_HARDNESS}) "
+        f"(TrainConfig defaults: 100 epochs, patience 10, batch 64; {steps_per_epoch} steps an "
+        f"epoch): {epochs} epochs in {out['train_seconds']:.2f} s "
+        f"({res['cnn']['s_per_epoch']:.3f} s an epoch, warm {warm_epoch_s:.3f} s; app "
+        f"{app_s:.2f} s with data and preprocessing); best val loss "
+        f"{hist['val_loss'][best]:.4f}, val accuracy {hist['val_accuracy'][best]:.4f} "
+        f"(epoch {best + 1}); one step (batch 64, 80x80) "
+        f"{step_ms:.3f} ms (CUDA events), traced: {cnn_share['kernels']:.0f} kernels, device "
+        f"{cnn_share['device_ms']:.3f} of {cnn_share['wall_ms']:.3f} ms wall (idle share "
+        f"{cnn_share['idle_share']:.3f}; most device time: " + "; ".join(
+            f"{n} {ms:.3f} ms x{k}" for n, ms, k in cnn_share["top"])
+        + f"); peak device memory of the app {cnn_peak:.1f} MiB above what was held; "
+        f"predict --mode exact over c_model.pickle, {N_NEURAL_SCANS} scans: {n_ans} targets "
+        f"== a direct RadarPredictor call (proba delta {d_cnn:.2e})")
+
+    # c. the sgan app at 128x128 (n_batch 32, 150 supervised samples)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = sgan_app.main(["--datasets", ds, "--results_dir", os.path.join(d, "sgan"),
+                         "--epochs", str(SGAN_EPOCHS)])
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    state = out["state"]
+    gen_m, disc_m = state.gen, state.disc
+    cfg = st.SGANConfig(n_classes=3)
+    sgan_step = st.make_sgan_step(gen_m, disc_m, cfg)
+    sv = torch.rand((16, 128, 128, 3), generator=rng_t, device=dev) * 2 - 1
+    sl = torch.randint(0, 3, (16,), generator=rng_t, device=dev)
+    fused = lambda: sgan_step(state, sv, sl, sv, st.draw_step(cfg, 16, disc_m, rng_t))  # noqa: E731
+    fused_ms = interleaved({"step": fused}, inner=5, rounds=3)["step"]
+    sgan_share = device_share(fused, 5)
+    Xr = torch.rand((256, 128, 128, 3), generator=rng_t, device=dev) * 2 - 1
+    recal = {"disc": lambda: st.recalibrate_bn_stats(disc_m, state, Xr),
+             "gen": lambda: st.recalibrate_gen_stats(gen_m, state, rng_t, cfg.latent_dim)}
+    recal_ms = interleaved(recal, inner=2, rounds=3)
+    n_sgan = len(out["classes"])
+    res["sgan"] = {"epochs": SGAN_EPOCHS, "steps": out["steps"], "app_s": app_s,
+                   "train_s": out["train_seconds"],
+                   "ms_per_fused_step": fused_ms, "recal_ms": recal_ms,
+                   "val_accuracy": out["val_accuracy"], "peak_mib": peak, "trace": sgan_share}
+    n_ans, d_sgan = predict_matches_direct(d, dev, out["model_path"], le_path, out["classes"],
+                                           "exact", N_NEURAL_SCANS, NEURAL_BATCH)
+    say("neural", f"on {smi}: sgan app on the same data (128x128, n_batch 32, 150 supervised "
+        f"samples, {SGAN_EPOCHS} epochs, {n_sgan} classes): {out['steps']} steps in "
+        f"{out['train_seconds']:.2f} s ({out['steps'] / out['train_seconds']:.2f} steps/s with "
+        f"the epochs' recalibrations and summaries; app {app_s:.2f} s); one fused four-phase "
+        f"step {fused_ms:.3f} ms (CUDA events; "
+        f"{1e3 / fused_ms:.1f} steps/s), traced: {sgan_share['kernels']:.0f} kernels, device "
+        f"{sgan_share['device_ms']:.3f} of {sgan_share['wall_ms']:.3f} ms wall (idle share "
+        f"{sgan_share['idle_share']:.3f}; most device time: " + "; ".join(
+            f"{n} {ms:.2f} ms x{k}" for n, ms, k in sgan_share["top"])
+        + f"); precise-BN recalibration disc {recal_ms['disc']:.3f} "
+        f"ms, gen {recal_ms['gen']:.3f} ms; c-head val accuracy {out['val_accuracy']:.4f}; peak "
+        f"device memory of the app {peak:.1f} MiB above what was held; predict --mode exact "
+        f"over c_model.pickle, "
+        f"{N_NEURAL_SCANS} scans: {n_ans} targets == a direct RadarPredictor call (proba "
+        f"delta {d_sgan:.2e})")
+    return res
+
+
 def main() -> None:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1750,6 +2049,12 @@ def main() -> None:
     t0 = time.perf_counter()
     train = phase_train(dev, smi)
     say("train", f"phase 12 in {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. neural ----------------------------------------------------------
+    t0 = time.perf_counter()
+    neural = phase_neural(dev, smi)
+    say("neural", f"phase 13 in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"neural": neural}), flush=True)
 
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]

@@ -11,8 +11,12 @@ Port of radarml_tpu/apps/common_cli.py.
   a pickled dict {"format": "radarml_tpu.v1", "kind": ..., arrays...}
   whose arrays are numpy, so one that the JAX package trained loads
   here and serves on the card. `linear` and `svc` load as the port's
-  models; `cnn` and `sgan_classifier` raise NotImplementedError (ROADMAP
-  A12, A13). Label encoders are v1 dicts {"format", "classes"}.
+  models; `cnn` (a MultiViewCNN's flax params) and `sgan_classifier` (a
+  Discriminator's flax params and batch stats) load as NeuralClassifiers,
+  the weights carried into the port's modules (models/cnn.py,
+  models/sgan.py). The port's dnn and sgan apps write those two kinds
+  with the same keys and tree layout, so the JAX package loads them.
+  Label encoders are v1 dicts {"format", "classes"}.
 - Reference sklearn pickles (models and label encoders) raise
   NotImplementedError (ROADMAP A4): sklearn is not installed where the
   port runs, and the port never imports it.
@@ -24,6 +28,7 @@ containers); any other class is refused before it is imported.
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 import pickle
@@ -38,6 +43,7 @@ from radarml_tpu_torch.data.labels import LabelEncoder
 from radarml_tpu_torch.drivers.base import DEFAULT_THRESHOLD
 from radarml_tpu_torch.models.linear import LinearModel, SigmoidCalibration
 from radarml_tpu_torch.models.linear import from_numpy as linear_from_numpy
+from radarml_tpu_torch.models.pipeline import NeuralClassifier
 from radarml_tpu_torch.models.svc import SVCModel
 from radarml_tpu_torch.models.svc import from_numpy as svc_from_numpy
 
@@ -52,6 +58,7 @@ __all__ = [
     "load_label_encoder",
     "load_model",
     "load_model_meta",
+    "neural_classifier",
     "parse_arena",
     "parse_proj_mask",
     "save_label_encoder",
@@ -67,10 +74,6 @@ _BUILTINS = frozenset({
     "dict", "list", "tuple", "set", "frozenset", "int", "float", "complex",
     "str", "bytes", "bytearray", "bool", "slice", "range",
 })
-_NOT_PORTED = {
-    "cnn": "the CNN family is not ported yet (ROADMAP A12)",
-    "sgan_classifier": "the SGAN classifier is not ported yet (ROADMAP A13)",
-}
 
 
 def setup_logging(log_file: Optional[str], level: str):
@@ -280,7 +283,7 @@ def load_model_meta(path: str) -> dict:
 
 def load_model(
     path: str, device: torch.device | str | None = None
-) -> Tuple[Union[LinearModel, SVCModel], Optional[SigmoidCalibration]]:
+) -> Tuple[Union[LinearModel, SVCModel, NeuralClassifier], Optional[SigmoidCalibration]]:
     """Load a scoring model onto `device` (default: the CUDA card; pass
     "cpu" for the CPU): (model, calibration or None)."""
     obj = _load(path)
@@ -301,6 +304,29 @@ def load_model(
             obj["n_support"], kernel=obj["kernel"], gamma=float(obj["gamma"]),
             probA=obj.get("probA"), probB=obj.get("probB"), device=device,
         ), None
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
+    if kind == "cnn":
+        from radarml_tpu_torch.models.cnn import MultiViewCNN, cnn_params_from_numpy
+
+        module = MultiViewCNN(len(obj["classes"]), tuple(obj["rescale"]))
+        module.load_state_dict(cnn_params_from_numpy(obj["params"]))
+        return neural_classifier(module, obj["rescale"], device), None
+    if kind == "sgan_classifier":
+        from radarml_tpu_torch.models.sgan import Discriminator, sgan_params_from_numpy
+
+        module = Discriminator(len(obj["classes"]), tuple(obj["rescale"]))
+        module.load_state_dict(sgan_params_from_numpy(obj["d_params"], obj["d_stats"]))
+        return neural_classifier(module, obj["rescale"], device), None
     raise ValueError(f"unknown model kind {kind!r}")
+
+
+def neural_classifier(module: torch.nn.Module, rescale, device=None) -> NeuralClassifier:
+    """A MultiViewCNN or a Discriminator, moved to `device` (default: the
+    card), as a NeuralClassifier that runs it in inference mode."""
+    from radarml_tpu_torch.models.sgan import Discriminator
+
+    dev = resolve_device(device)
+    module = module.to(dev)
+    apply = functools.partial(module, train=False) if isinstance(module, Discriminator) \
+        else module
+    return NeuralClassifier(apply=apply, rescale=tuple(int(r) for r in rescale),
+                            n_classes=module.n_classes, device=dev)

@@ -13,6 +13,13 @@ from radarml_tpu_torch.data.labels import (
     filter_samples,
 )
 from radarml_tpu_torch.data.balance import balance_classes
+from radarml_tpu_torch.data.preprocess import (
+    preprocess_multiview,
+    resize_views,
+    scale_to_symmetric,
+    scale_to_unit_interval,
+    unscale_from_symmetric,
+)
 from radarml_tpu_torch.data.split import train_test_split_indices, train_val_test_split
 from radarml_tpu_torch.data.synthetic import (
     DEFAULT_CLASSES,
@@ -36,6 +43,11 @@ __all__ = [
     "class_weights",
     "filter_samples",
     "balance_classes",
+    "preprocess_multiview",
+    "resize_views",
+    "scale_to_symmetric",
+    "scale_to_unit_interval",
+    "unscale_from_symmetric",
     "train_test_split_indices",
     "train_val_test_split",
     "DEFAULT_CLASSES",

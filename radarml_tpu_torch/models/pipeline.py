@@ -29,7 +29,10 @@ A kernel SVM (models/svc.SVCModel) has no linear fold: ``exact`` and
 ``fast`` both score its exact features with its Platt-coupled
 ``predict_proba`` (the fused RBF Gram kernel, ops/rbf.py); ``pallas``
 builds the same exact path and ``fused`` refuses it, as in the JAX
-package.
+package. A NeuralClassifier (the CNN, or the SGAN's classifier head) is
+served by one path in every mode but ``fused``, which refuses it: each
+target's planes are scaled, bicubic-resized as in training and run
+through the network.
 
 Dynamic target counts are a static ``max_targets`` axis with a validity
 mask, as in the JAX package. Results are tensors on the predictor's
@@ -70,7 +73,7 @@ from radarml_tpu_torch.ops.i8_tails import (
     onepass_tables_i8,
     onepass_tables_sel_i8,
 )
-from radarml_tpu_torch.ops.resample import spline_zoom_pair
+from radarml_tpu_torch.ops.resample import bicubic_pair, spline_zoom_pair
 from radarml_tpu_torch.ops.score import fused_native_score, native_templates
 
 UNKNOWN = -1  # prediction index when below min_proba (the "Unknown" label)
@@ -117,17 +120,16 @@ def encode_host_cubes(cubes: np.ndarray, cube_dtype: str) -> torch.Tensor:
 class NeuralClassifier:
     """Serving wrapper for the neural families (CNN / SGAN classifier).
 
-    Not ported yet (ROADMAP queue A, item 12): constructing one raises.
+    Targets slice out of the cube, each projection scales to [-1, 1] and
+    bicubic-resizes to `rescale` exactly as training preprocessing did
+    (dnn.py:202-245, data/preprocess.py), and `apply` maps the (N, h, w, 3)
+    view stack on `device` to (N, n_classes) logits in inference mode.
     """
 
     apply: Callable
     rescale: Tuple[int, int]
     n_classes: int
-
-    def __post_init__(self):
-        raise NotImplementedError(
-            "NeuralClassifier serving is not ported yet (ROADMAP A12)"
-        )
+    device: torch.device = torch.device("cpu")
 
 
 _FUSED_TAILS = ("lookup", "glookup", "combo", "sel", "sel3")
@@ -147,7 +149,7 @@ class RadarPredictor:
 
     train_arena: Arena
     scan_arena: Arena
-    model: Union[LinearModel, SVCModel]
+    model: Union[LinearModel, SVCModel, NeuralClassifier]
     calibration: Optional[SigmoidCalibration] = None
     proj_mask: ProjMask = ProjMask(True, True, True)
     min_proba: float = 0.7
@@ -185,21 +187,21 @@ class RadarPredictor:
                 "mesh-sharded serving is not ported yet (ROADMAP A15)"
             )
         is_svc = isinstance(self.model, SVCModel)
-        if not (is_svc or isinstance(self.model, LinearModel)):
-            raise NotImplementedError(
-                f"{type(self.model).__name__} serving is not ported yet "
-                "(ROADMAP A12 for the neural families)"
-            )
+        is_neural = isinstance(self.model, NeuralClassifier)
+        if not (is_svc or is_neural or isinstance(self.model, LinearModel)):
+            raise TypeError(f"cannot serve a {type(self.model).__name__}")
         if self.mode not in ("exact", "fast", "fused", "pallas"):
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.mode == "fused" and is_svc:
+        if self.mode == "fused" and (is_svc or is_neural):
             raise ValueError("fused mode folds linear models only")
         if self.cube_dtype not in _CUBE_DTYPES:
             raise ValueError(f"unknown cube_dtype {self.cube_dtype!r}")
         if self.device is not None:
             dev = torch.device(self.device)
+        elif is_svc or is_neural:
+            dev = self.model.device
         else:
-            dev = self.model.device if is_svc else self.model.coef.device
+            dev = self.model.coef.device
         object.__setattr__(self, "device", dev)
         full_f32()
         if self.mode == "fused":
@@ -218,6 +220,8 @@ class RadarPredictor:
             # dtype resolves to it, losslessly for 8-bit radar cubes.
             object.__setattr__(self, "cube_dtype", "int8")
             object.__setattr__(self, "_fn", self._build_fused())
+        elif is_neural:  # every non-fused mode serves the network as it is
+            object.__setattr__(self, "_fn", self._build_neural())
         elif self.mode == "pallas" and not is_svc:
             object.__setattr__(self, "_fn", self._build_pallas())
         elif self.mode == "fast" and not is_svc:
@@ -530,6 +534,46 @@ class RadarPredictor:
             return self._finish(dec, target_valid)
 
         return predict_packed
+
+    def _build_neural(self) -> Callable:
+        """Serving path for NeuralClassifier models (CNN / SGAN c-head).
+
+        Per target: slice the three projections, decode the int8 wire
+        format (value − 128), reproduce the training preprocessing —
+        scale [0, RADAR_MAX] → [-1, 1] (dnn.py:202-204), PIL-parity
+        bicubic resize to the model's rescale (data/preprocess.
+        resize_views) — then run the network in inference mode, softmax
+        and threshold.
+        """
+        scan = self.scan_arena
+        model: NeuralClassifier = self.model
+        half = RADAR_MAX / 2.0
+        shift = 128.0 if self.cube_dtype == "int8" else 0.0
+        mats = [
+            tuple(torch.as_tensor(m, dtype=torch.float32, device=self.device)
+                  for m in bicubic_pair(tuple(shape), tuple(model.rescale)))
+            for shape in (scan.xz_shape, scan.yz_shape, scan.xy_shape)
+        ]
+
+        @torch.no_grad()
+        def predict_batch(cubes, target_xyz, target_valid):
+            B, T = target_xyz.shape[:2]
+            cube = cubes.to(torch.float32) + shift
+            i, j, k = self._indices(target_xyz)
+            b = torch.arange(B, device=cube.device)[:, None].expand(B, T)
+            planes = (cube.permute(0, 2, 1, 3)[b, j],  # xz (B, T, X, Z)
+                      cube[b, i],  # yz (B, T, Y, Z)
+                      cube.permute(0, 3, 1, 2)[b, k])  # xy (B, T, X, Y)
+            views = []
+            for plane, (r, c) in zip(planes, mats):
+                sym = (plane - half) / half
+                out = torch.einsum("oh,bthw->btow", r, sym)
+                views.append(torch.einsum("btow,pw->btop", out, c))
+            views = torch.stack(views, dim=-1).reshape((B * T,) + tuple(model.rescale) + (3,))
+            proba = torch.softmax(model.apply(views), dim=-1)
+            return self._threshold(proba.reshape(B, T, -1), target_valid)
+
+        return predict_batch
 
     def _build(self) -> Callable:
         """Reference math: slice the three planes of every target, zoom

@@ -106,11 +106,22 @@ def test_port_artifact_loads_in_the_jax_package(rng, tmp_path):
 
 @pytest.mark.parametrize("kind,item", [("cnn", "A12"), ("sgan_classifier", "A13")])
 def test_neural_artifacts_are_not_ported(tmp_path, kind, item):
+    """Ported since ROADMAP A12 / A13: the neural kinds load as
+    NeuralClassifiers (tests/test_torch_neural_serving.py holds them to
+    the JAX package); an unknown kind still raises."""
+    from radarml_tpu_torch.models.cnn import cnn_init_tree
+    from radarml_tpu_torch.models.sgan import sgan_init_trees
+
     path = tmp_path / "net.pkl"
-    tcli.save_model(str(path), kind, params={"w": np.zeros(3)}, classes=["a"],
-                    rescale=(8, 8))
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.load_model(str(path), device="cpu")
+    if kind == "cnn":
+        arrays = {"params": cnn_init_tree(3, (8, 8), seed=0)}
+    else:
+        _, (dp, ds) = sgan_init_trees(3, (8, 8), seed=0)
+        arrays = {"d_params": dp, "d_stats": ds}
+    tcli.save_model(str(path), kind, classes=["a", "b", "c"], rescale=(8, 8), **arrays)
+    model, calib = tcli.load_model(str(path), device="cpu")
+    assert type(model).__name__ == "NeuralClassifier" and calib is None, item
+    assert model.rescale == (8, 8) and model.n_classes == 3
     tcli.save_model(str(path), "forest")
     with pytest.raises(ValueError, match="unknown model kind"):
         tcli.load_model(str(path), device="cpu")

@@ -6,7 +6,9 @@ over every module of the package, once over the package and its two
 serving apps where grpc and protobuf are missing too, as they may be
 where the card is (only rpc/ and serve's --grpc_port branch import them),
 and once over the train app and the metrics where matplotlib is missing
-(the card's machine has none; only plot_confusion_matrix imports it).
+(the card's machine has none; only plot_confusion_matrix imports it),
+and once over the dnn and sgan apps where matplotlib is missing (only
+utils/summary.plot_model_png imports it).
 """
 
 import json
@@ -26,13 +28,15 @@ WITHOUT = %r
 if WITHOUT == "grpc":
     sys.modules["grpc"] = None
     sys.modules["google.protobuf"] = None
-if WITHOUT == "matplotlib":
+if WITHOUT.startswith("matplotlib"):
     sys.modules["matplotlib"] = None
 import radarml_tpu_torch
 if WITHOUT == "grpc":
     mods = ["radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve"]
 elif WITHOUT == "matplotlib":
     mods = ["radarml_tpu_torch.apps.train", "radarml_tpu_torch.train"]
+elif WITHOUT == "matplotlib_neural":
+    mods = ["radarml_tpu_torch.apps.dnn", "radarml_tpu_torch.apps.sgan"]
 else:
     mods = [m.name for m in pkgutil.walk_packages(radarml_tpu_torch.__path__,
                                                   "radarml_tpu_torch.")]
@@ -75,6 +79,15 @@ ALL_MODULES = (
     "radarml_tpu_torch.train.metrics",
     "radarml_tpu_torch.train.gridsearch",
     "radarml_tpu_torch.apps.train",
+    "radarml_tpu_torch.data.preprocess",
+    "radarml_tpu_torch.models.cnn",
+    "radarml_tpu_torch.models.sgan",
+    "radarml_tpu_torch.train.trainer",
+    "radarml_tpu_torch.train.checkpoint",
+    "radarml_tpu_torch.train.sgan_trainer",
+    "radarml_tpu_torch.utils.summary",
+    "radarml_tpu_torch.apps.dnn",
+    "radarml_tpu_torch.apps.sgan",
 )
 APPS = ("radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve",
         "radarml_tpu_torch.apps.common_cli", "radarml_tpu_torch.drivers.native")
@@ -82,11 +95,16 @@ APPS = ("radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve",
 
 TRAIN = ("radarml_tpu_torch.apps.train", "radarml_tpu_torch.train.metrics",
          "radarml_tpu_torch.train.gridsearch", "radarml_tpu_torch.ops.augment")
+NEURAL = ("radarml_tpu_torch.apps.dnn", "radarml_tpu_torch.apps.sgan",
+          "radarml_tpu_torch.utils.summary", "radarml_tpu_torch.train.sgan_trainer",
+          "radarml_tpu_torch.train.trainer", "radarml_tpu_torch.data.preprocess")
 
 
 @pytest.mark.parametrize("without,expected",
-                         [("", ALL_MODULES), ("grpc", APPS), ("matplotlib", TRAIN)],
-                         ids=["all_modules", "apps_without_grpc", "train_without_matplotlib"])
+                         [("", ALL_MODULES), ("grpc", APPS), ("matplotlib", TRAIN),
+                          ("matplotlib_neural", NEURAL)],
+                         ids=["all_modules", "apps_without_grpc", "train_without_matplotlib",
+                              "neural_apps_without_matplotlib"])
 def test_port_imports_without_jax_or_reference(without, expected):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(

@@ -265,5 +265,5 @@ def test_unported_parts_raise(rng, kw, item):
     _, tkw, _ = _fixture(rng)
     with pytest.raises(NotImplementedError, match=item):
         tpipe.RadarPredictor(**kw, **tkw)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpipe.NeuralClassifier(apply=None, rescale=(8, 8), n_classes=3)
+    # the neural families are ported (ROADMAP A12, A13): a NeuralClassifier builds
+    assert tpipe.NeuralClassifier(apply=None, rescale=(8, 8), n_classes=3).n_classes == 3

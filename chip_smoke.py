@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict, SVC, serving, training and neural paths on one CUDA card.
+"""Drive the PyTorch port's predict, SVC, serving, training, neural, artifact and capture paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -170,6 +170,36 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              accuracy, peak memory); each artifact served by the predict app
              in exact mode equal to a direct RadarPredictor call (1e-6). Its
              record is printed as a {"neural": ...} JSON line.
+14. export — the serving artifacts (serving/export.py; the kernels as
+             torch ops, ops/library.py) at full width, each exported,
+             written, loaded back from its file on the card and called:
+             fused under all five tails and combo single at a baked batch
+             of 128 (called at 128 and 1, bit-equal to the live
+             predictor), pallas (bf16), fast int8 at B 1 / 7 / 128 through
+             one artifact, exact, the SVC exact at B=4096 and a CNN (80x80,
+             bf16) — the others' decisions equal and probabilities within
+             1e-6; each kernel's launch counter rises by exactly the
+             artifact's calls (and no other counter moves); fast int8's
+             CPU program equals a CPU predictor; an artifact whose sample
+             inputs carry a pickled payload is refused and the payload
+             never runs (and which loader this torch's torch.export.load
+             reaches is printed); the artifact step against the live step
+             at B=128 (fused combo) and B=4096 (SVC) by CUDA events,
+             interleaved medians. Then serve --serving_artifact over the
+             native source (--max_batch 128, 8 s) while a thread re-exports
+             an intercept-only model with another boosted class: a reload,
+             predict_errors 0, the labels flip, latency p50 / p95 and
+             scans/s printed. Then the closed loop of
+             tests/test_closed_loop.py at the reference's capture size:
+             500 samples captured through the fake camera (scans, samples,
+             seconds), the SGD train app on them, serve --grpc_port with
+             --reload_poll, train --online_learn on a second capture of
+             500: a reload and changed probabilities. Then plot_dataset and
+             a DatasetBrowser page to PNG where matplotlib imports (else
+             one line says why not). Its record is printed as an
+             {"export": ...} JSON line.
+
+Every phase's seconds are printed as it ends ([time] lines).
 
 Each kernel's launch count is reset just before its main path and read
 just after: the int8 kernels and B7 over phases 4-5 (each fused tail's
@@ -178,7 +208,9 @@ over phase 9 (and, reported apart, over the fit of phase 8); B1's and B6's
 again over phase 11's predict app and B1's over its serve loop, reported
 apart as launches_predict_app / launches_serve_app; B6's over phase 12's
 SVC train app, as launches_train_app beside the count the path implies,
-with its ms at the train path's two shapes (train_shapes). bound_ms is
+with its ms at the train path's two shapes (train_shapes); and every
+kernel's over phase 14's artifact calls, as launches_export (B1's also
+over the artifact serve loop, launches_export_serve). bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
@@ -1394,7 +1426,396 @@ def neural_in(d, dev, smi) -> dict:
     return res
 
 
+# -- phase 14: the serving artifact and the capture loop ----------------------
+
+EXPORT_BATCH, SVC_EXPORT_B = 128, 4096  # the fused artifacts' baked batch; the SVC's call
+N_CAPTURE, CAPTURE_MAX_SCANS = 500, 5000  # the reference's default capture, and a bound
+ARTIFACT_SERVE_S = 8  # the re-export, its settling and the swap's warm-up fit in it
+FUSED_KERNEL = {"combo": "onepass_tables_combined_i8",
+                **{tail: name for name, (tail, _) in TAIL_KERNELS.items()}}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, under its record's name."""
+    return {"onepass_tables_combined_i8": i8_score.KERNEL_LAUNCHES, **i8_tails.LAUNCHES,
+            "fused_native_score": score.KERNEL_LAUNCHES, "rbf_gram": rbf.KERNEL_LAUNCHES}
+
+
+def rise(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def loader_report(d, art_path, device) -> str:
+    """Which loader torch.export.load reaches in this torch, and that an
+    artifact whose sample inputs are a pickle with a __reduce__ payload is
+    refused (ValueError) and the payload never runs."""
+    import inspect
+    import io
+    import zipfile
+
+    from torch._export.serde import serialize as serde
+    from radarml_tpu_torch.serving import load_serving_artifact
+    from radarml_tpu_torch.serving.export import MAGIC
+
+    pt2 = importlib.util.find_spec("torch.export.pt2_archive._package") is not None
+    retries = "weights_only=False" in inspect.getsource(serde.deserialize_torch_artifact)
+    marker = os.path.join(d, "payload_ran")
+
+    class Payload:
+        def __reduce__(self):
+            return (open, (marker, "w"))
+
+    evil = io.BytesIO()
+    torch.save(Payload(), evil)
+    raw = open(art_path, "rb").read()
+    head, _, blob = raw[len(MAGIC):].partition(b"\n")
+    meta = json.loads(head)
+    off = 0
+    for p, n in meta["programs"].items():  # keep only this device's program
+        if p == device.type:
+            blob = blob[off:off + n]
+        off += n
+    src, out = zipfile.ZipFile(io.BytesIO(blob)), io.BytesIO()
+    with zipfile.ZipFile(out, "w") as dst:
+        for name in src.namelist():
+            dst.writestr(name, evil.getvalue() if name.endswith("data/sample_inputs/model.pt")
+                         else src.read(name))
+    meta["programs"] = {device.type: len(out.getvalue())}
+    bad = os.path.join(d, "evil.rmlx")
+    with open(bad, "wb") as fp:
+        fp.write(MAGIC + json.dumps(meta).encode() + b"\n" + out.getvalue())
+    try:
+        load_serving_artifact(bad, device=device)
+    except ValueError as e:
+        refused = str(e).split(": ", 1)[-1]
+    else:
+        raise AssertionError("an artifact with a pickled payload loaded")
+    check(not os.path.exists(marker), "the payload of a refused artifact ran")
+    return (f"torch {torch.__version__}: torch.export.load reads a pt2 archive "
+            f"({'pt2_archive._package.load_pt2' if pt2 else 'the legacy zip path'}); its "
+            f"sample-input loader {'retries a failed weights_only load with the full unpickler' if retries else 'does not retry with the full unpickler'}; "
+            f"a payload in the sample inputs is refused before it ({refused}) and never ran")
+
+
+def phase_export(dev, smi, g, svc_pred) -> dict:
+    """Phase 14: serving artifacts, serving from one with hot reload, the
+    capture -> retrain -> reload loop and the plots, in a temporary
+    directory. Returns the kernels' launches over the artifacts' calls
+    and over the artifact serve loop."""
+    with tempfile.TemporaryDirectory() as d:
+        return export_in(d, dev, smi, g, svc_pred)
+
+
+def export_in(d, dev, smi, g, svc_pred) -> dict:
+    import pickle
+
+    from radarml_tpu_torch.models import cnn
+    from radarml_tpu_torch.ops.i8_score import encode_int8_cubes
+    from radarml_tpu_torch.serving import export_predictor, load_serving_artifact
+
+    logging.getLogger("radarml_tpu_torch").setLevel(logging.WARNING)
+    classes = [str(c) for c in g["classes"]]
+    model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"],
+                              device=dev)
+    kw = dict(train_arena=DEFAULT_ARENA, scan_arena=DEFAULT_ARENA, model=model,
+              calibration=calib, min_proba=float(g["min_proba"]), device=dev)
+    cubes, targets = make_scan_batch(N_SLICE, seed=int(g["scan_seed"]))
+    cubes = np.rint(cubes).astype(np.float32)
+    xyz, valid = pad_targets([[(t.x, t.y, t.z)] for t in targets], max_targets=4)
+    reps = -(-SVC_EXPORT_B // N_SLICE)
+    tiled = (np.tile(cubes.astype(np.uint8), (reps, 1, 1, 1)), np.tile(xyz, (reps, 1, 1)),
+             np.tile(valid, (reps, 1)))
+
+    def batch(B):  # the first B scans (tiled past N_SLICE), uint8 on the host
+        return tuple(a[:B] for a in tiled)
+
+    cnn_path = os.path.join(d, "cnn.pkl")  # the dnn app's artifact kind, at 80x80
+    with open(cnn_path, "wb") as fp:
+        pickle.dump({"format": "radarml_tpu.v1", "kind": "cnn", "classes": classes,
+                     "params": cnn.cnn_init_tree(len(classes), (80, 80), seed=3),
+                     "rescale": (80, 80)}, fp)
+    net, _ = common_cli.load_model(cnn_path, device=dev)
+    # name -> (live predictor, static batch, batches called, the kernel it runs)
+    specs = {f"fused_{tail}": (RadarPredictor(mode="fused", fused_tail=tail, **kw),
+                               EXPORT_BATCH, (EXPORT_BATCH, 1), kernel)
+             for tail, kernel in FUSED_KERNEL.items()}
+    specs["fused_single"] = (RadarPredictor(mode="fused", fused_quant="single", **kw),
+                             EXPORT_BATCH, (EXPORT_BATCH, 1), "onepass_tables_combined_i8")
+    specs["pallas"] = (RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw), None,
+                       (EXPORT_BATCH, 1), "fused_native_score")
+    specs["fast_i8"] = (RadarPredictor(mode="fast", cube_dtype="int8", **kw), None,
+                        (1, 7, EXPORT_BATCH), None)
+    specs["exact"] = (RadarPredictor(mode="exact", **kw), None, (EXPORT_BATCH, 1), None)
+    specs["svc_exact"] = (svc_pred, None, (SVC_EXPORT_B,), "rbf_gram")
+    specs["cnn"] = (RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, net, min_proba=0.0,
+                                   cube_dtype="bfloat16", device=dev), None,
+                    (EXPORT_BATCH, 1), None)
+
+    launches = dict.fromkeys(launch_counts(), 0)
+    arts, lines = {}, []
+    for name, (p, static, calls, kernel) in specs.items():
+        path = os.path.join(d, f"{name}.rmlx")
+        t0 = time.perf_counter()
+        meta = export_predictor(p, path, max_targets=4, batch=static,
+                                platforms=("cuda", "cpu") if name == "fast_i8" else None)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = arts[name] = load_serving_artifact(path)
+        load_s = time.perf_counter() - t0
+        check(art.device.type == "cuda" and art.batch == static,
+              f"{name}: loaded on {art.device} with batch {art.batch}")
+        before = launch_counts()
+        got = []
+        for B in calls:
+            got.append(art(*batch(B)))
+            torch.cuda.synchronize()
+        up = rise(before)
+        want_up = {k: len(calls) if k == kernel else 0 for k in up}
+        check(up == want_up, f"{name}: launches over the artifact's calls {up} != {want_up}")
+        for k, v in up.items():
+            launches[k] += v
+        worst = 0.0
+        for B, out in zip(calls, got):
+            live = p(*batch(B))
+            check(all(o.device.type == "cuda" for o in out), f"{name} left the card")
+            if p.mode == "fused":
+                check(all(torch.equal(a, b) for a, b in zip(live, out)),
+                      f"{name} artifact != live predictor at B={B}")
+            else:
+                check(torch.equal(live[0], out[0]), f"{name} artifact decisions at B={B}")
+                worst = max(worst, float((live[2] - out[2]).abs().max()))
+        check(worst <= 1e-6, f"{name} artifact proba vs live {worst}")
+        lines.append(f"{name} ({meta['platforms']}, batch {static or 'symbolic'}, "
+                     f"{sum(meta['programs'].values()) / 2**20:.1f} MiB) export "
+                     f"{export_s:.2f} s, load {load_s:.2f} s, B {'/'.join(map(str, calls))}: "
+                     + ("bit-equal" if p.mode == "fused" else f"proba delta {worst:.1e}")
+                     + (f", {kernel} +{len(calls)}" if kernel else ", no kernel"))
+    say("export", f"on {smi}: artifacts loaded from their files == the live predictors, "
+        "kernels counted over the artifacts' calls only: " + "; ".join(lines))
+
+    # the CPU program of the same linear artifact against a CPU predictor
+    art_cpu = load_serving_artifact(os.path.join(d, "fast_i8.rmlx"), device="cpu")
+    cmodel, ccalib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"],
+                                device="cpu")
+    cpu_pred = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, cmodel, ccalib,
+                              min_proba=float(g["min_proba"]), mode="fast", cube_dtype="int8",
+                              device="cpu")
+    c7 = batch(7)
+    want, out = cpu_pred(*c7), art_cpu(*c7)
+    check(all(o.device.type == "cpu" for o in out), "the CPU program left the CPU")
+    check(torch.equal(want[0], out[0]), "the CPU program's decisions != a CPU predictor's")
+    d_cpu = float((want[2] - out[2]).abs().max())
+    check(d_cpu <= 1e-6, f"the CPU program vs a CPU predictor: proba delta {d_cpu}")
+    say("export", f"fast_i8's CPU program == a CPU predictor at B=7 (proba delta "
+        f"{d_cpu:.1e}); " + loader_report(d, os.path.join(d, "fused_combo.rmlx"), dev))
+
+    # artifact step against live step, inputs on the card (CUDA events)
+    steps = {}
+    for name, B, inner in (("fused_combo", EXPORT_BATCH, 20), ("svc_exact", SVC_EXPORT_B, 2)):
+        p, art = specs[name][0], arts[name]
+        c, x, v = batch(B)
+        c = (encode_int8_cubes(c, dev).contiguous() if p.cube_dtype == "int8"
+             else torch.from_numpy(c).to(dev))
+        x, v = torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev)
+        steps[name] = interleaved({"live": lambda p=p: p(c, x, v),
+                                   "artifact": lambda art=art: art(c, x, v)},
+                                  inner=inner, rounds=5 if inner > 2 else 3)
+    say("export", f"on {smi}: step ms (CUDA events, interleaved medians), live vs "
+        + "; ".join(f"{k} at B={b}: live {steps[k]['live']:.4f}, artifact "
+                    f"{steps[k]['artifact']:.4f}"
+                    for k, b in (("fused_combo", EXPORT_BATCH), ("svc_exact", SVC_EXPORT_B)))
+        + " (the SVC artifact runs all 100 coupling iterations, the live step stops early)")
+    res = {"launches_export": launches, "steps_ms": steps}
+    res["serve"] = export_serve(d, smi, classes)
+    res["loop"] = closed_loop(d, smi)
+    return res
+
+
+def export_serve(d, smi, classes) -> dict:
+    """serve --serving_artifact over the native source, fused at
+    --max_batch 128, 8 s, while a thread re-exports an intercept-only model
+    with another boosted class 1 s after the first detection: a reload,
+    no failed batch, and the labels flip."""
+    C, F = len(classes), DEFAULT_ARENA.feature_length
+    lin, le, art = (os.path.join(d, f) for f in ("boost.pkl", "boost_le.pkl", "boost.rmlx"))
+    common_cli.save_label_encoder(le, LabelEncoder(tuple(classes)))
+
+    def export_boosted(c):
+        intercept = np.full((C,), -5.0, np.float32)
+        intercept[c] = 5.0
+        common_cli.save_model(lin, "linear", coef=np.zeros((C, F), np.float32),
+                              intercept=intercept, calib_a=-np.ones((C,), np.float32),
+                              calib_b=np.zeros((C,), np.float32), classes=classes)
+        out = serve_app.main(["--svm_model", lin, "--label_encoder", le, "--mode", "fused",
+                              "--max_batch", str(EXPORT_BATCH), "--export_serving", art])
+        check(out == {"exported": art}, f"serve --export_serving returned {out}")
+
+    export_boosted(0)
+    grab = DetectionLog()
+    rewrite = threading.Timer(1.0, export_boosted, args=(C - 1,))
+    grab.on_first = rewrite.start
+    serve_log = logging.getLogger("radarml_tpu_torch.apps.serve")
+    serve_log.addHandler(grab)
+    serve_log.propagate = False
+    serve_log.setLevel(logging.INFO)  # the detections, where the package logs warnings only
+    before = launch_counts()
+    try:
+        st = serve_app.main(["--label_encoder", le, "--serving_artifact", art,
+                             "--driver", "native", "--max_batch", str(EXPORT_BATCH),
+                             "--duration", str(ARTIFACT_SERVE_S), "--min_proba", "0.0",
+                             "--reload_poll", "0.2",
+                             "--log_detections"])
+    finally:
+        serve_log.removeHandler(grab)
+        serve_log.propagate = True
+        serve_log.setLevel(logging.NOTSET)
+        if rewrite.is_alive():
+            rewrite.join()
+    b1 = rise(before)["onepass_tables_combined_i8"]
+    names = [row[2] for row in grab.rows]
+    check(st["processed"] > 0 and st["predict_errors"] == 0,
+          f"artifact serve: processed {st['processed']}, errors {st['predict_errors']}")
+    check(st.get("model_reloads", 0) >= 1, f"artifact serve reloads {st.get('model_reloads')}")
+    check(classes[0] in names and names[-1] == classes[-1],
+          f"labels did not flip from {classes[0]} to {classes[-1]}: first {names[:3]}, "
+          f"last {names[-3:]}")
+    check(b1 > 0, "the artifact serve loop launched B1 no time")
+    say("export", f"on {smi}: serve --serving_artifact (fused combo, batch {EXPORT_BATCH}) "
+        f"--driver native {ARTIFACT_SERVE_S} s: processed {st['processed']}, predict_errors 0, "
+        f"model_reloads {st['model_reloads']}, labels {classes[0]} -> {classes[-1]} "
+        f"({names.index(classes[-1])} detections before the first {classes[-1]}), "
+        f"latency_p50_ms {st['latency_p50_ms']}, latency_p95_ms {st['latency_p95_ms']}, "
+        f"classify_rate {st['classify_rate']} scans/s, mean_batch {st['mean_batch']}, "
+        f"B1 launches {b1}")
+    return {"stats": st, "b1": b1}
+
+
+def closed_loop(d, smi) -> dict:
+    """The capture -> retrain -> reload loop of tests/test_closed_loop.py
+    at the reference's capture size: 500 samples over the fake-camera gRPC
+    path, the SGD family trained on them, served on --grpc_port with
+    --reload_poll, then train --online_learn on a second capture; the
+    served probabilities change. Then the plots of the capture."""
+    import socket
+
+    from radarml_tpu_torch.apps import ground_truth_samples as gts_app
+    from radarml_tpu_torch.rpc import RadarServingClient
+
+    real_capture = gts_app.capture_samples
+    scans = []
+
+    def counting_capture(radar, get_detections, camera, cfg):  # one poll a scan
+        def poll(desired):
+            scans[-1] += 1
+            return get_detections(desired)
+
+        return real_capture(radar, poll, camera, cfg)
+
+    def capture(name, seed):
+        path = os.path.join(d, name)
+        scans.append(0)
+        gts_app.capture_samples = counting_capture
+        t0 = time.perf_counter()
+        try:
+            n = gts_app.main(["--num_samples", str(N_CAPTURE), "--max_scans",
+                              str(CAPTURE_MAX_SCANS), "--dataset", path, "--fake_camera",
+                              "--driver_seed", str(seed), "--log_file", ""])
+        finally:
+            gts_app.capture_samples = real_capture
+        check(n == N_CAPTURE, f"captured {n} of {N_CAPTURE} samples")
+        return path, f"{n} samples from {scans[-1]} scans in {time.perf_counter() - t0:.2f} s"
+
+    cap1, said1 = capture("captured1.pickle", 9)
+    t0 = time.perf_counter()
+    train_app.main(["--datasets", cap1, "--grid_epochs", "8", "--folds", "3",
+                    *train_args(d, "loop")])
+    train_s = time.perf_counter() - t0
+    cap2, said2 = capture("captured2.pickle", 10)
+    model_path, le_path = os.path.join(d, "loop.pkl"), os.path.join(d, "loop_le.pkl")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = {}
+    th = threading.Thread(target=lambda: out.update(serve_app.main([
+        "--svm_model", model_path, "--label_encoder", le_path, "--grpc_port", str(port),
+        "--duration", "30", "--min_proba", "0.0", "--reload_poll", "0.3"])))
+    th.start()
+    rng = np.random.default_rng(4)
+    cube = np.rint(rng.random(DEFAULT_ARENA.grid_shape) * 255).astype(np.float32)
+    tgt = [(5.0, 5.0, 100.0)]
+    client, deadline = None, time.time() + 15
+    while client is None and time.time() < deadline:
+        try:
+            c = RadarServingClient(f"127.0.0.1:{port}")
+            c.classify(cube, tgt)
+            client = c
+        except Exception:  # the endpoint is still starting
+            time.sleep(0.3)
+    check(client is not None, "the loop's gRPC endpoint never came up")
+    try:
+        before = np.asarray(client.classify(cube, tgt)[0].class_probas)
+        reloads0 = int(client.get_stats().model_reloads)
+        t0 = time.perf_counter()
+        train_app.main(["--online_learn", "--datasets", cap2, "--grid_epochs", "3",
+                        "--folds", "3", *train_args(d, "loop")])
+        online_s = time.perf_counter() - t0
+        deadline = time.time() + 10
+        while int(client.get_stats().model_reloads) <= reloads0 and time.time() < deadline:
+            time.sleep(0.2)
+        reloads = int(client.get_stats().model_reloads) - reloads0
+        after = np.asarray(client.classify(cube, tgt)[0].class_probas)
+    finally:
+        client.close()
+        th.join(timeout=120)
+    check(not th.is_alive() and out.get("grpc_port") == port, "the loop's serve did not end")
+    moved = float(np.abs(after - before).max())
+    check(reloads >= 1, "the loop's service never reloaded")
+    check(moved > 1e-8, f"served probabilities unchanged after the reload ({moved})")
+    say("export", f"on {smi}: closed loop: capture 1 {said1}; SGD train app (grid epochs 8, "
+        f"3 folds) in {train_s:.2f} s; capture 2 {said2}; served on gRPC with --reload_poll "
+        f"0.3; train --online_learn in {online_s:.2f} s; model_reloads +{reloads}; served "
+        f"probabilities moved by {moved:.4f} ({before.round(4).tolist()} -> "
+        f"{after.round(4).tolist()})")
+    return {"capture": [said1, said2], "train_s": train_s, "online_s": online_s,
+            "reloads": reloads, "moved": moved, "plots": plots(d, cap1)}
+
+
+def plots(d, path) -> str:
+    """plot_dataset and one DatasetBrowser page of a captured set, to PNG
+    with the Agg backend, where matplotlib imports."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        say("export", f"plots skipped: {e.name} not installed")
+        return f"skipped: {e.name} not installed"
+    matplotlib.use("Agg")
+    from radarml_tpu_torch.viz import DatasetBrowser, plot_dataset
+
+    data = load_datasets([path])
+    names = sorted(set(data["labels"]))
+    feats = np.stack([np.asarray(s[2], np.float32).ravel() for s in data["samples"]]) / RADAR_MAX
+    y = np.array([names.index(n) for n in data["labels"]])
+    figs = plot_dataset(feats, y, names)
+    pngs = [os.path.join(d, "dataset.png"), os.path.join(d, "browser.png")]
+    figs[0].savefig(pngs[0])
+    DatasetBrowser(data["samples"], data["labels"]).fig.savefig(pngs[1])
+    sizes = [os.path.getsize(p) for p in pngs]
+    check(all(s > 0 for s in sizes), "an empty PNG")
+    say("export", f"plots: plot_dataset ({len(figs)} figures; xy planes) and a DatasetBrowser "
+        f"page to PNG, {sizes} bytes")
+    return "rendered"
+
+
 def main() -> None:
+    marks = [time.perf_counter()]
+
+    def lap(done: str) -> None:
+        """Print the seconds of the phase just done, and since the start."""
+        now = time.perf_counter()
+        say("time", f"{done} in {now - marks[-1]:.1f} s ({now - marks[0]:.1f} s in all)")
+        marks.append(now)
+
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
@@ -1407,6 +1828,7 @@ def main() -> None:
     say("device", f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    lap("phase 1 (device)")
     # -- 2. build ---------------------------------------------------------
     sources = ("i8_score", "rbf_gram", "native_score")
     for name in sources:
@@ -1422,6 +1844,7 @@ def main() -> None:
     say("build", ", ".join(p.name for p in built) + " by nvcc sm_90a, "
         f"in parallel, in {time.perf_counter() - t0:.2f} s")
 
+    lap("phase 2 (build)")
     # -- 3. kernel vs plain -----------------------------------------------
     dims = DEFAULT_ARENA.grid_shape
     rng = np.random.default_rng(0)
@@ -1547,6 +1970,7 @@ def main() -> None:
         f"max |kernel - float64| {native_f64:.3e}, largest ratio to plain's error "
         f"{worst[0]:.2f} ({worst[1]}); {C_over} classes refused: {refused}")
 
+    lap("phase 3 (kernel)")
     # -- 4. the slice -----------------------------------------------------
     g = dict(np.load(ASSET))
     min_proba = float(g["min_proba"])
@@ -1644,6 +2068,7 @@ def main() -> None:
         f"{int(differ.sum())} of {differ.numel()} cube indices differ between {dev} and "
         f"the CPU")
 
+    lap("phase 4 (slice)")
     # -- 5. serving -------------------------------------------------------
     fused = preds["fused"]
     u8 = cubes.astype(np.uint8)
@@ -1689,6 +2114,7 @@ def main() -> None:
         + ", ".join(f"{k} {v}" for k, v in tail_launches.items())
         + f", native_tables {native_launches}")
 
+    lap("phase 5 (serving)")
     # -- 6. timing --------------------------------------------------------
     tiled = np.tile(cubes, (BIG // N_SLICE, 1, 1, 1))
     txyz = torch.from_numpy(np.tile(xyz, (BIG // N_SLICE, 1, 1))).to(dev)
@@ -1800,6 +2226,7 @@ def main() -> None:
         + "; ".join(f"{k} {rates[k]:.0f} scans/s ({step_ms[k]:.4f} ms/batch)"
                     for k in inputs))
 
+    lap("phase 6 (timing)")
     # -- 7. rbf kernel vs plain vs float64 --------------------------------
     gs = dict(np.load(SVC_ASSET))
     check(int(gs["scan_seed"]) == int(g["scan_seed"])
@@ -1880,6 +2307,7 @@ def main() -> None:
                     for (kind, gamma), (mk, mr) in signed.items())
         + f"; non-contiguous input raises; dataset made in {data_s:.1f} s")
 
+    lap("phase 7 (rbf)")
     # -- 8. svc fit on the card -------------------------------------------
     jax_svc = svc.SVCModel(
         support_vectors=S,
@@ -1915,6 +2343,7 @@ def main() -> None:
         f"atol 5e-3/rtol 1e-2 bar), predictions agree {agree:.4f}, probA/probB "
         f"delta {d_prob:.2e}; rbf launches {fit_launches}")
 
+    lap("phase 8 (svc fit)")
     # -- 9. the SVC slice and stream --------------------------------------
     smin = float(gs["min_proba"])
     skw = dict(train_arena=DEFAULT_ARENA, scan_arena=DEFAULT_ARENA, model=jax_svc,
@@ -1981,6 +2410,7 @@ def main() -> None:
         f"{st['mean_batch']:.1f}, detections == direct call; rbf launches in "
         f"this phase: {launches_svc}")
 
+    lap("phase 9 (svc)")
     # -- 10. svc timing -----------------------------------------------------
     rbf_ms = {
         name: interleaved({
@@ -2040,21 +2470,30 @@ def main() -> None:
         f"{queries.shape[0] * n_sv * 4 / 2**20:.1f} MiB, the rest the packed operands; plain "
         f"{gram_plain_peak / 2**20:.1f} MiB), one SVC exact step {step_peak / 2**20:.1f} MiB")
 
+    lap("phase 10 (svc timing)")
     # -- 11. apps ----------------------------------------------------------
     t0 = time.perf_counter()
     apps = phase_apps(dev, smi, g, gs, S.cpu().numpy(), fused, cubes, targets)
     say("apps", f"phase 11 in {time.perf_counter() - t0:.1f} s; gRPC {apps['grpc']}")
 
+    lap("phase 11 (apps)")
     # -- 12. train -----------------------------------------------------------
     t0 = time.perf_counter()
     train = phase_train(dev, smi)
     say("train", f"phase 12 in {time.perf_counter() - t0:.1f} s")
 
+    lap("phase 12 (train)")
     # -- 13. neural ----------------------------------------------------------
     t0 = time.perf_counter()
     neural = phase_neural(dev, smi)
     say("neural", f"phase 13 in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"neural": neural}), flush=True)
+    lap("phase 13 (neural)")
+
+    # -- 14. the serving artifact, capture and plots --------------------------
+    export = phase_export(dev, smi, g, svc_pred)
+    print(json.dumps({"export": export}), flush=True)
+    lap("phase 14 (export)")
 
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
@@ -2066,6 +2505,7 @@ def main() -> None:
             "device_ms": big["device"],
             "ms_b64": small["kernel"], "plain_ms_b64": small["plain"],
             "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
+            "launches_export": export["launches_export"][name],
         }
 
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
@@ -2073,7 +2513,8 @@ def main() -> None:
                | {"ms_single": kernel_single["kernel"],
                   "plain_ms_single": kernel_single["plain"], "scans_per_s": rates,
                   "launches_predict_app": apps["b1_predict"],
-                  "launches_serve_app": apps["b1_serve"]}]
+                  "launches_serve_app": apps["b1_serve"],
+                  "launches_export_serve": export["serve"]["b1"]}]
     for name, (tail, replaces) in TAIL_KERNELS.items():
         records.append(int8_record(name, KERNEL_SOURCE, replaces, tail_launches[name],
                                    tail_err[name])
@@ -2090,6 +2531,7 @@ def main() -> None:
         "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
         "fast_f32_ms_b64": small["fast_f32"],
         "scans_per_s": {k: rates[k] for k in ("pallas", "pallas_f32", "fast")},
+        "launches_export": export["launches_export"]["fused_native_score"],
     })
     rbf_b, rbf_by = rbf_bound(queries, S)
     records.append({
@@ -2122,6 +2564,7 @@ def main() -> None:
         "train_shapes": train["shapes"],
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,
+        "launches_export": export["launches_export"]["rbf_gram"],
     })
     say("profiler", f"{TRACES['taken']} traces taken for device times, {TRACES['lacking']} "
         f"of them without a kernel's records (each taken again)")

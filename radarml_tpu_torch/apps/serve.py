@@ -9,8 +9,9 @@ stats line on exit. `--grpc_port` serves classifications over gRPC
 artifact changes.
 
 There is no Mosaic gate and no fallback: under `--mode fused` a kernel
-that fails to build or launch raises. The serving artifact
-(`--export_serving`, `--serving_artifact`) is not ported yet.
+that fails to build or launch raises. `--export_serving` writes the
+predictor as a torch.export artifact (serving/export.py) and exits;
+`--serving_artifact` serves one, and `--reload_poll` then watches it.
 
     python -m radarml_tpu_torch.apps.serve --svm_model M --label_encoder L
 """
@@ -48,12 +49,6 @@ from radarml_tpu_torch.serving import (
 
 logger = logging.getLogger(__name__)
 
-EXPORT_NOT_PORTED = (
-    "the serving artifact (serving/export.py) is not ported yet: ROADMAP "
-    "A8's export item, which waits for the kernels to be registered as "
-    "custom ops"
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -83,9 +78,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sensors", type=int, default=1,
                    help="number of (synthetic) sensors to multiplex")
     p.add_argument("--export_serving", type=str, default="",
-                   help="not ported yet (ROADMAP A8): raises")
+                   help="export the predictor (torch.export, symbolic "
+                        "batch, weights folded in; fused mode bakes "
+                        "--max_batch) to this path and exit; the "
+                        "artifact serves via --serving_artifact with no "
+                        "model pickles or pipeline code")
     p.add_argument("--serving_artifact", type=str, default="",
-                   help="not ported yet (ROADMAP A8): raises")
+                   help="serve from an AOT artifact written by "
+                        "--export_serving instead of building the "
+                        "predictor from --svm_model")
+    p.add_argument("--allow_v1_artifact", action="store_true",
+                   help="accepted for parity with the JAX package's CLI: "
+                        "the port has no legacy v1 pickle artifacts, so a "
+                        "file without the artifact header is refused "
+                        "either way")
     p.add_argument("--grpc_port", type=int, default=-1,
                    help="serve classifications over gRPC on this port "
                         "(0 = auto-pick) instead of running the local "
@@ -132,12 +138,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def warm(predictor, batch: int, grid, device) -> None:
-    """One call at `batch` scans (4 valid targets each), waited for: the
-    first call builds and loads the mode's CUDA kernels, so the first
-    real batch does not pay for it."""
+    """One call at `batch` scans (valid targets in every slot: 4, or an
+    artifact's baked count), waited for: the first call builds and loads
+    the mode's CUDA kernels, so the first real batch does not pay for it."""
+    T = int(getattr(predictor, "max_targets", 4))
     cubes = np.zeros((batch,) + tuple(grid), np.float32)
-    xyz = np.tile(np.array([0.0, 0.0, 100.0], np.float32), (batch, 4, 1))
-    predictor(cubes, xyz, np.ones((batch, 4), bool))
+    xyz = np.tile(np.array([0.0, 0.0, 100.0], np.float32), (batch, T, 1))
+    predictor(cubes, xyz, np.ones((batch, T), bool))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -145,18 +152,39 @@ def warm(predictor, batch: int, grid, device) -> None:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     setup_logging(None, args.logging_level)
-    if args.export_serving or args.serving_artifact:
-        raise NotImplementedError(EXPORT_NOT_PORTED)
+    if args.export_serving and args.serving_artifact:
+        raise SystemExit(
+            "--export_serving needs a predictor built from "
+            "--svm_model, not --serving_artifact"
+        )
     device = device_of(args)
     warm_transfers(device)
 
     le = load_label_encoder(args.label_encoder)
     # Sensors scan --scan_arena; the predictor zooms projections into
-    # the training arena (reference predict.py:34-54).
+    # the training arena (reference predict.py:34-54). An artifact bakes
+    # its scan grid, which must be this one.
     scan_arena = parse_arena(args.scan_arena)
     grid = scan_arena.grid_shape
 
     def build_predictor():
+        if args.serving_artifact:
+            from radarml_tpu_torch.serving import load_serving_artifact
+
+            p = load_serving_artifact(args.serving_artifact,
+                                      allow_v1_pickle=args.allow_v1_artifact,
+                                      device=device)
+            logger.info("serving from AOT artifact %s (mode=%s, platforms=%s)",
+                        args.serving_artifact, p.mode, p.platforms)
+            if tuple(p.grid_shape) != tuple(grid):
+                raise ValueError(f"the artifact's scan grid {p.grid_shape} is not "
+                                 f"--scan_arena's {tuple(grid)}")
+            if abs(p.min_proba - args.min_proba) > 1e-9:
+                logger.warning(
+                    "--min_proba %.2f ignored: the artifact bakes in %.2f "
+                    "(thresholds are constants in the exported program; "
+                    "re-export to change)", args.min_proba, p.min_proba)
+            return p
         model, calib = load_model(args.svm_model, device=device)
         return RadarPredictor(
             train_arena=DEFAULT_ARENA, scan_arena=scan_arena,
@@ -168,6 +196,32 @@ def main(argv=None) -> dict:
         )
 
     predictor = build_predictor()
+    if args.export_serving:
+        from radarml_tpu_torch.serving import export_predictor
+
+        fused = predictor.mode == "fused"
+        export_predictor(
+            predictor, args.export_serving,
+            # a non-fused program is exported for both devices when it is
+            # traced on the card, as the JAX CLI lowers for ("tpu",
+            # "cpu") (a CUDA program needs the card to hold its
+            # constants); a fused one for this device only
+            platforms=None if fused or device.type != "cuda" else ("cuda", "cpu"),
+            # fused exports bake a static batch; the service scores in
+            # --max_batch chunks, so bake that
+            batch=args.max_batch if fused else None,
+        )
+        return {"exported": args.export_serving}
+    # A fused AOT artifact bakes a static batch; smaller batches pad up
+    # inside ServingArtifact, but LARGER ones cannot run — clamp the
+    # service's batch knobs so every served shape fits.
+    baked = getattr(predictor, "batch", None)
+    if baked:
+        for knob in ("max_batch", "grpc_batch_size"):
+            if getattr(args, knob) > baked:
+                logger.warning("--%s %d exceeds the artifact's baked batch %d; "
+                               "clamping", knob, getattr(args, knob), baked)
+                setattr(args, knob, baked)
     logger.info("warming predictor (kernel build)...")
     warm(predictor, args.max_batch, grid, device)
     logger.info("predictor ready")
@@ -196,12 +250,10 @@ def main(argv=None) -> dict:
             if rpc_server is not None:
                 rpc_server.note_model_reload()
 
-        reloader = ModelReloader(
-            args.svm_model, build_and_warm, swap, poll_s=args.reload_poll
-        )
+        watch = args.serving_artifact or args.svm_model
+        reloader = ModelReloader(watch, build_and_warm, swap, poll_s=args.reload_poll)
         reloader.start()
-        logger.info("hot-reload watching %s every %.1fs", args.svm_model,
-                    args.reload_poll)
+        logger.info("hot-reload watching %s every %.1fs", watch, args.reload_poll)
         return reloader
 
     def serve_for_duration():
@@ -219,6 +271,8 @@ def main(argv=None) -> dict:
 
         rpc_server = RadarServingServer(
             predictor, classes=list(le.classes_), grid_shape=grid,
+            # an AOT artifact bakes its target-slot axis; match it
+            max_targets=int(getattr(predictor, "max_targets", 4)),
             port=args.grpc_port,
             host=args.grpc_host,
             batch_window_ms=args.grpc_batch_window_ms,

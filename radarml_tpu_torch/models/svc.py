@@ -245,7 +245,12 @@ def _couple_probabilities(
     libsvm stops a sample once max_t |Qp_t − pᵀQp| < 0.005/k; such a
     sample is frozen (its update is the identity), so the loop may stop
     as soon as no sample is active. That is checked every `check_every`
-    iterations, each check waiting for the device once.
+    iterations, each check waiting for the device once. While
+    torch.export traces this (a serving artifact), that host branch
+    cannot be recorded: all `max_iter` iterations run as one traced
+    `while_loop` over a counter, as the JAX package's fori_loop does, and
+    the frozen samples' identity updates give the same bits as the early
+    stop.
     """
     n, k, _ = r.shape
     Q = torch.zeros((n, k, k), dtype=r.dtype, device=r.device)
@@ -260,14 +265,15 @@ def _couple_probabilities(
                 Q[:, t, j] = -r[:, j, t] * r[:, t, j]
     diag = [torch.clamp(Q[:, t, t], min=1e-12) for t in range(k)]
 
-    p = torch.full((n, k), 1.0 / k, dtype=r.dtype, device=r.device)
-    for it in range(max_iter):
+    def measure(p):
+        """Qp, pᵀQp and the samples still active."""
         Qp = torch.einsum("nkj,nj->nk", Q, p)
         pQp = torch.einsum("nk,nk->n", p, Qp)
         err = torch.amax(torch.abs(Qp - pQp[:, None]), dim=1)
-        active = err >= 0.005 / k
-        if it % check_every == 0 and not bool(active.any()):
-            break
+        return Qp, pQp, err >= 0.005 / k
+
+    def sweep(p, Qp, pQp, active):
+        """One Gauss–Seidel pass over the classes; frozen samples keep p."""
         for t in range(k):
             diff = (-Qp[:, t] + pQp) / diag[t]
             diff = torch.where(active, diff, 0.0)
@@ -277,6 +283,21 @@ def _couple_probabilities(
             pQp = (pQp + diff * (diff * Q[:, t, t] + 2.0 * Qp[:, t])) * scale**2
             Qp = (Qp + diff[:, None] * Q[:, t, :]) * scale[:, None]
             p = p * scale[:, None]
+        return p
+
+    p = torch.full((n, k), 1.0 / k, dtype=r.dtype, device=r.device)
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops.while_loop import while_loop
+
+        _, p = while_loop(lambda it, p: it < max_iter,
+                          lambda it, p: (it + 1, sweep(p, *measure(p))),
+                          (torch.zeros((), dtype=torch.int64), p))
+    else:
+        for it in range(max_iter):
+            Qp, pQp, active = measure(p)
+            if it % check_every == 0 and not bool(active.any()):
+                break
+            p = sweep(p, Qp, pQp, active)
     return p / torch.sum(p, dim=1, keepdim=True)
 
 

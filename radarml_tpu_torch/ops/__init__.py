@@ -37,6 +37,9 @@ from radarml_tpu_torch.ops.score import (
     native_tables_ref,
     native_templates,
 )
+# Registers the kernels as torch ops (radarml_torch::*), which the
+# wrappers above call and serving artifacts record.
+from radarml_tpu_torch.ops import library  # noqa: E402,F401
 
 __all__ = [
     "bicubic_pair",

@@ -17,7 +17,8 @@ On a CUDA tensor `onepass_tables_combined_i8` launches the hand-written
 Hopper kernel `csrc/i8_score.cu` (its header says what bounds it and how
 it is laid out) or raises; on a CPU tensor it runs the plain version
 `onepass_tables_combined_i8_ref`. Nothing falls back from one to the
-other.
+other. Both go through the torch op `radarml_torch::combo_tables_i8`
+(ops/library.py), which torch.export records in a serving artifact.
 
 The wire layout is the plain contiguous (B, X, Y, Z) int8 tensor: none
 of the TPU kernel's tiling (scan-minor packing, y-groups, δ-block
@@ -263,12 +264,23 @@ def onepass_tables_combined_i8(
     """The three one-pass tables of a (B, X, Y, Z) int8 cube batch.
 
     Returns int32 m1 (C2, Y, B), m2 (C2, X, B), m3 (Z, C2, B) — the JAX
-    kernel's axis order without its padding. On a CUDA tensor the
-    kernel writes scan-major buffers (coalesced per scan) and these are
-    permuted views of them; on a CPU tensor this is the plain version.
+    kernel's axis order without its padding — as permuted views of the
+    scan-major buffers of the torch op `radarml_torch::combo_tables_i8`
+    (ops/library.py): the kernel on a CUDA tensor (coalesced per scan),
+    the plain version on a CPU tensor.
     """
-    if not launches_kernel(cube, weights):
-        return onepass_tables_combined_i8_ref(cube, weights)
+    launches_kernel(cube, weights)
+    t1, t2, t3 = torch.ops.radarml_torch.combo_tables_i8(
+        cube, weights.q_xz, weights.q_yz, weights.q_xy, weights.levels)
+    return t1.permute(1, 2, 0), t2.permute(1, 2, 0), t3.permute(1, 2, 0)
+
+
+def combo_tables_cuda(
+    cube: torch.Tensor, weights: CombinedWeights
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the combo kernel on checked CUDA operands: scan-major int32
+    t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2). The CUDA implementation
+    of `radarml_torch::combo_tables_i8`; counts the launch."""
     X, Y, Z, _ = weights.dims
     B = cube.shape[0]
     C2 = weights.c2
@@ -294,4 +306,4 @@ def onepass_tables_combined_i8(
             f"(B={B}, dims={(X, Y, Z)}, C2={C2})"
         )
     count_launch(globals(), "KERNEL_LAUNCHES")
-    return t1.permute(1, 2, 0), t2.permute(1, 2, 0), t3.permute(1, 2, 0)
+    return t1, t2, t3

@@ -34,6 +34,9 @@ kernel or raises: the lookup, glookup, sel and sel3 kernels of
 work plan or epilogue under a profiler symbol of its own; its header says
 what bounds the kernels and how they cut the work. On a CPU tensor each
 runs its plain version `*_ref`. Nothing falls back from one to the other.
+Both go through a torch op of ops/library.py (`radarml_torch::
+lookup_tables_i8`, `grouped_tables_i8`, `sel_tables_i8`,
+`sel3_scores_i8`), which torch.export records in a serving artifact.
 The TPU kernels' δ-block and grouped weight arrays, scan-minor packing,
 y-groups, lane padding and SEL_TP slot padding are not carried over: the
 weights are the quantized templates themselves, as for the combo kernel.
@@ -289,43 +292,79 @@ def _int32(cube: torch.Tensor, *shapes) -> tuple:
     return tuple(torch.empty(s, dtype=torch.int32, device=cube.device) for s in shapes)
 
 
-def _split_tables(name: str, kernel: str, cube: torch.Tensor,
-                  weights: CombinedWeights) -> Tables:
-    """Launch the lookup or glookup kernel under its plan; the tables in
-    the JAX axis order, permuted views of scan-major buffers."""
+def split_tables_cuda(kernel: str, cube: torch.Tensor, weights: CombinedWeights) -> Tables:
+    """Launch the lookup ("lookup") or glookup ("grouped") kernel on checked
+    CUDA operands under its plan: scan-major int32 t1 (B, C2, Y), t2
+    (B, C2, X), t3 (B, Z, C2). The CUDA implementation of
+    `radarml_torch::lookup_tables_i8` / `grouped_tables_i8`."""
     X, Y, Z, _ = weights.dims
     B, C2 = cube.shape[0], weights.c2
     P, XS = lookup_plan_on_card(B, weights, kernel)
     # at P > 1 the C entry zeroes the m1 and m3 that the parts add into
     outs = _int32(cube, (B, C2, Y), (B, C2, X), (B, Z, C2))
+    name = {"lookup": "onepass_tables_i8", "grouped": "onepass_tables_grouped_i8"}[kernel]
     _launch(name, f"i8_score_{kernel}_tables", cube, weights, (), outs, XS, P)
-    return tuple(o.permute(1, 2, 0) for o in outs)
+    return outs
+
+
+def sel_tables_cuda(cube: torch.Tensor, weights: CombinedWeights, k: torch.Tensor) -> Tables:
+    """Launch the sel kernel on checked CUDA operands (k: contiguous int32
+    (B, T)): scan-major t1 (B, C2, Y), t2 (B, C2, X), d3 (B, T, C2). The
+    CUDA implementation of `radarml_torch::sel_tables_i8`."""
+    X, Y, _, _ = weights.dims
+    B, T, C2 = cube.shape[0], k.shape[1], weights.c2
+    outs = _int32(cube, (B, C2, Y), (B, C2, X), (B, T, C2))
+    _launch("onepass_tables_sel_i8", "i8_score_sel_tables", cube, weights, (k.data_ptr(),),
+            outs, T)
+    return outs
+
+
+def sel3_scores_cuda(cube: torch.Tensor, weights: CombinedWeights, idx: torch.Tensor,
+                     ok: Optional[torch.Tensor]) -> Tables:
+    """Launch the sel3 kernel on checked CUDA operands (idx: contiguous
+    int32 (B, T, 3), ok: contiguous bool (B, T) or None): three scan-major
+    (B, T, C2) reads. The CUDA implementation of
+    `radarml_torch::sel3_scores_i8`."""
+    B, T = idx.shape[:2]
+    outs = _int32(cube, *[(B, T, weights.c2)] * 3)
+    _launch("onepass_scores_i8", "i8_score_sel3_scores", cube, weights,
+            (idx.data_ptr(), _ptr(ok)), outs, T)
+    return outs
+
+
+def _planes(weights: CombinedWeights) -> tuple:
+    return weights.q_xz, weights.q_yz, weights.q_xy, weights.levels
+
+
+def _jax_order(tables: Tables) -> Tables:
+    """Scan-major t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2) → views in
+    the JAX axis order (C2, Y, B), (C2, X, B), (Z, C2, B)."""
+    return tuple(t.permute(1, 2, 0) for t in tables)
 
 
 def onepass_tables_i8(cube: torch.Tensor, weights: CombinedWeights) -> Tables:
     """The three one-pass tables of a (B, X, Y, Z) int8 cube batch, the
     kernel cutting each scan into the parts of `lookup_plan`.
 
-    Returns int32 m1 (C2, Y, B), m2 (C2, X, B), m3 (Z, C2, B); on a CUDA
-    tensor these are permuted views of scan-major buffers.
+    Returns int32 m1 (C2, Y, B), m2 (C2, X, B), m3 (Z, C2, B), permuted
+    views of the scan-major buffers of `radarml_torch::lookup_tables_i8`
+    (ops/library.py).
     """
-    if not launches_kernel(cube, weights):
-        return onepass_tables_i8_ref(cube, weights)
-    return _split_tables("onepass_tables_i8", "lookup", cube, weights)
+    launches_kernel(cube, weights)
+    return _jax_order(torch.ops.radarml_torch.lookup_tables_i8(cube, *_planes(weights)))
 
 
 def onepass_tables_grouped_i8(cube: torch.Tensor, weights: GroupedWeights) -> Tables:
     """The three one-pass tables from GroupedWeights. Same contract as
     onepass_tables_i8, and on the card the same plan (its own kernel
-    symbol and resident-block count): the y-group, the JAX kernel's
-    tiling, does not change the card's work."""
+    symbol and resident-block count, `radarml_torch::grouped_tables_i8`):
+    the y-group, the JAX kernel's tiling, does not change the card's work."""
     if not isinstance(weights, GroupedWeights):
         raise TypeError(
             "onepass_tables_grouped_i8 takes GroupedWeights (build_grouped_weights)"
         )
-    if not launches_kernel(cube, weights):
-        return onepass_tables_grouped_i8_ref(cube, weights)
-    return _split_tables("onepass_tables_grouped_i8", "grouped", cube, weights)
+    launches_kernel(cube, weights)
+    return _jax_order(torch.ops.radarml_torch.grouped_tables_i8(cube, *_planes(weights)))
 
 
 def _slots(idx, cube: torch.Tensor, trailing: tuple, what: str) -> torch.Tensor:
@@ -347,16 +386,11 @@ def onepass_tables_sel_i8(
     cube: torch.Tensor, weights: CombinedWeights, kidx
 ) -> Tables:
     """m1 (C2, Y, B), m2 (C2, X, B) and d3 (C2, T, B) with d3[c, t, b] =
-    m3[kidx[b, t], c, b] for the (B, T) z indices kidx; -1 reads zero."""
-    cuda = launches_kernel(cube, weights)
+    m3[kidx[b, t], c, b] for the (B, T) z indices kidx; -1 reads zero.
+    Views of `radarml_torch::sel_tables_i8`'s scan-major buffers."""
+    launches_kernel(cube, weights)
     k = _slots(kidx, cube, (), "kidx")
-    if not cuda:
-        return onepass_tables_sel_i8_ref(cube, weights, k)
-    X, Y, _, _ = weights.dims
-    B, T, C2 = cube.shape[0], k.shape[1], weights.c2
-    t1, t2, d3 = _int32(cube, (B, C2, Y), (B, C2, X), (B, T, C2))
-    _launch("onepass_tables_sel_i8", "i8_score_sel_tables", cube, weights, (k.data_ptr(),),
-            (t1, t2, d3), T)
+    t1, t2, d3 = torch.ops.radarml_torch.sel_tables_i8(cube, *_planes(weights), k)
     return t1.permute(1, 2, 0), t2.permute(1, 2, 0), d3.permute(2, 1, 0)
 
 
@@ -366,8 +400,9 @@ def onepass_scores_i8(
     """The three target reads s1 = m1[c, j], s2 = m2[c, i], s3 = m3[k, c]
     of every slot of ijk (B, T, 3) (i = x, j = y, k = z), each (C2, T, B);
     an index of -1, or a slot whose optional (B, T) `valid` is False,
-    reads zero. No table leaves the kernel."""
-    cuda = launches_kernel(cube, weights)
+    reads zero. No table leaves the kernel. Views of
+    `radarml_torch::sel3_scores_i8`'s scan-major (B, T, C2) buffers."""
+    launches_kernel(cube, weights)
     idx = _slots(ijk, cube, (3,), "ijk")
     B, T = idx.shape[:2]
     ok = None
@@ -377,9 +412,5 @@ def onepass_scores_i8(
             raise ValueError(f"valid must be bool {(B, T)}, got {ok.dtype} "
                              f"{tuple(ok.shape)}")
         ok = ok.contiguous()
-    if not cuda:
-        return onepass_scores_i8_ref(cube, weights, idx, ok)
-    outs = _int32(cube, *[(B, T, weights.c2)] * 3)
-    _launch("onepass_scores_i8", "i8_score_sel3_scores", cube, weights,
-            (idx.data_ptr(), _ptr(ok)), outs, T)
+    outs = torch.ops.radarml_torch.sel3_scores_i8(cube, *_planes(weights), idx, ok)
     return tuple(o.permute(2, 1, 0) for o in outs)

@@ -85,19 +85,26 @@ def rbf_gram(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
     stream; it takes contiguous row-major inputs of any alignment (an odd
     F, a view that starts mid-buffer) and raises on any other. Its pack
     passes write the operands as tiles into scratch allocated here (about
-    n F + 2 m F floats). On a CPU tensor this is `rbf_gram_ref`.
+    n F + 2 m F floats). On a CPU tensor this is `rbf_gram_ref`. Both go
+    through the torch op `radarml_torch::rbf_gram` (ops/library.py).
     """
     _check(X, S)
-    if X.device.type == "cpu":
-        return rbf_gram_ref(X, S, gamma)
-    if X.device.type != "cuda":
+    if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rbf_gram kernel for device {X.device}")
-    if not (X.is_contiguous() and S.is_contiguous()):
-        raise ValueError("the kernel takes contiguous row-major X and S")
+    if X.device.type == "cuda":
+        if not (X.is_contiguous() and S.is_contiguous()):
+            raise ValueError("the kernel takes contiguous row-major X and S")
+        if X.shape[0] == 0 or S.shape[0] == 0 or X.shape[1] == 0:
+            raise ValueError(f"empty Gram matrix: n={X.shape[0]}, m={S.shape[0]}, "
+                             f"F={X.shape[1]}")
+    return torch.ops.radarml_torch.rbf_gram(X, S, float(gamma))
+
+
+def rbf_gram_cuda(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands. The CUDA implementation
+    of `radarml_torch::rbf_gram`; counts the launch."""
     n, F = X.shape
     m = S.shape[0]
-    if n == 0 or m == 0 or F == 0:
-        raise ValueError(f"empty Gram matrix: n={n}, m={m}, F={F}")
     lib = _library()
     dev = X.device
     nbytes = lib.rbf_gram_workspace_bytes(n, m, F)

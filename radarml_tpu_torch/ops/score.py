@@ -216,15 +216,23 @@ def native_tables(
     On a CUDA tensor the kernel writes them on the current stream, each
     element once, summed in a fixed order (the same bits on every run);
     it takes a contiguous cube and raises on any other. On a CPU tensor
-    this is `native_tables_ref`.
+    this is `native_tables_ref`. Both go through the torch op
+    `radarml_torch::native_tables` (ops/library.py).
     """
     _check(cubes, templates)
-    if cubes.device.type == "cpu":
-        return native_tables_ref(cubes, templates)
-    if cubes.device.type != "cuda":
+    if cubes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no native_score kernel for device {cubes.device}")
-    if not cubes.is_contiguous():
+    if cubes.device.type == "cuda" and not cubes.is_contiguous():
         raise ValueError("the kernel takes a contiguous (B, X, Y, Z) cube")
+    return torch.ops.radarml_torch.native_tables(
+        cubes, templates.t_xz, templates.t_yz, templates.t_xy)
+
+
+def native_tables_cuda(
+    cubes: torch.Tensor, templates: NativeTemplates
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the kernel on checked CUDA operands. The CUDA implementation
+    of `radarml_torch::native_tables`; counts the launch."""
     X, Y, Z, C = templates.dims
     B = cubes.shape[0]
     dev = cubes.device

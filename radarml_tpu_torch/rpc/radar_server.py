@@ -9,8 +9,8 @@ gets calibrated detections back from the predictor on the card.
 Stub-free: handlers and client calls are built directly on grpc generic
 handlers / `unary_unary`.
 
-This module and the `--grpc_port` branch of apps/serve.py are the only
-parts of the port that import grpc and protobuf.
+The rpc package (this module, the camera client and its fake server) is
+the only part of the port that imports grpc and protobuf.
 """
 
 from __future__ import annotations

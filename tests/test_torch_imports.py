@@ -2,13 +2,20 @@
 radarml_tpu nor sklearn, and importing it builds nothing.
 
 Checked in a fresh interpreter where `import jax` fails outright: once
-over every module of the package, once over the package and its two
-serving apps where grpc and protobuf are missing too, as they may be
-where the card is (only rpc/ and serve's --grpc_port branch import them),
-and once over the train app and the metrics where matplotlib is missing
-(the card's machine has none; only plot_confusion_matrix imports it),
-and once over the dnn and sgan apps where matplotlib is missing (only
-utils/summary.plot_model_png imports it).
+over every module of the package, once over the package, its two
+serving apps and the serving artifact where grpc and protobuf are missing
+too, as they may be where the card is (only rpc/ imports them; serve's
+--grpc_port branch, fusion/ and the capture app import rpc/), once over
+the train app and the metrics where matplotlib is missing (the card's
+machine has none; only plot_confusion_matrix imports it), once over the
+dnn and sgan apps where matplotlib is missing (only
+utils/summary.plot_model_png imports it), and once over viz/ and its two
+apps (visualize, ground_truth_samples) where matplotlib is missing (they
+import it only where they draw).
+
+A scan of the sources pins which modules import grpc (rpc/ only) and
+matplotlib (viz/, its two apps, train/metrics.py, utils/summary.py),
+each of them where it uses it.
 """
 
 import json
@@ -28,11 +35,15 @@ WITHOUT = %r
 if WITHOUT == "grpc":
     sys.modules["grpc"] = None
     sys.modules["google.protobuf"] = None
-if WITHOUT.startswith("matplotlib"):
+if WITHOUT.startswith("matplotlib") or WITHOUT == "viz":
     sys.modules["matplotlib"] = None
 import radarml_tpu_torch
 if WITHOUT == "grpc":
-    mods = ["radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve"]
+    mods = ["radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve",
+            "radarml_tpu_torch.serving.export", "radarml_tpu_torch.ops.library"]
+elif WITHOUT == "viz":
+    mods = ["radarml_tpu_torch.viz", "radarml_tpu_torch.apps.visualize",
+            "radarml_tpu_torch.apps.ground_truth_samples"]
 elif WITHOUT == "matplotlib":
     mods = ["radarml_tpu_torch.apps.train", "radarml_tpu_torch.train"]
 elif WITHOUT == "matplotlib_neural":
@@ -88,9 +99,22 @@ ALL_MODULES = (
     "radarml_tpu_torch.utils.summary",
     "radarml_tpu_torch.apps.dnn",
     "radarml_tpu_torch.apps.sgan",
+    "radarml_tpu_torch.ops.library",
+    "radarml_tpu_torch.serving.export",
+    "radarml_tpu_torch.rpc.client",
+    "radarml_tpu_torch.rpc.fake_server",
+    "radarml_tpu_torch.rpc.detection_server_pb2",
+    "radarml_tpu_torch.fusion.camera",
+    "radarml_tpu_torch.fusion.capture",
+    "radarml_tpu_torch.apps.ground_truth_samples",
+    "radarml_tpu_torch.viz.plots",
+    "radarml_tpu_torch.apps.visualize",
 )
 APPS = ("radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve",
-        "radarml_tpu_torch.apps.common_cli", "radarml_tpu_torch.drivers.native")
+        "radarml_tpu_torch.apps.common_cli", "radarml_tpu_torch.drivers.native",
+        "radarml_tpu_torch.serving.export", "radarml_tpu_torch.ops.library")
+VIZ = ("radarml_tpu_torch.viz.plots", "radarml_tpu_torch.apps.visualize",
+       "radarml_tpu_torch.apps.ground_truth_samples", "radarml_tpu_torch.fusion.capture")
 
 
 TRAIN = ("radarml_tpu_torch.apps.train", "radarml_tpu_torch.train.metrics",
@@ -102,9 +126,9 @@ NEURAL = ("radarml_tpu_torch.apps.dnn", "radarml_tpu_torch.apps.sgan",
 
 @pytest.mark.parametrize("without,expected",
                          [("", ALL_MODULES), ("grpc", APPS), ("matplotlib", TRAIN),
-                          ("matplotlib_neural", NEURAL)],
+                          ("matplotlib_neural", NEURAL), ("viz", VIZ)],
                          ids=["all_modules", "apps_without_grpc", "train_without_matplotlib",
-                              "neural_apps_without_matplotlib"])
+                              "neural_apps_without_matplotlib", "viz_without_matplotlib"])
 def test_port_imports_without_jax_or_reference(without, expected):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(
@@ -119,3 +143,27 @@ def test_port_imports_without_jax_or_reference(without, expected):
         assert name in res["modules"]
     if without == "grpc":
         assert not any(m.startswith("radarml_tpu_torch.rpc") for m in res["modules"])
+
+
+IMPORTERS = {
+    "grpc": {"rpc/__init__.py", "rpc/client.py", "rpc/fake_server.py", "rpc/radar_server.py"},
+    "google.protobuf": {"rpc/detection_server_pb2.py", "rpc/radar_serving_pb2.py"},
+    "matplotlib": {"viz/plots.py", "apps/visualize.py", "apps/ground_truth_samples.py",
+                   "train/metrics.py", "utils/summary.py"},
+}
+
+
+@pytest.mark.parametrize("package", sorted(IMPORTERS))
+def test_only_these_modules_import(package):
+    """rpc/ is the only importer of grpc and protobuf; viz/ (with its two
+    apps) and the two earlier plotting helpers the only importers of
+    matplotlib."""
+    import re
+
+    root = REPO / "radarml_tpu_torch"
+    pattern = re.compile(rf"^\s*(from|import)\s+{re.escape(package)}\b", re.M)
+    found = {str(p.relative_to(root)) for p in root.rglob("*.py")
+             if pattern.search(p.read_text())}
+    if package == "grpc":  # rpc/__init__ imports grpc through its modules
+        found.add("rpc/__init__.py")
+    assert found == IMPORTERS[package]

@@ -8,7 +8,7 @@ Decisions are equal where the JAX top-2 margin exceeds 1e-4 and the
 probabilities agree within 1e-5 (float32 in two libraries: the slices,
 the bicubic products and the network in another summation order;
 measured ≤ 2e-7). The export round trip of tests/test_neural_serving.py
-is not ported here (serving/export.py is not ported yet).
+is in tests/test_torch_export.py with the port's other artifact cases.
 """
 
 import pickle

@@ -1,7 +1,6 @@
 """The port's gRPC radar endpoint on the CPU: the cases of
-tests/test_radar_serving_rpc.py re-run against radarml_tpu_torch.rpc
-(all but the ahead-of-time artifact case: the port has no serving
-artifact yet, ROADMAP A8), and the two servers held together.
+tests/test_radar_serving_rpc.py re-run against radarml_tpu_torch.rpc,
+and the two servers held together.
 
 Parity: the port's server and the JAX package's, over the same linear
 model, answer the same requests on the same wire with the same labels
@@ -168,6 +167,32 @@ def test_serve_cli_grpc_mode(tmp_path):
     th.join(timeout=60)
     assert not th.is_alive()
     assert out["res"]["grpc_port"] > 0
+
+
+def test_grpc_serving_from_aot_artifact(tmp_path, served):
+    """AOT artifact + gRPC endpoint compose: same wire answers (the
+    artifact's program equals the live predictor: within 1e-6, the JAX
+    test's bar)."""
+    from radarml_tpu_torch.serving import export_predictor, load_serving_artifact
+
+    predictor, _server, _client = served
+    path = str(tmp_path / "serving.rmlx")
+    export_predictor(predictor, path, max_targets=3)
+    art = load_serving_artifact(path, device="cpu")
+
+    server = RadarServingServer(art, classes=CLASSES, grid_shape=art.grid_shape,
+                                max_targets=art.max_targets).start()
+    client = RadarServingClient(f"127.0.0.1:{server.port}")
+    try:
+        cube = _cube(np.random.default_rng(7))
+        targets = [(2.0, -1.0, 110.0)]
+        via_art = client.classify(cube, targets, dtype="uint8")
+        via_live = _client.classify(cube, targets, dtype="uint8")
+        assert len(via_art) == len(via_live) == 1
+        np.testing.assert_allclose(_probas(via_art), _probas(via_live), atol=1e-6)
+    finally:
+        client.close()
+        server.stop()
 
 
 def test_subscribe_receives_published_detections(served):

@@ -6,9 +6,8 @@ ModelReloader is a copy of the JAX package's (no JAX in it), so its
 three unit cases run unchanged. The serve cases rewrite an
 intercept-only model mid-serve and check that the loop's detections
 follow it without a restart, in fast and fused mode. The JAX package's
-fifth case reloads an ahead-of-time serving artifact, which the port
-does not have yet (ROADMAP A8): its twin checks that asking for one
-raises NotImplementedError.
+fifth case, which reloads an ahead-of-time serving artifact, is in
+tests/test_torch_export.py with the port's other artifact cases.
 """
 
 import logging
@@ -167,9 +166,3 @@ def test_serve_cli_hot_reload_swaps_predictions(tmp_path, mode):
     assert "person" in labels_seen  # after reload
     first_person = labels_seen.index("person")
     assert set(labels_seen[first_person:]) == {"person"}
-
-
-@pytest.mark.parametrize("flag", ["--export_serving", "--serving_artifact"])
-def test_serving_artifact_is_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve_app.main([flag, str(tmp_path / "x.rmlx"), "--platform", "cpu"])

@@ -181,9 +181,12 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              1e-6; each kernel's launch counter rises by exactly the
              artifact's calls (and no other counter moves); fast int8's
              CPU program equals a CPU predictor; an artifact whose sample
-             inputs carry a pickled payload is refused and the payload
-             never runs (and which loader this torch's torch.export.load
-             reaches is printed); the artifact step against the live step
+             inputs carry a pickled payload, in their place or as a second
+             entry of the same name, is refused and the payload never runs
+             (and which loader this torch's torch.export.load reaches is
+             printed); the pallas artifact on a strided batch equals the
+             live predictor, and its op refuses a strided cube on the card
+             with no launch; the artifact step against the live step
              at B=128 (fused combo) and B=4096 (SVC) by CUDA events,
              interleaved medians. Then serve --serving_artifact over the
              native source (--max_batch 128, 8 s) while a thread re-exports
@@ -1448,9 +1451,11 @@ def rise(before: dict) -> dict:
 def loader_report(d, art_path, device) -> str:
     """Which loader torch.export.load reaches in this torch, and that an
     artifact whose sample inputs are a pickle with a __reduce__ payload is
-    refused (ValueError) and the payload never runs."""
+    refused (ValueError) and the payload never runs: in their place, and
+    as a second entry of the same name before or after the harmless one."""
     import inspect
     import io
+    import warnings
     import zipfile
 
     from torch._export.serde import serialize as serde
@@ -1475,26 +1480,34 @@ def loader_report(d, art_path, device) -> str:
         if p == device.type:
             blob = blob[off:off + n]
         off += n
-    src, out = zipfile.ZipFile(io.BytesIO(blob)), io.BytesIO()
-    with zipfile.ZipFile(out, "w") as dst:
-        for name in src.namelist():
-            dst.writestr(name, evil.getvalue() if name.endswith("data/sample_inputs/model.pt")
-                         else src.read(name))
-    meta["programs"] = {device.type: len(out.getvalue())}
-    bad = os.path.join(d, "evil.rmlx")
-    with open(bad, "wb") as fp:
-        fp.write(MAGIC + json.dumps(meta).encode() + b"\n" + out.getvalue())
-    try:
-        load_serving_artifact(bad, device=device)
-    except ValueError as e:
-        refused = str(e).split(": ", 1)[-1]
-    else:
-        raise AssertionError("an artifact with a pickled payload loaded")
-    check(not os.path.exists(marker), "the payload of a refused artifact ran")
+    src = zipfile.ZipFile(io.BytesIO(blob))
+    refused = {}
+    for how in ("in place", "first of two", "second of two"):
+        entries = {"in place": (evil.getvalue(),), "first of two": (evil.getvalue(), None),
+                   "second of two": (None, evil.getvalue())}[how]
+        out = io.BytesIO()
+        with zipfile.ZipFile(out, "w") as dst, warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # "Duplicate name"
+            for name in src.namelist():
+                data = src.read(name)
+                for e in entries if name.endswith("data/sample_inputs/model.pt") else (data,):
+                    dst.writestr(name, data if e is None else e)
+        meta["programs"] = {device.type: len(out.getvalue())}
+        bad = os.path.join(d, "evil.rmlx")
+        with open(bad, "wb") as fp:
+            fp.write(MAGIC + json.dumps(meta).encode() + b"\n" + out.getvalue())
+        try:
+            load_serving_artifact(bad, device=device)
+        except ValueError as e:
+            refused[how] = str(e).split(": ", 2)[-1]
+        else:
+            raise AssertionError(f"an artifact with a pickled payload ({how}) loaded")
+        check(not os.path.exists(marker), f"the payload of a refused artifact ({how}) ran")
     return (f"torch {torch.__version__}: torch.export.load reads a pt2 archive "
             f"({'pt2_archive._package.load_pt2' if pt2 else 'the legacy zip path'}); its "
             f"sample-input loader {'retries a failed weights_only load with the full unpickler' if retries else 'does not retry with the full unpickler'}; "
-            f"a payload in the sample inputs is refused before it ({refused}) and never ran")
+            "a payload in the sample inputs is refused before it and never ran: "
+            + "; ".join(f"{k}: {v}" for k, v in refused.items()))
 
 
 def phase_export(dev, smi, g, svc_pred) -> dict:
@@ -1608,6 +1621,37 @@ def export_in(d, dev, smi, g, svc_pred) -> dict:
     check(d_cpu <= 1e-6, f"the CPU program vs a CPU predictor: proba delta {d_cpu}")
     say("export", f"fast_i8's CPU program == a CPU predictor at B=7 (proba delta "
         f"{d_cpu:.1e}); " + loader_report(d, os.path.join(d, "fused_combo.rmlx"), dev))
+
+    # A strided cube batch (a transposed host array) through the pallas
+    # artifact: laid out before the program, so its answers are the live
+    # predictor's on the contiguous batch. The op itself, which an exported
+    # program calls with no wrapper in front, refuses a strided cube on the
+    # card with no launch. These calls are checks, not counted in
+    # launches_export.
+    c, x, v = batch(EXPORT_BATCH)
+    strided = torch.from_numpy(c).transpose(1, 2).contiguous().transpose(1, 2)
+    live, before = specs["pallas"][0](c, x, v), launch_counts()
+    out = arts["pallas"](strided, x, v)
+    torch.cuda.synchronize()
+    up = rise(before)
+    check(up == {k: int(k == "fused_native_score") for k in up},
+          f"pallas artifact on a strided batch: launches {up}")
+    d_strided = float((live[2] - out[2]).abs().max())
+    check(torch.equal(live[0], out[0]) and d_strided <= 1e-6,
+          f"pallas artifact on a strided batch != live (proba delta {d_strided})")
+    tm = score.native_templates(*specs["pallas"][0]._split_templates(), device=dev)
+    before = launch_counts()
+    try:
+        torch.ops.radarml_torch.native_tables(strided.to(dev, torch.bfloat16), tm.t_xz,
+                                              tm.t_yz, tm.t_xy)
+    except ValueError as e:
+        op_refused = str(e)
+    else:
+        raise AssertionError("radarml_torch::native_tables took a strided cube")
+    check(rise(before) == dict.fromkeys(before, 0), "a refused op launched its kernel")
+    say("export", f"pallas artifact on a strided B={EXPORT_BATCH} batch == live (proba "
+        f"delta {d_strided:.1e}, B7 +1); radarml_torch::native_tables on a strided cube "
+        f"on the card: refused, no launch ({op_refused})")
 
     # artifact step against live step, inputs on the card (CUDA events)
     steps = {}

@@ -87,11 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve from an AOT artifact written by "
                         "--export_serving instead of building the "
                         "predictor from --svm_model")
-    p.add_argument("--allow_v1_artifact", action="store_true",
-                   help="accepted for parity with the JAX package's CLI: "
-                        "the port has no legacy v1 pickle artifacts, so a "
-                        "file without the artifact header is refused "
-                        "either way")
     p.add_argument("--grpc_port", type=int, default=-1,
                    help="serve classifications over gRPC on this port "
                         "(0 = auto-pick) instead of running the local "
@@ -171,9 +166,7 @@ def main(argv=None) -> dict:
         if args.serving_artifact:
             from radarml_tpu_torch.serving import load_serving_artifact
 
-            p = load_serving_artifact(args.serving_artifact,
-                                      allow_v1_pickle=args.allow_v1_artifact,
-                                      device=device)
+            p = load_serving_artifact(args.serving_artifact, device=device)
             logger.info("serving from AOT artifact %s (mode=%s, platforms=%s)",
                         args.serving_artifact, p.mode, p.platforms)
             if tuple(p.grid_shape) != tuple(grid):

@@ -600,7 +600,7 @@ class RadarPredictor:
         # probabilities; a calibration is not applied to it).
         svc = self.model.to(self.device) if isinstance(self.model, SVCModel) else None
         if svc is not None:
-            svc.pair_coef  # noqa: B018 -- fold on the host now, not in a traced call
+            svc.fold()
 
         def predict_batch(cubes, target_xyz, target_valid):
             B, T = target_xyz.shape[:2]

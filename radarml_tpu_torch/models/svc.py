@@ -152,6 +152,12 @@ class SVCModel:
             W[p, sj:ej] = dual[i, sj:ej]
         return torch.as_tensor(W, device=self.device)
 
+    def fold(self) -> torch.Tensor:
+        """`pair_coef`, folded now if it was not yet. Call it on the host
+        before tracing a program that reads it: a traced call cannot run
+        the numpy fold."""
+        return self.pair_coef
+
 
 def from_numpy(
     support_vectors,

@@ -206,22 +206,38 @@ def _check(cube: torch.Tensor, weights: CombinedWeights) -> None:
         )
 
 
-def launches_kernel(cube: torch.Tensor, weights: CombinedWeights) -> bool:
-    """Check a one-pass kernel's operands: False for a CPU cube (the
-    plain version runs), True for a CUDA cube the kernels take; raises on
-    anything else (another device, C2 > MAX_C2, a non-contiguous cube)."""
+def check_operands(cube: torch.Tensor, weights: CombinedWeights) -> None:
+    """Check a one-pass kernel op's operands in its wrapper: raises on a
+    wrong shape, type or device. A CPU cube goes to the plain version; a
+    CUDA cube's layout is checked by `card_operands` in the op."""
     _check(cube, weights)
-    if cube.device.type == "cpu":
-        return False
-    if cube.device.type != "cuda":
+    if cube.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no one-pass kernel for device {cube.device}")
-    if weights.c2 > MAX_C2:
-        raise ValueError(
-            f"the kernels take at most {MAX_C2} class rows, got {weights.c2}"
-        )
+
+
+def card_operands(cube: torch.Tensor, weights: CombinedWeights) -> None:
+    """Check what a one-pass kernel reads through raw pointers, in the
+    CUDA implementation of its op: an exported program calls the op
+    directly, so this runs there on every call. Raises unless the cube
+    and every template are contiguous, typed and shaped as the kernels
+    take them, on one CUDA device, with C2 <= MAX_C2."""
+    _check(cube, weights)
+    X, Y, Z, _ = weights.dims
+    C2 = weights.c2
+    shapes = ((C2, X, Z), (C2, Y, Z), (C2, X, Y))
+    for q, shape in zip((weights.q_xz, weights.q_yz, weights.q_xy), shapes):
+        if q is not None and (q.dtype != torch.int8 or tuple(q.shape) != shape
+                              or q.device != cube.device or not q.is_contiguous()):
+            raise ValueError(
+                f"templates must be contiguous int8 {shape} on {cube.device}, "
+                f"got {q.dtype} {tuple(q.shape)} on {q.device}"
+            )
     if not cube.is_contiguous():
         raise ValueError("the kernels take a contiguous (B, X, Y, Z) cube")
-    return True
+    if C2 > MAX_C2:
+        raise ValueError(f"the kernels take at most {MAX_C2} class rows, got {C2}")
+    if cube.device.type != "cuda":
+        raise ValueError(f"no one-pass kernel for device {cube.device}")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -269,7 +285,7 @@ def onepass_tables_combined_i8(
     (ops/library.py): the kernel on a CUDA tensor (coalesced per scan),
     the plain version on a CPU tensor.
     """
-    launches_kernel(cube, weights)
+    check_operands(cube, weights)
     t1, t2, t3 = torch.ops.radarml_torch.combo_tables_i8(
         cube, weights.q_xz, weights.q_yz, weights.q_xy, weights.levels)
     return t1.permute(1, 2, 0), t2.permute(1, 2, 0), t3.permute(1, 2, 0)
@@ -278,9 +294,10 @@ def onepass_tables_combined_i8(
 def combo_tables_cuda(
     cube: torch.Tensor, weights: CombinedWeights
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the combo kernel on checked CUDA operands: scan-major int32
-    t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2). The CUDA implementation
-    of `radarml_torch::combo_tables_i8`; counts the launch."""
+    """Launch the combo kernel on CUDA operands, checked here: scan-major
+    int32 t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2). The CUDA
+    implementation of `radarml_torch::combo_tables_i8`; counts the launch."""
+    card_operands(cube, weights)
     X, Y, Z, _ = weights.dims
     B = cube.shape[0]
     C2 = weights.c2

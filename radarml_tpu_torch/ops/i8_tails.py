@@ -55,7 +55,8 @@ from radarml_tpu_torch.ops._cuda_build import count_launch
 from radarml_tpu_torch.ops.i8_score import (
     CombinedWeights,
     build_combined_weights,
-    launches_kernel,
+    card_operands,
+    check_operands,
     onepass_tables_combined_i8_ref,
 )
 
@@ -286,6 +287,16 @@ def _launch(name: str, fn: str, cube: torch.Tensor, weights: CombinedWeights,
     count_launch(LAUNCHES, name)
 
 
+def _card_slots(t: torch.Tensor, cube: torch.Tensor, shape: tuple, dtype: torch.dtype,
+                what: str) -> None:
+    """Raise unless a kernel's slot operand is a contiguous `dtype` tensor
+    of `shape` on the cube's device, as the kernel reads it by pointer."""
+    if (t.dtype != dtype or tuple(t.shape) != shape or t.device != cube.device
+            or not t.is_contiguous()):
+        raise ValueError(f"{what} must be contiguous {dtype} {shape} on {cube.device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _int32(cube: torch.Tensor, *shapes) -> tuple:
     """Uninitialised int32 outputs of these shapes on the cube's device
     (each kernel writes every element)."""
@@ -293,10 +304,11 @@ def _int32(cube: torch.Tensor, *shapes) -> tuple:
 
 
 def split_tables_cuda(kernel: str, cube: torch.Tensor, weights: CombinedWeights) -> Tables:
-    """Launch the lookup ("lookup") or glookup ("grouped") kernel on checked
-    CUDA operands under its plan: scan-major int32 t1 (B, C2, Y), t2
-    (B, C2, X), t3 (B, Z, C2). The CUDA implementation of
+    """Launch the lookup ("lookup") or glookup ("grouped") kernel on CUDA
+    operands, checked here, under its plan: scan-major int32 t1 (B, C2,
+    Y), t2 (B, C2, X), t3 (B, Z, C2). The CUDA implementation of
     `radarml_torch::lookup_tables_i8` / `grouped_tables_i8`."""
+    card_operands(cube, weights)
     X, Y, Z, _ = weights.dims
     B, C2 = cube.shape[0], weights.c2
     P, XS = lookup_plan_on_card(B, weights, kernel)
@@ -308,9 +320,12 @@ def split_tables_cuda(kernel: str, cube: torch.Tensor, weights: CombinedWeights)
 
 
 def sel_tables_cuda(cube: torch.Tensor, weights: CombinedWeights, k: torch.Tensor) -> Tables:
-    """Launch the sel kernel on checked CUDA operands (k: contiguous int32
-    (B, T)): scan-major t1 (B, C2, Y), t2 (B, C2, X), d3 (B, T, C2). The
-    CUDA implementation of `radarml_torch::sel_tables_i8`."""
+    """Launch the sel kernel on CUDA operands, checked here (k: contiguous
+    int32 (B, T)): scan-major t1 (B, C2, Y), t2 (B, C2, X), d3 (B, T, C2).
+    The CUDA implementation of `radarml_torch::sel_tables_i8`."""
+    _card_slots(k, cube, (cube.shape[0], k.shape[1] if k.dim() == 2 else -1), torch.int32,
+                "kidx")
+    card_operands(cube, weights)
     X, Y, _, _ = weights.dims
     B, T, C2 = cube.shape[0], k.shape[1], weights.c2
     outs = _int32(cube, (B, C2, Y), (B, C2, X), (B, T, C2))
@@ -321,11 +336,15 @@ def sel_tables_cuda(cube: torch.Tensor, weights: CombinedWeights, k: torch.Tenso
 
 def sel3_scores_cuda(cube: torch.Tensor, weights: CombinedWeights, idx: torch.Tensor,
                      ok: Optional[torch.Tensor]) -> Tables:
-    """Launch the sel3 kernel on checked CUDA operands (idx: contiguous
-    int32 (B, T, 3), ok: contiguous bool (B, T) or None): three scan-major
-    (B, T, C2) reads. The CUDA implementation of
+    """Launch the sel3 kernel on CUDA operands, checked here (idx:
+    contiguous int32 (B, T, 3), ok: contiguous bool (B, T) or None): three
+    scan-major (B, T, C2) reads. The CUDA implementation of
     `radarml_torch::sel3_scores_i8`."""
-    B, T = idx.shape[:2]
+    B, T = cube.shape[0], idx.shape[1] if idx.dim() == 3 else -1
+    _card_slots(idx, cube, (B, T, 3), torch.int32, "ijk")
+    if ok is not None:
+        _card_slots(ok, cube, (B, T), torch.bool, "valid")
+    card_operands(cube, weights)
     outs = _int32(cube, *[(B, T, weights.c2)] * 3)
     _launch("onepass_scores_i8", "i8_score_sel3_scores", cube, weights,
             (idx.data_ptr(), _ptr(ok)), outs, T)
@@ -350,7 +369,7 @@ def onepass_tables_i8(cube: torch.Tensor, weights: CombinedWeights) -> Tables:
     views of the scan-major buffers of `radarml_torch::lookup_tables_i8`
     (ops/library.py).
     """
-    launches_kernel(cube, weights)
+    check_operands(cube, weights)
     return _jax_order(torch.ops.radarml_torch.lookup_tables_i8(cube, *_planes(weights)))
 
 
@@ -363,7 +382,7 @@ def onepass_tables_grouped_i8(cube: torch.Tensor, weights: GroupedWeights) -> Ta
         raise TypeError(
             "onepass_tables_grouped_i8 takes GroupedWeights (build_grouped_weights)"
         )
-    launches_kernel(cube, weights)
+    check_operands(cube, weights)
     return _jax_order(torch.ops.radarml_torch.grouped_tables_i8(cube, *_planes(weights)))
 
 
@@ -388,7 +407,7 @@ def onepass_tables_sel_i8(
     """m1 (C2, Y, B), m2 (C2, X, B) and d3 (C2, T, B) with d3[c, t, b] =
     m3[kidx[b, t], c, b] for the (B, T) z indices kidx; -1 reads zero.
     Views of `radarml_torch::sel_tables_i8`'s scan-major buffers."""
-    launches_kernel(cube, weights)
+    check_operands(cube, weights)
     k = _slots(kidx, cube, (), "kidx")
     t1, t2, d3 = torch.ops.radarml_torch.sel_tables_i8(cube, *_planes(weights), k)
     return t1.permute(1, 2, 0), t2.permute(1, 2, 0), d3.permute(2, 1, 0)
@@ -402,7 +421,7 @@ def onepass_scores_i8(
     an index of -1, or a slot whose optional (B, T) `valid` is False,
     reads zero. No table leaves the kernel. Views of
     `radarml_torch::sel3_scores_i8`'s scan-major (B, T, C2) buffers."""
-    launches_kernel(cube, weights)
+    check_operands(cube, weights)
     idx = _slots(ijk, cube, (3,), "ijk")
     B, T = idx.shape[:2]
     ok = None

@@ -91,18 +91,21 @@ def rbf_gram(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
     _check(X, S)
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rbf_gram kernel for device {X.device}")
-    if X.device.type == "cuda":
-        if not (X.is_contiguous() and S.is_contiguous()):
-            raise ValueError("the kernel takes contiguous row-major X and S")
-        if X.shape[0] == 0 or S.shape[0] == 0 or X.shape[1] == 0:
-            raise ValueError(f"empty Gram matrix: n={X.shape[0]}, m={S.shape[0]}, "
-                             f"F={X.shape[1]}")
     return torch.ops.radarml_torch.rbf_gram(X, S, float(gamma))
 
 
 def rbf_gram_cuda(X: torch.Tensor, S: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands. The CUDA implementation
-    of `radarml_torch::rbf_gram`; counts the launch."""
+    """Launch the kernel on CUDA operands, checked here: an exported
+    program calls the op directly, so these checks run on every call. The
+    CUDA implementation of `radarml_torch::rbf_gram`; counts the launch."""
+    _check(X, S)
+    if not (X.is_contiguous() and S.is_contiguous()):
+        raise ValueError("the kernel takes contiguous row-major X and S")
+    if X.shape[0] == 0 or S.shape[0] == 0 or X.shape[1] == 0:
+        raise ValueError(f"empty Gram matrix: n={X.shape[0]}, m={S.shape[0]}, "
+                         f"F={X.shape[1]}")
+    if X.device.type != "cuda":
+        raise ValueError(f"no rbf_gram kernel for device {X.device}")
     n, F = X.shape
     m = S.shape[0]
     lib = _library()

@@ -222,8 +222,6 @@ def native_tables(
     _check(cubes, templates)
     if cubes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no native_score kernel for device {cubes.device}")
-    if cubes.device.type == "cuda" and not cubes.is_contiguous():
-        raise ValueError("the kernel takes a contiguous (B, X, Y, Z) cube")
     return torch.ops.radarml_torch.native_tables(
         cubes, templates.t_xz, templates.t_yz, templates.t_xy)
 
@@ -231,9 +229,22 @@ def native_tables(
 def native_tables_cuda(
     cubes: torch.Tensor, templates: NativeTemplates
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the kernel on checked CUDA operands. The CUDA implementation
-    of `radarml_torch::native_tables`; counts the launch."""
+    """Launch the kernel on CUDA operands, checked here: an exported
+    program calls the op directly, so these checks run on every call. The
+    CUDA implementation of `radarml_torch::native_tables`; counts the
+    launch."""
+    _check(cubes, templates)
     X, Y, Z, C = templates.dims
+    for t, shape in zip((templates.t_xz, templates.t_yz, templates.t_xy),
+                        ((C, X, Z), (C, Y, Z), (C, X, Y))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != cubes.device
+                or not t.is_contiguous()):
+            raise ValueError(f"templates must be contiguous float32 {shape} on "
+                             f"{cubes.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not cubes.is_contiguous():
+        raise ValueError("the kernel takes a contiguous (B, X, Y, Z) cube")
+    if cubes.device.type != "cuda":
+        raise ValueError(f"no native_score kernel for device {cubes.device}")
     B = cubes.shape[0]
     dev = cubes.device
     m1 = torch.empty((B, C, Y), dtype=torch.float32, device=dev)

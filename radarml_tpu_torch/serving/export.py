@@ -215,11 +215,15 @@ class ServingArtifact:
         if self.cube_dtype == "int8":
             # The baked program expects the value-128 wire encoding; a
             # straight cast of canonical 0..255 would overflow int8.
-            cubes = encode_int8_cubes(cubes, dev).contiguous()
+            cubes = encode_int8_cubes(cubes, dev)
         else:
             cubes = torch.as_tensor(cubes).to(dev, dtype=_CUBE_DTYPES[self.cube_dtype])
-        xyz = torch.as_tensor(xyz, dtype=torch.float32).to(dev)
-        valid = torch.as_tensor(valid, dtype=torch.bool).to(dev)
+        # The program was traced on contiguous inputs and holds no
+        # .contiguous() of its own (one is a no-op while tracing), so a
+        # permuted input is laid out here.
+        cubes = cubes.contiguous()
+        xyz = torch.as_tensor(xyz, dtype=torch.float32).to(dev).contiguous()
+        valid = torch.as_tensor(valid, dtype=torch.bool).to(dev).contiguous()
         if self.batch is not None and b < self.batch:
             # Smaller batches (the unary gRPC path and warm-up run one
             # scan) pad up to the baked shape; pad slots carry
@@ -241,25 +245,33 @@ def _refuse_pickles(blob: bytes, path: str) -> None:
     opaque objects with the full unpickler, and retries sample inputs
     that fail a weights_only load with it; the programs this module
     writes hold none of them (raw tensor bytes, JSON, and sample inputs
-    that load weights_only), so an archive that does is refused.
+    that load weights_only), so an archive that does is refused. The
+    members are read through torch's own archive reader, the one that
+    torch.export.load reads them with; an archive that names a member
+    twice is refused, since two readers may each pick another entry.
     """
     def refuse(why: str):
         raise ValueError(f"{path}: refused to load the serving program: {why}")
 
     try:
-        archive = zipfile.ZipFile(io.BytesIO(blob))
-    except zipfile.BadZipFile:
+        names = zipfile.ZipFile(io.BytesIO(blob)).namelist()
+        reader = torch._C.PyTorchFileReader(io.BytesIO(blob))
+        records = reader.get_all_records()
+    except (zipfile.BadZipFile, RuntimeError):
         refuse("the program is not a torch.export archive")
-    names = archive.namelist()
+    if len(set(names)) != len(names) or len(set(records)) != len(records):
+        refuse("the archive names a member twice")
     root = names[0].split("/", 1)[0] + "/" if names else ""
     if not all(n.startswith(root) for n in names):
         refuse("the archive has more than one root folder")
-    members = {n[len(root):] for n in names}
+    members = set(records)
+    if members != {n[len(root):] for n in names}:
+        refuse("the archive's two listings of its members differ")
     tensor_files = set()
     for config in _CONFIGS:
         if config not in members:
             refuse(f"the archive lacks {config}")
-        entries = json.loads(archive.read(root + config)).get("config", {})
+        entries = json.loads(reader.get_record(config)).get("config", {})
         folder = config.rsplit("/", 1)[0] + "/"
         for fqn, meta in entries.items():
             name = str(meta.get("path_name", ""))
@@ -271,7 +283,7 @@ def _refuse_pickles(blob: bytes, path: str) -> None:
             continue
         if member == _SAMPLE_INPUTS:
             try:
-                torch.load(io.BytesIO(archive.read(root + member)), weights_only=True)
+                torch.load(io.BytesIO(reader.get_record(member)), weights_only=True)
             except Exception as err:  # any refusal of the safe loader
                 refuse(f"its sample inputs need the full unpickler ({type(err).__name__})")
             continue
@@ -288,23 +300,22 @@ def load_serving_artifact(
     raises if the artifact has none. Loading never runs an unpickler
     that can run code (see `_refuse_pickles`), so a `ModelReloader`
     watching the path is safe against artifact-file writers injecting
-    code. The port has no legacy pickle artifacts: a file without the
-    header raises ValueError whatever `allow_v1_pickle` says (the flag
-    is kept for the JAX package's signature and only words the error),
-    and so does a JAX artifact.
+    code. The port has no legacy pickle artifacts: `allow_v1_pickle` is
+    kept for the JAX package's signature, and True raises ValueError at
+    once. A file without the header, and a JAX artifact, raise
+    ValueError too.
     """
     from radarml_tpu_torch.core.device import resolve_device
     from radarml_tpu_torch.ops import library  # noqa: F401  (the graph's ops)
 
+    if allow_v1_pickle:
+        raise ValueError(
+            "allow_v1_pickle=True: this port has no legacy v1 pickle "
+            "artifacts and never unpickles one"
+        )
     with open(path, "rb") as fp:
         raw = fp.read()
     if not raw.startswith(MAGIC):
-        if allow_v1_pickle:
-            raise ValueError(
-                f"{path} is not a serving artifact: this port has no legacy "
-                "v1 pickle artifacts, so allow_v1_pickle has nothing to load; "
-                "export one with export_predictor"
-            )
         raise ValueError(
             f"{path} is not a serving artifact (no {MAGIC!r} header); this "
             "port never unpickles one — export one with export_predictor"

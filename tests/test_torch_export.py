@@ -130,10 +130,43 @@ def test_symbolic_artifact_serves_one_scan(tmp_path, predictor, mode):
         _equal(p(cubes[:B], xyz[:B], valid[:B]), art(cubes[:B], xyz[:B], valid[:B]))
 
 
+@pytest.mark.parametrize("mode,dtype", [("pallas", "bfloat16"), ("exact", "float32"),
+                                        ("fast", "int8")])
+def test_artifact_lays_out_permuted_inputs(tmp_path, predictor, mode, dtype):
+    """The program was traced on contiguous inputs and holds no layout
+    step of its own, so ServingArtifact.__call__ hands it contiguous
+    tensors whatever the caller's strides (a transposed host array): the
+    program sees only contiguous inputs, and the answers equal the live
+    predictor's on the same values, bit for bit."""
+    import dataclasses
+
+    p = dataclasses.replace(predictor, mode=mode, cube_dtype=dtype)
+    path = str(tmp_path / f"{mode}.rmlx")
+    export_predictor(p, path, max_targets=2)
+    art = load_serving_artifact(path, device="cpu")
+    seen, call = [], art.call
+
+    def program(*args):
+        seen.append([a.is_contiguous() for a in args])
+        return call(*args)
+
+    art = dataclasses.replace(art, call=program)
+    rng = np.random.default_rng(5)
+    cubes = torch.from_numpy(_cubes(rng, 3))
+    strided = cubes.transpose(1, 2).contiguous().transpose(1, 2)
+    xyz, valid = pad_targets([[(1.0, -2.0, 90.0)], [(4.0, 3.0, 140.0)], []], max_targets=2)
+    xyz = torch.from_numpy(xyz)
+    xyz_strided = xyz.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous() and not xyz_strided.is_contiguous()
+    _equal(p(cubes, xyz, valid), art(strided, xyz_strided, valid))
+    assert seen == [[True, True, True]]
+
+
 def test_container_is_pickle_free_and_v1_pickles_are_refused(tmp_path, predictor):
     """MAGIC + JSON line + the programs' archives (no unpickler on load).
-    The port has no legacy v1 pickle container: one is refused whatever
-    allow_v1_pickle says, and its payload never runs."""
+    The port has no legacy v1 pickle container: one is refused and its
+    payload never runs, and allow_v1_pickle=True raises at once, whatever
+    the file."""
     path = str(tmp_path / "serving.rmlx")
     export_predictor(predictor, path, max_targets=4)
     raw = open(path, "rb").read()
@@ -152,8 +185,9 @@ def test_container_is_pickle_free_and_v1_pickles_are_refused(tmp_path, predictor
                      "payload": Payload(str(marker))}, fp)
     with pytest.raises(ValueError, match="not a serving artifact"):
         load_serving_artifact(str(v1), device="cpu")
-    with pytest.raises(ValueError, match="no legacy v1 pickle"):
-        load_serving_artifact(str(v1), allow_v1_pickle=True, device="cpu")
+    for either in (str(v1), path):
+        with pytest.raises(ValueError, match="no legacy v1 pickle"):
+            load_serving_artifact(either, allow_v1_pickle=True, device="cpu")
     assert not marker.exists()
 
 

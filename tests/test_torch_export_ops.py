@@ -2,7 +2,12 @@
 
 * A program whose archive carries a pickle with a __reduce__ payload, where
   torch.export.load would run it with the full unpickler, is refused with
-  ValueError and the payload never runs.
+  ValueError and the payload never runs; so is one that names its sample
+  inputs twice, a harmless entry beside the payload in either order (the
+  two zip readers pick different entries of a repeated name).
+* Each kernel's CUDA implementation refuses, before any launch, operands
+  that the kernel could not read by pointer (a permuted cube or slot
+  tensor): an exported program calls it with no wrapper in front.
 * Each of the seven kernels is a torch op (ops/library.py) that passes
   torch.library.opcheck on the CPU, whose fake shapes and dtypes are its
   real outputs', and whose CPU output is its plain version's, bit for bit.
@@ -13,6 +18,7 @@
 
 import io
 import json
+import warnings
 import zipfile
 
 import numpy as np
@@ -25,7 +31,7 @@ from radarml_tpu_torch.models import svc as tsvc
 from radarml_tpu_torch.models.pipeline import RadarPredictor, pad_targets
 from radarml_tpu_torch.ops import i8_score, i8_tails, library, rbf, score
 from radarml_tpu_torch.serving import export_predictor, load_serving_artifact
-from radarml_tpu_torch.serving.export import MAGIC
+from radarml_tpu_torch.serving.export import _SAMPLE_INPUTS, MAGIC
 
 torch.set_num_threads(1)
 
@@ -70,12 +76,30 @@ def _rewrite(program: bytes, edit) -> bytes:
     return out.getvalue()
 
 
-@pytest.mark.parametrize("where", ["sample_inputs", "constant", "extra_member"])
+def _duplicate(program: bytes, suffix: str, evil: bytes, evil_first: bool) -> bytes:
+    """A copy of a torch.export archive whose member ending in `suffix`
+    appears twice: the payload and the harmless original, in this order."""
+    src = zipfile.ZipFile(io.BytesIO(program))
+    out = io.BytesIO()
+    with zipfile.ZipFile(out, "w", zipfile.ZIP_STORED) as dst, warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "Duplicate name"
+        for name in src.namelist():
+            data = src.read(name)
+            pair = (evil, data) if evil_first else (data, evil)
+            for d in pair if name.endswith(suffix) else (data,):
+                dst.writestr(name, d)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("where", ["sample_inputs", "constant", "extra_member",
+                                   "duplicate_evil_first", "duplicate_evil_last"])
 def test_malicious_program_is_refused_and_its_payload_never_runs(tmp_path, predictor, where):
     """A program whose archive carries a pickle with a __reduce__ payload
     (where torch.export.load would run it with the full unpickler: the
     sample inputs' fallback, a constant stored as a pickle, an object
-    member) raises ValueError, and the payload never runs."""
+    member, a second sample-inputs entry that torch's reader may pick
+    while Python's zipfile picks the other) raises ValueError, and the
+    payload never runs."""
     path = str(tmp_path / "serving.rmlx")
     export_predictor(predictor, path, max_targets=4)
     raw = open(path, "rb").read()
@@ -99,6 +123,8 @@ def test_malicious_program_is_refused_and_its_payload_never_runs(tmp_path, predi
         return None
 
     bad = _rewrite(blob, edit)
+    if where.startswith("duplicate"):
+        bad = _duplicate(blob, _SAMPLE_INPUTS, evil, where == "duplicate_evil_first")
     if where == "extra_member":
         buf = io.BytesIO(bad)
         with zipfile.ZipFile(buf, "a") as z:
@@ -173,6 +199,50 @@ def test_op_passes_opcheck_and_equals_its_plain_version(name):
         assert g.shape == f.shape and g.dtype == f.dtype and g.is_contiguous()
     for g, r in zip(lay_out(got), plain()):
         assert torch.equal(g, r)
+
+
+def _card_cases():
+    """Each kernel's CUDA implementation, called on operands one of which is
+    a permuted (non-contiguous) view of the plain case's: (name, call)."""
+    args = {name: case[0] for name, case in _op_cases().items()}
+    cube, q_xz, q_yz, q_xy, levels = args["combo_tables_i8"]
+    w = library._weights(cube, q_xz, q_yz, q_xy, levels)
+
+    def permuted(t):  # the same values, strides of another layout
+        return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+    kidx = args["sel_tables_i8"][-1]
+    ijk, valid = args["sel3_scores_i8"][-2:]
+    X, S, gamma = args["rbf_gram"]
+    bf, *tm = args["native_tables"]
+    tm = score.NativeTemplates(*tm)
+    return {
+        "combo_tables_i8": lambda c: i8_score.combo_tables_cuda(c, w),
+        "lookup_tables_i8": lambda c: i8_tails.split_tables_cuda("lookup", c, w),
+        "grouped_tables_i8": lambda c: i8_tails.split_tables_cuda("grouped", c, w),
+        "sel_tables_i8": lambda c: i8_tails.sel_tables_cuda(c, w, kidx),
+        "sel_tables_i8/kidx": lambda c: i8_tails.sel_tables_cuda(cube, w, permuted(kidx)),
+        "sel3_scores_i8": lambda c: i8_tails.sel3_scores_cuda(c, w, ijk, valid),
+        "sel3_scores_i8/ijk": lambda c: i8_tails.sel3_scores_cuda(cube, w, permuted(ijk),
+                                                                  valid),
+        "rbf_gram": lambda c: rbf.rbf_gram_cuda(permuted(X), S, gamma),
+        "native_tables": lambda c: score.native_tables_cuda(permuted(bf), tm),
+    }, cube, permuted
+
+
+@pytest.mark.parametrize("name", sorted(_card_cases()[0]))
+def test_cuda_implementation_refuses_what_its_kernel_cannot_read(name):
+    """An exported program calls an op's CUDA implementation with no
+    wrapper in front, so the implementation itself refuses an operand
+    whose layout the kernel would misread by pointer (ValueError, no
+    launch), and refuses a tensor that is not on the card."""
+    cases, cube, permuted = _card_cases()
+    call = cases[name]
+    with pytest.raises(ValueError, match="contiguous"):
+        call(permuted(cube))
+    if "/" not in name and name not in ("rbf_gram", "native_tables"):
+        with pytest.raises(ValueError, match="device cpu"):
+            call(cube)
 
 
 def test_full_coupling_loop_gives_the_early_stopped_bits(monkeypatch):

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict, SVC, serving, training, neural, artifact and capture paths on one CUDA card.
+"""Drive the PyTorch port's predict, SVC, serving, training, neural, artifact, capture and multi-device paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -164,7 +164,7 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              seconds an epoch in the app and warm, ms a step by CUDA events,
              one traced step's kernels, device ms and idle share, best val
              loss and accuracy, peak memory) and the sgan app on the same
-             data (128x128, n_batch 32, 150 supervised samples, 15 epochs:
+             data (128x128, n_batch 32, 150 supervised samples, 5 epochs:
              steps, seconds, ms a fused four-phase step by CUDA events and
              traced, both precise-BN recalibrations' ms, the c head's val
              accuracy, peak memory); each artifact served by the predict app
@@ -201,6 +201,42 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              a DatasetBrowser page to PNG where matplotlib imports (else
              one line says why not). Its record is printed as an
              {"export": ...} JSON line.
+15. mesh   — the multi-device layer (radarml_tpu_torch/parallel/), each
+             group's ranks in processes of their own (this script with
+             --mesh-rank GROUP DIR, started by parallel/spawn.run_ranks
+             with torchrun's environment and a deadline). One rank on a
+             group of its own (NCCL on cuda:0): make_dp_sgd_train_step
+             (512 x 10,010) and the fused combo predictor at B=4096 on
+             make_mesh(1) bit-equal to mesh=None. Two ranks sharing
+             cuda:0 (gloo; each collective staged through host memory):
+             RadarPredictor(mesh=...) at B=4096 x 4 slots on the demo
+             model, fused under all five tails and combo single, pallas
+             bf16, fast int8, exact, the SVC of phase 8 in exact mode and
+             a CNN (80x80, 512 scans): each rank's half bit-equal to one
+             device's call on it; fused bit-equal to the whole batch's
+             call, the others' decisions equal and probabilities within
+             1e-6 (the SVC's within MESH_SVC_ATOL, its decisions where the
+             margin exceeds it); each rank's kernel counters up by exactly
+             one call on its half; a step sharded (inputs on the card)
+             against one device's. The SGD grid's l2 group (4 alphas, 5
+             folds, 12 epochs) and the SVC reference grid (30 candidates)
+             on the train cell's features (1,881 x 10,010): split scores
+             equal (SVC within 1e-6), best parameters equal; each fold
+             walked alone bit-equal to the same fold in the 5-fold stack,
+             a 3-fold stack to its slice (the one-device controls run
+             beside the ranks). The dnn app with
+             --mesh 2 under python -m torch.distributed.run (3 epochs of
+             make_dataset(2280)) against --mesh 0 run twice, all under
+             cuDNN's deterministic algorithms (DNN_LAUNCHER): the first
+             epoch's loss within rtol 1e-4, later epochs within twice one
+             device's spread (its second run and its runs from weights one
+             ulp up and down), the ranks' parameter digests equal; a
+             control run whose ranks skip the gradient sums must leave
+             those bars. Two fused SGAN steps at 128x128 (n_batch 32)
+             against one device run twice and from weights one ulp up and
+             down, under the same bars (deterministic too), with the same
+             control. Any failed check fails the run. Its record is printed
+             as a {"mesh": ...} JSON line.
 
 Every phase's seconds are printed as it ends ([time] lines).
 
@@ -213,7 +249,9 @@ apart as launches_predict_app / launches_serve_app; B6's over phase 12's
 SVC train app, as launches_train_app beside the count the path implies,
 with its ms at the train path's two shapes (train_shapes); and every
 kernel's over phase 14's artifact calls, as launches_export (B1's also
-over the artifact serve loop, launches_export_serve). bound_ms is
+over the artifact serve loop, launches_export_serve); and each rank's
+over phase 15's sharded call, as launches_mesh ([rank 0, rank 1]; the
+int8 kernels on their tail's path, B7 on pallas, B6 on the SVC). bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
@@ -1851,6 +1889,582 @@ def plots(d, path) -> str:
     return "rendered"
 
 
+# -- phase 15: multi-device ---------------------------------------------------
+
+# Phase 15's cuts (PERF.md section 4): the serving calls at phase 6's batch,
+# the CNN's at 512 scans (2,048 views at 80x80); the SGD grid's epochs
+# capped at 12 (the walks run up to 300), the dnn app 3 epochs (of 100), the
+# SGAN 2 fused steps. The ranks read these from the run's mesh.json.
+MESH_CFG = {"scans": BIG, "neural_scans": 512, "grid_epochs": 12, "dnn_epochs": 3,
+            "sgan_steps": 2, "cell_samples": 1881, "device": "cuda"}
+MESH_RANK_TIMEOUT = 480
+MESH_FOLD_EPOCHS = 4  # the fold walks' check: a parted fold shows in the first epoch
+# The dnn app under cuDNN's deterministic algorithms, so that one device
+# repeats itself bit for bit; with MESH_DROP_GRAD_SUM=1 the control run
+# whose ranks skip the gradient sums (a wrong data-parallel step, which the
+# bars must reject). Written into phase 15's directory and run there.
+DNN_LAUNCHER = """import os, runpy, sys
+import torch
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+if os.environ.get("MESH_DROP_GRAD_SUM") == "1":
+    from radarml_tpu_torch.train import trainer
+    trainer.all_reduce_grads = lambda mesh, params: None
+sys.argv[0] = "dnn"
+runpy.run_module("radarml_tpu_torch.apps.dnn", run_name="__main__", alter_sys=True)
+"""
+# A sharded SVC call against the whole batch's: each rank's half takes
+# another cuBLAS algorithm for the pair product (2.05e-05 on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md section 6); its decisions are compared
+# where the top-2 margin exceeds it.
+MESH_SVC_ATOL = 1e-4
+MESH_SGD_GROUP = [{"alpha": [10.0e-04, 10.0e-05, 10.0e-06, 10.0e-07], "penalty": ["l2"],
+                   "average": [False]}]  # one penalty group of the reference grid
+MESH_TAILS = ("lookup", "glookup", "combo", "sel", "sel3")
+
+
+def mesh_serving_inputs(d, n_scans):
+    """The demo model's scans (phase 4's, tiled to n_scans) as uint8."""
+    g = dict(np.load(ASSET))
+    cubes, targets = make_scan_batch(N_SLICE, seed=int(g["scan_seed"]))
+    xyz, valid = pad_targets([[(t.x, t.y, t.z)] for t in targets], max_targets=4)
+    reps = -(-n_scans // N_SLICE)
+    return (np.tile(np.rint(cubes).astype(np.uint8), (reps, 1, 1, 1))[:n_scans],
+            np.tile(xyz, (reps, 1, 1))[:n_scans], np.tile(valid, (reps, 1))[:n_scans])
+
+
+def mesh_predictors(d, dev, mesh):
+    """Every mode's predictor of phase 15: name -> (predictor, scans)."""
+    from radarml_tpu_torch.models.cnn import init_cnn
+
+    g = dict(np.load(ASSET))
+    model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"],
+                              device=dev)
+    kw = dict(train_arena=DEFAULT_ARENA, scan_arena=DEFAULT_ARENA, model=model,
+              calibration=calib, min_proba=float(g["min_proba"]), device=dev, mesh=mesh)
+    B, Bn = MESH_CFG["scans"], MESH_CFG["neural_scans"]
+    preds = {f"fused_{t}": (RadarPredictor(mode="fused", fused_tail=t, **kw), B)
+             for t in MESH_TAILS}
+    preds["fused_combo_single"] = (RadarPredictor(mode="fused", fused_quant="single", **kw), B)
+    preds["pallas"] = (RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw), B)
+    preds["fast_int8"] = (RadarPredictor(mode="fast", cube_dtype="int8", **kw), B)
+    preds["exact"] = (RadarPredictor(mode="exact", **kw), B)
+    s = dict(np.load(os.path.join(d, "svc.npz")))
+    svc_model = svc.SVCModel(
+        support_vectors=torch.as_tensor(s["sv"], device=dev),
+        dual_coef=torch.as_tensor(s["dual_coef"], device=dev),
+        intercept=torch.as_tensor(s["intercept"], device=dev),
+        n_support=tuple(int(v) for v in s["n_support"]), kernel="rbf",
+        gamma=float(s["gamma"]), probA=torch.as_tensor(s["probA"], device=dev),
+        probB=torch.as_tensor(s["probB"], device=dev))
+    preds["svc_exact"] = (RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, svc_model,
+                                         min_proba=float(s["min_proba"]), mode="exact",
+                                         device=dev, mesh=mesh), B)
+    cnn = common_cli.neural_classifier(init_cnn(3, (80, 80), seed=1234, device=dev),
+                                       (80, 80), dev)
+    preds["cnn"] = (RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, cnn, min_proba=0.4,
+                                   mode="exact", device=dev, mesh=mesh), Bn)
+    return preds
+
+
+def step_ms(fn, reps: int = 5) -> float:
+    """Median host ms of fn() to completion (synchronized), after a warm-up."""
+    fn()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+class cudnn_deterministic:
+    """Within the block cuDNN takes deterministic algorithms (benchmark
+    off), so that one device repeats itself bit for bit."""
+
+    def __enter__(self):
+        b = torch.backends.cudnn
+        self.saved = b.deterministic, b.benchmark
+        b.deterministic, b.benchmark = True, False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.saved
+
+
+def mesh_sgan_run(dev, mesh, nudge: int = 0):
+    """MESH_CFG["sgan_steps"] fused steps at 128x128 (n_batch 32) from
+    seeded weights (each moved one float32 ulp up or down with `nudge`
+    +1 / -1), views and draws: the losses of each step and a digest of
+    every parameter and statistic after them."""
+    import hashlib
+
+    from radarml_tpu_torch.train import sgan_trainer as st
+    from radarml_tpu_torch.train.trainer import seeded_generator
+
+    cfg = st.SGANConfig(n_classes=3)
+    gen, disc, state = st.sgan_init(cfg, (128, 128), device=dev)
+    if nudge:
+        with torch.no_grad():
+            for p in (*gen.parameters(), *disc.parameters()):
+                p.copy_(torch.nextafter(p, torch.full_like(p, nudge * float("inf"))))
+    step = st.make_sgan_step(gen, disc, cfg, mesh=mesh)
+    rng = torch.Generator(device=dev).manual_seed(5)
+    losses, times = [], []
+    for i in range(MESH_CFG["sgan_steps"]):
+        sv = torch.rand((16, 128, 128, 3), generator=rng, device=dev) * 2 - 1
+        sl = torch.randint(0, 3, (16,), generator=rng, device=dev)
+        rv = torch.rand((16, 128, 128, 3), generator=rng, device=dev) * 2 - 1
+        draws = st.draw_step(cfg, 16, disc, seeded_generator(dev, cfg.seed, i))
+        t0 = time.perf_counter()
+        state, out = step(state, sv, sl, rv, draws)
+        losses.append({k: float(v) for k, v in out.items()})
+        times.append((time.perf_counter() - t0) * 1e3)
+    h = hashlib.sha256()
+    for net in (gen, disc):
+        for t in net.state_dict().values():
+            h.update(t.detach().cpu().numpy().tobytes())
+    return {"losses": losses, "digest": h.hexdigest(), "ms": times}
+
+
+def mesh_grids(d, dev, mesh):
+    """The SGD grid's l2 group and the SVC reference grid on the train
+    cell's features, sharded over `mesh` (or not): split scores, best
+    parameters, seconds."""
+    from radarml_tpu_torch.train.gridsearch import SVC_PARAM_GRID, grid_search_sgd, \
+        grid_search_svc
+
+    t = dict(np.load(os.path.join(d, "train_cell.npz")))
+    X = torch.as_tensor(t["X"], device=dev)
+    out = {}
+    for name, run in (
+            ("sgd", lambda: grid_search_sgd(X, t["y"], folds=5, grid=MESH_SGD_GROUP,
+                                            epochs=MESH_CFG["grid_epochs"], mesh=mesh)),
+            ("svc", lambda: grid_search_svc(X, t["y"], folds=5, grid=SVC_PARAM_GRID,
+                                            probability=False, mesh=mesh))):
+        t0 = time.perf_counter()
+        res = run()
+        out[name] = {"scores": [r["split_scores"] for r in res.cv_results],
+                     "best": {k: str(v) for k, v in res.best_params.items()},
+                     "s": time.perf_counter() - t0}
+    return out
+
+
+def mesh_fold_walks(X, y, dev) -> bool:
+    """Whether each fold walked alone equals the same fold in the 5-fold
+    stack, and a 3-fold stack its slice of it (the stacks of one rank and
+    of two), bit for bit."""
+    from radarml_tpu_torch.train.gridsearch import stratified_kfold_indices
+
+    splits = stratified_kfold_indices(y, 5)
+    n_tr = min(len(tr) for tr, _ in splits)
+    Xs = torch.stack([X[torch.as_tensor(tr[:n_tr], device=dev)] for tr, _ in splits])
+    ys = np.stack([y[tr[:n_tr]] for tr, _ in splits])
+    kw = dict(n_classes=3, penalty="l2", average=False, alphas=[1e-3, 1e-4],
+              l1_ratios=[0.0, 0.0], epochs=MESH_FOLD_EPOCHS, tol=1e-3)
+    five = linear.sgd_fit_many_folds(Xs, ys, **kw)
+    three = linear.sgd_fit_many_folds(Xs[2:5], ys[2:5], **kw)
+    same = all(torch.equal(a[2:5], c) for a, c in zip(five, three))
+    for f in range(5):
+        alone = linear.sgd_fit_many_folds(Xs[f:f + 1], ys[f:f + 1], **kw)
+        same &= all(torch.equal(a[f], b[0]) for a, b in zip(five, alone))
+    return same
+
+
+def dnn_nudged_histories(ds, dev) -> list:
+    """The dnn app's flow on one device (its preprocessing, weights and
+    schedule) from weights one float32 ulp up and down: two histories."""
+    from radarml_tpu_torch.data.preprocess import preprocess_multiview
+    from radarml_tpu_torch.models.cnn import RESCALE, init_cnn
+    from radarml_tpu_torch.train.trainer import TrainConfig, train_cnn
+
+    data = load_datasets([ds])
+    samples, labels = filter_samples(data["samples"], data["labels"],
+                                     ["person", "dog", "cat", "pet"])
+    pre = preprocess_multiview(samples, labels, rescale=RESCALE, train_split=0.8,
+                               device=dev)
+    out = []
+    for nudge in (1, -1):
+        model = init_cnn(pre["n_classes"], RESCALE, seed=1234, device=dev)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, nudge * float("inf"))))
+        _, hist = train_cnn(model, pre["X_train"], pre["y_train"], pre["X_val"], pre["y_val"],
+                            w_classes=pre["w_classes"],
+                            config=TrainConfig(epochs=MESH_CFG["dnn_epochs"]))
+        out.append(hist)
+    return out
+
+
+def mesh_rank(argv) -> None:
+    """One rank of a phase-15 group: python3 chip_smoke.py --mesh-rank GROUP DIR."""
+    from radarml_tpu_torch.parallel import mesh as pmesh
+    from radarml_tpu_torch.parallel.train_step import make_dp_sgd_train_step
+
+    group, d = argv
+    MESH_CFG.update(json.load(open(os.path.join(d, "mesh.json"))))
+    logging.getLogger("radarml_tpu_torch").setLevel(logging.WARNING)
+    on_cpu = MESH_CFG["device"] == "cpu"
+    if group == "one":  # a one-rank group on an explicit address
+        port = os.environ["MASTER_PORT"]
+        pmesh.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu" if on_cpu else None)
+    else:  # torchrun's environment
+        pmesh.init_distributed(device="cpu" if on_cpu else None)
+    mesh = pmesh.make_mesh()
+    dev = mesh.device
+    rep = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev),
+           "group": group, "world": mesh.size}
+    t_start = time.perf_counter()
+    if group == "one":
+        rng = torch.Generator(device=dev).manual_seed(3)
+        X = torch.rand((512, DEFAULT_ARENA.feature_length), generator=rng, device=dev)
+        y = torch.randint(0, 3, (512,), generator=rng, device=dev)
+        runs = []
+        for m in (None, mesh):
+            params = {"coef": torch.zeros((3, X.shape[1]), device=dev),
+                      "intercept": torch.zeros(3, device=dev)}
+            step = make_dp_sgd_train_step(m, 3, lr=0.5, weight_decay=1e-4)
+            for _ in range(3):
+                params, loss = step(params, X, y)
+            runs.append((params, loss))
+        (a, la), (b, lb) = runs
+        rep["dp_step_equal"] = bool(torch.equal(a["coef"], b["coef"])
+                                    and torch.equal(a["intercept"], b["intercept"])
+                                    and torch.equal(la, lb))
+        cubes, xyz, valid = mesh_serving_inputs(d, MESH_CFG["scans"])
+        g = dict(np.load(ASSET))
+        model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"],
+                                  device=dev)
+        kw = dict(train_arena=DEFAULT_ARENA, scan_arena=DEFAULT_ARENA, model=model,
+                  calibration=calib, min_proba=float(g["min_proba"]), device=dev)
+        outs = [RadarPredictor(mode="fused", mesh=m, **kw)(cubes, xyz, valid)
+                for m in (None, mesh)]
+        rep["fused_equal"] = all(torch.equal(p, q) for p, q in zip(*outs))
+    else:
+        res, counts, ms, parts = {}, {}, {}, {}
+        t0 = time.perf_counter()
+        cubes, xyz, valid = mesh_serving_inputs(d, MESH_CFG["scans"])
+        resident = [torch.as_tensor(a).to(dev) for a in (cubes, xyz, valid)]
+        for name, (pred, B) in mesh_predictors(d, dev, mesh).items():
+            before = launch_counts()
+            out = pred(cubes[:B], xyz[:B], valid[:B])
+            counts[name] = rise(before)
+            res.update({f"{name}.{k}": o.cpu().numpy()
+                        for k, o in zip(("pred", "best", "proba"), out)})
+            if name in ("fused_combo", "pallas", "exact"):  # inputs on the card
+                ms[name] = step_ms(lambda: pred(*(t[:B] for t in resident)))
+        np.savez(os.path.join(d, f"serve_r{mesh.rank}.npz"), **res)
+        parts["serving"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["grids"] = mesh_grids(d, dev, mesh)
+        parts["grids"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from radarml_tpu_torch.train import sgan_trainer
+
+        with cudnn_deterministic():
+            rep["sgan"] = mesh_sgan_run(dev, mesh)
+            # the control: the same steps with the gradient sums skipped
+            reduce_grads = sgan_trainer.all_reduce_grads
+            sgan_trainer.all_reduce_grads = lambda mesh, params: None
+            try:
+                rep["sgan_nosum"] = mesh_sgan_run(dev, mesh)
+            finally:
+                sgan_trainer.all_reduce_grads = reduce_grads
+        parts["sgan"] = time.perf_counter() - t0
+        rep.update(counts=counts, ms=ms, s_parts=parts)
+    rep["s"] = time.perf_counter() - t_start
+    print(json.dumps(rep), flush=True)
+
+
+def mesh_group(d, group: str, n: int) -> list:
+    """Run `n` ranks of `group` (this script with --mesh-rank) and return
+    their reports."""
+    from radarml_tpu_torch.parallel.spawn import run_ranks
+
+    outs = run_ranks([sys.executable, os.path.abspath(__file__), "--mesh-rank", group, d],
+                     n, MESH_RANK_TIMEOUT, cwd=HERE)
+    return [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+
+def phase_mesh(dev, smi, svc_model) -> dict:
+    with tempfile.TemporaryDirectory(dir=HERE, prefix="_mesh") as d:
+        return mesh_in(d, dev, smi, svc_model)
+
+
+def mesh_data(d, dev, svc_model):
+    """Phase 15's inputs in `d`: the SVC (svc.npz), the train cell's
+    features (train_cell.npz: make_dataset(2280, hardness 1.0) scaled as
+    the train app scales it, its first 1,881 samples, the size of the
+    app's balanced training split, all 10,010 features) and the same
+    samples as the dnn app's dataset. Returns (dataset path, X, y)."""
+    gs = dict(np.load(SVC_ASSET))
+    np.savez(os.path.join(d, "svc.npz"), sv=svc_model.support_vectors.cpu().numpy(),
+             dual_coef=svc_model.dual_coef.cpu().numpy(),
+             intercept=svc_model.intercept.cpu().numpy(),
+             n_support=np.asarray(svc_model.n_support), gamma=svc_model.gamma,
+             probA=svc_model.probA.cpu().numpy(), probB=svc_model.probB.cpu().numpy(),
+             min_proba=float(gs["min_proba"]))
+    samples, labels = make_dataset(N_TRAIN, seed=1234, hardness=TRAIN_HARDNESS)
+    ds = os.path.join(d, "dnn.pickle")
+    save_dataset(ds, samples, labels, append=False)
+    n_cell = MESH_CFG["cell_samples"]
+    scaled = [tuple(np.asarray(p) / RADAR_MAX for p in s) for s in samples[:n_cell]]
+    _, y = LabelEncoder.fit_transform(labels[:n_cell])
+    X = process_samples(scaled, device=dev)
+    np.savez(os.path.join(d, "train_cell.npz"), X=X.cpu().numpy(), y=np.asarray(y))
+    return ds, X, np.asarray(y)
+
+
+def mesh_in(d, dev, smi, svc_model) -> dict:
+    import pickle
+
+    from radarml_tpu_torch.parallel.spawn import free_port
+
+    logging.getLogger("radarml_tpu_torch").setLevel(logging.WARNING)
+    t_phase = t0 = time.perf_counter()
+    json.dump(MESH_CFG, open(os.path.join(d, "mesh.json"), "w"))
+    n_cell = MESH_CFG["cell_samples"]
+    # a. one rank on its own group (NCCL on the card), while the data is made
+    with ThreadPoolExecutor(1) as pool:
+        one_future = pool.submit(mesh_group, d, "one", 1)
+        ds, X_cell, y_cell = mesh_data(d, dev, svc_model)
+        res = {"cuts": dict(MESH_CFG), "s_data": time.perf_counter() - t0}
+        one = one_future.result()[0]
+    res["one"] = dict(one, s_group=time.perf_counter() - t0)
+    say("mesh", f"on {smi}: one rank, backend {one['backend']} on {one['device']}: "
+        f"make_dp_sgd_train_step (512 x {DEFAULT_ARENA.feature_length}, 3 steps) and the fused "
+        f"combo predictor (B={MESH_CFG['scans']}) on make_mesh(1) against mesh=None: "
+        f"{one['dp_step_equal']} / {one['fused_equal']} bit-equal; {one['s']:.1f} s in the "
+        f"rank; {res['one']['s_group']:.1f} s for it and the data (made in "
+        f"{res['s_data']:.1f} s)")
+    check(one["dp_step_equal"], "the dp step on a one-rank mesh differs from no mesh")
+    check(one["fused_equal"], "the fused predictor on a one-rank mesh differs from no mesh")
+
+    # b. two ranks sharing the card: serving, both grids, the SGAN steps;
+    # meanwhile this process runs the one-device controls: the grids, the
+    # fold walks, the dnn flow from weights one ulp up and down and the
+    # SGAN steps (so the seconds of either side are no speed)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        two_future = pool.submit(mesh_group, d, "two", 2)
+        grids = mesh_grids(d, dev, None)
+        fold_equal = mesh_fold_walks(X_cell, y_cell, dev)
+        with cudnn_deterministic():
+            nudged_dnn = dnn_nudged_histories(ds, dev)
+            sg = [mesh_sgan_run(dev, None) for _ in range(2)]
+            nudged = [mesh_sgan_run(dev, None, nudge=n) for n in (1, -1)]
+        two = two_future.result()
+    two_s = time.perf_counter() - t0
+    r0, r1 = (dict(np.load(os.path.join(d, f"serve_r{r}.npz"))) for r in range(2))
+    for k in r0:
+        check(np.array_equal(r0[k], r1[k]), f"ranks returned different {k}")
+    cubes, xyz, valid = mesh_serving_inputs(d, MESH_CFG["scans"])
+    resident = [torch.as_tensor(a).to(dev) for a in (cubes, xyz, valid)]
+    serve = {}
+    for name, (pred, B) in mesh_predictors(d, dev, None).items():
+        want = [o.cpu().numpy() for o in pred(cubes[:B], xyz[:B], valid[:B])]
+        half, parts = B // 2, []
+        for lo in (0, B // 2):  # each rank's shard, alone on one device
+            before = launch_counts()
+            parts.append([o.cpu().numpy() for o in pred(cubes[lo:lo + half],
+                                                         xyz[lo:lo + half],
+                                                         valid[lo:lo + half])])
+            expect = {k: v for k, v in rise(before).items() if v}
+        got = [r0[f"{name}.{k}"] for k in ("pred", "best", "proba")]
+        check(all(np.array_equal(g_, np.concatenate(p_)) for g_, p_ in zip(got, zip(*parts))),
+              f"sharded {name} differs from the single-device calls on its shards")
+        err = float(np.abs(got[2] - want[2]).max())
+        if name.startswith("fused"):
+            check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                  f"sharded {name} not bit-equal to the whole batch's call")
+        else:  # against the whole batch's call
+            tol, ok = 1e-6, np.ones(want[0].shape, bool)
+            if name == "svc_exact":  # its pair product's cuBLAS algorithm moves with B
+                tol = MESH_SVC_ATOL
+                minp = float(np.load(os.path.join(d, "svc.npz"))["min_proba"])
+                ok = margin_ok(want[2], want[1], minp, tol)
+            check(np.array_equal(got[0][ok], want[0][ok]), f"sharded {name} decisions differ")
+            check(err <= tol, f"sharded {name} proba {err} > {tol}")
+        for rep in two:
+            moved = {k: v for k, v in rep["counts"][name].items() if v}
+            check(moved == expect, f"rank {rep['rank']} {name} launches {moved} != {expect}")
+        serve[name] = {"max_abs_err": err, "launches_per_rank": expect}
+        if name in two[0]["ms"]:
+            serve[name]["ms_sharded"] = [rep["ms"][name] for rep in two]
+            serve[name]["ms_single"] = step_ms(lambda: pred(*(t[:B] for t in resident)))
+    res["serve"] = serve
+    res["two"] = [{k: rep[k] for k in ("rank", "backend", "device", "s", "s_parts", "ms")}
+                  for rep in two]
+    say("mesh", f"on {smi}: two ranks sharing {two[0]['device']}, backend {two[0]['backend']} "
+        f"(ranks on {two[0]['device']} / {two[1]['device']}; {two_s:.1f} s with their start "
+        "and this process's one-device controls beside them; in rank 0: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in two[0]["s_parts"].items())
+        + f"): sharded serving B={MESH_CFG['scans']} x 4 slots, each rank's half bit-equal to "
+        "one device on it; fused x5 tails + combo single bit-equal to the whole batch's call, "
+        f"pallas bf16 / fast int8 / exact / SVC exact / CNN (B={MESH_CFG['neural_scans']}) "
+        "decisions equal, proba within " + ", ".join(
+            f"{k} {v['max_abs_err']:.1e}" for k, v in serve.items() if not k.startswith("fused"))
+        + "; each rank's kernel launches == one call on its shard; a step, sharded (rank 0 / 1,"
+        " beside the controls) against one device (alone): " + ", ".join(
+            f"{k} {v['ms_sharded'][0]:.2f} / {v['ms_sharded'][1]:.2f} vs {v['ms_single']:.2f} ms"
+            for k, v in serve.items() if "ms_sharded" in v))
+
+    for name, g1 in grids.items():
+        g2 = two[0]["grids"][name]
+        g1["s_sharded"] = g2["s"]
+        g1["max_abs_err"] = float(np.abs(np.asarray(g2["scores"])
+                                         - np.asarray(g1["scores"])).max())
+    res["grids"] = grids
+    say("mesh", f"on {smi}: SGD grid (l2 group, 4 alphas, 5 folds, {MESH_CFG['grid_epochs']} "
+        f"epochs, {n_cell} x {DEFAULT_ARENA.feature_length}) split scores max delta "
+        f"{grids['sgd']['max_abs_err']}, sharded {grids['sgd']['s_sharded']:.1f} s; SVC grid "
+        f"(30 candidates, 5 folds) best {grids['svc']['best']} / "
+        f"{two[0]['grids']['svc']['best']}, scores within {grids['svc']['max_abs_err']:.1e}, "
+        f"sharded {grids['svc']['s_sharded']:.1f} s; each fold walked alone == the same fold in "
+        f"the 5-fold stack, a 3-fold stack == its slice ({MESH_FOLD_EPOCHS} epochs): "
+        f"{fold_equal}")
+    for name, g1 in grids.items():
+        g2 = two[0]["grids"][name]
+        check(two[1]["grids"][name]["scores"] == g2["scores"], f"{name} grid ranks differ")
+        check(g2["best"] == g1["best"], f"sharded {name} grid best {g2['best']} != {g1['best']}")
+        if name == "sgd":
+            check(g2["scores"] == g1["scores"], "sharded SGD grid split scores differ")
+        else:
+            check(g1["max_abs_err"] <= 1e-6, f"sharded SVC grid scores {g1['max_abs_err']} > 1e-6")
+    check(fold_equal, "a fold walked alone differs from the same fold in a stack")
+
+    # c. the dnn app under torchrun against --mesh 0 run twice, all under
+    # cuDNN's deterministic algorithms, with the control run whose ranks
+    # skip the gradient sums; the four runs share the card at once
+    t0 = time.perf_counter()
+    launcher = os.path.join(d, "dnn_launcher.py")
+    with open(launcher, "w") as f:
+        f.write(DNN_LAUNCHER)
+    common = ["--datasets", ds, "--epochs", str(MESH_CFG["dnn_epochs"])]
+    if MESH_CFG["device"] == "cpu":
+        common += ["--platform", "cpu"]
+
+    def torchrun():
+        return ["-m", "torch.distributed.run", "--nproc-per-node", "2", "--master-addr",
+                "127.0.0.1", "--master-port", str(free_port()), launcher, "--mesh", "2"]
+
+    runs = {"dnn2": torchrun(), "dnn2_nosum": torchrun(), "dnn0_0": [launcher],
+            "dnn0_1": [launcher]}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")]))
+    procs, logs = {}, {}
+    try:
+        for k, v in runs.items():
+            with open(os.path.join(d, f"{k}.out"), "w") as out:
+                procs[k] = subprocess.Popen(
+                    [sys.executable, *v, "--results_dir", os.path.join(d, k)] + common,
+                    cwd=d, env=dict(env, MESH_DROP_GRAD_SUM=str(int(k == "dnn2_nosum"))),
+                    stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        for k, p in procs.items():
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+            logs[k] = open(os.path.join(d, f"{k}.out")).read()
+            check(p.returncode == 0, f"{k} failed:\n{logs[k][-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    hists = {}
+    for k in runs:
+        with open(os.path.join(d, k, "c_model.pickle"), "rb") as f:
+            hists[k] = pickle.load(f)["history"]
+    hist2, h1, h2 = hists["dnn2"], hists["dnn0_0"], hists["dnn0_1"]
+
+    def digests(k):
+        return [ln.rsplit(" ", 1)[1] for ln in logs[k].splitlines()
+                if "parameters sha256" in ln]
+
+    def dnn_misses(h) -> list:
+        """The (key, epoch, value, bar) where `h` leaves the bars: the first
+        epoch's loss within rtol 1e-4 of one device's, the rest within twice
+        one device's spread (its second run, its runs from weights one ulp
+        up and down)."""
+        out = []
+        for key in ("loss", "val_loss"):
+            for e, (a, b) in enumerate(zip(h[key], h1[key])):
+                spread = max(abs(o[key][e] - b) for o in (h2, *nudged_dnn))
+                bar = 1e-4 * abs(b) if key == "loss" and e == 0 else 2 * spread
+                if abs(a - b) > bar:
+                    out.append((key, e + 1, a, b, bar))
+        return out
+
+    misses, control = dnn_misses(hist2), dnn_misses(hists["dnn2_nosum"])
+    res["dnn"] = {"loss_mesh": hist2["loss"], "loss_single": [h1["loss"], h2["loss"]],
+                  "val_loss_mesh": hist2["val_loss"],
+                  "val_loss_single": [h1["val_loss"], h2["val_loss"]],
+                  "nudged": nudged_dnn, "nosum": hists["dnn2_nosum"],
+                  "nosum_misses": control}
+
+    def fmt(h, key):
+        return ", ".join(f"{v:.7f}" for v in h[key])
+
+    say("mesh", f"on {smi}: dnn --mesh 2 under torchrun ({MESH_CFG['dnn_epochs']} epochs, "
+        f"make_dataset({N_TRAIN}), cuDNN deterministic): loss {fmt(hist2, 'loss')} vs --mesh 0 "
+        f"{fmt(h1, 'loss')} / {fmt(h2, 'loss')}, one device from weights one ulp up / down "
+        + " / ".join(fmt(h, "loss") for h in nudged_dnn) + f"; val loss "
+        f"{fmt(hist2, 'val_loss')} vs {fmt(h1, 'val_loss')} / {fmt(h2, 'val_loss')} / "
+        + " / ".join(fmt(h, "val_loss") for h in nudged_dnn) + "; the ranks' parameter digests "
+        f"{'equal' if len(set(digests('dnn2'))) == 1 and len(digests('dnn2')) == 2 else digests('dnn2')}"
+        f"; the control without gradient sums: loss {fmt(hists['dnn2_nosum'], 'loss')}, val "
+        f"loss {fmt(hists['dnn2_nosum'], 'val_loss')}, outside the bars at "
+        + (", ".join(f"{k} epoch {e} ({a:.7f} vs {b:.7f}, bar {bar:.1e})"
+                     for k, e, a, b, bar in control) or "none")
+        + f"; {time.perf_counter() - t0:.1f} s for this part")
+    dg = digests("dnn2")
+    check(len(dg) == 2 and dg[0] == dg[1], f"the ranks' parameters differ: {dg}")
+    check(not misses, "dnn --mesh 2 outside the bars (key, epoch, value, one device's, bar): "
+          f"{misses}")
+    check(bool(control), "the bars pass a dnn run without gradient sums")
+
+    # d. the SGAN steps: the ranks' against one device run twice and from
+    # weights one ulp up and down (all under cuDNN's deterministic
+    # algorithms), and the ranks' control without gradient sums
+    def sgan_misses(run) -> list:
+        out = []
+        for s, (a, b) in enumerate(zip(run["losses"], sg[0]["losses"])):
+            for k in a:
+                spread = max(abs(o["losses"][s][k] - b[k]) for o in (sg[1], *nudged))
+                bar = 1e-4 * abs(b[k]) if s == 0 else max(2 * spread, 1e-4 * abs(b[k]))
+                if abs(a[k] - b[k]) > bar:
+                    out.append((k, s + 1, a[k], b[k], bar))
+        return out
+
+    sharded, nosum = two[0]["sgan"], two[0]["sgan_nosum"]
+    misses, control = sgan_misses(sharded), sgan_misses(nosum)
+    res["sgan"] = {"sharded": sharded, "single": sg, "nudged": nudged, "nosum": nosum,
+                   "nosum_misses": control}
+    say("mesh", f"on {smi}: SGAN 128x128, {MESH_CFG['sgan_steps']} fused steps (n_batch 32, "
+        "cuDNN deterministic): losses sharded / one device / one device again / one ulp up / "
+        "down / the control without gradient sums: " + "; ".join(
+            f"step {s + 1} " + ", ".join(
+                f"{k} " + " / ".join(f"{r['losses'][s][k]:.6f}"
+                                     for r in (sharded, *sg, *nudged, nosum))
+                for k in ("c_loss", "d_real", "d_fake", "gan"))
+            for s in range(MESH_CFG["sgan_steps"]))
+        + "; the control outside the bars at " + (", ".join(
+            f"{k} step {s} ({a:.6f} vs {b:.6f}, bar {bar:.1e})" for k, s, a, b, bar in control)
+            or "none")
+        + "; step ms sharded " + ", ".join(f"{v:.1f}" for v in sharded["ms"])
+        + " vs one device " + ", ".join(f"{v:.1f}" for v in sg[0]["ms"]))
+    check(sharded["digest"] == two[1]["sgan"]["digest"], "the ranks' SGAN states differ")
+    check(not misses, "sharded SGAN outside the bars (key, step, value, one device's, bar): "
+          f"{misses}")
+    check(bool(control), "the bars pass SGAN steps without gradient sums")
+    res["launches_mesh"] = {
+        k: [rep["counts"][name][k] for rep in two]
+        for name, k in [(f"fused_{t}", FUSED_KERNEL[t]) for t in MESH_TAILS]
+        + [("pallas", "fused_native_score"), ("svc_exact", "rbf_gram")]}
+    res["s"] = time.perf_counter() - t_phase
+    say("mesh", f"phase 15 in {res['s']:.1f} s")
+    return res
+
+
 def main() -> None:
     marks = [time.perf_counter()]
 
@@ -2539,6 +3153,11 @@ def main() -> None:
     print(json.dumps({"export": export}), flush=True)
     lap("phase 14 (export)")
 
+    # -- 15. multi-device: ranks in processes of their own -------------------
+    mesh = phase_mesh(dev, smi, jax_svc)
+    print(json.dumps({"mesh": mesh}), flush=True)
+    lap("phase 15 (mesh)")
+
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
         return {
@@ -2550,6 +3169,7 @@ def main() -> None:
             "ms_b64": small["kernel"], "plain_ms_b64": small["plain"],
             "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
             "launches_export": export["launches_export"][name],
+            "launches_mesh": mesh["launches_mesh"][name],
         }
 
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
@@ -2576,6 +3196,7 @@ def main() -> None:
         "fast_f32_ms_b64": small["fast_f32"],
         "scans_per_s": {k: rates[k] for k in ("pallas", "pallas_f32", "fast")},
         "launches_export": export["launches_export"]["fused_native_score"],
+        "launches_mesh": mesh["launches_mesh"]["fused_native_score"],
     })
     rbf_b, rbf_by = rbf_bound(queries, S)
     records.append({
@@ -2609,6 +3230,7 @@ def main() -> None:
         "svc_scans_per_s": svc_rate,
         "svc_fit_s": fit_warm_s,
         "launches_export": export["launches_export"]["rbf_gram"],
+        "launches_mesh": mesh["launches_mesh"]["rbf_gram"],
     })
     say("profiler", f"{TRACES['taken']} traces taken for device times, {TRACES['lacking']} "
         f"of them without a kernel's records (each taken again)")
@@ -2620,4 +3242,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2:])
+    else:
+        main()

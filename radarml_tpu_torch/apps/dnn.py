@@ -11,15 +11,19 @@ layout, so either package serves it), the architecture summary to
 c_model_summary.txt and the log to train.log. The PNG summary is drawn
 where matplotlib imports.
 
-`--synthetic N` generates data when no dataset is given. `--mesh`
-(data-parallel training) is not ported yet.
+`--synthetic N` generates data when no dataset is given. `--mesh N`
+trains data parallel over N ranks, one process each, launched by
+torchrun; only rank 0 writes the model, the summaries and train.log:
 
     python -m radarml_tpu_torch.apps.dnn --datasets ds.pickle
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m radarml_tpu_torch.apps.dnn --mesh 2 --datasets ds.pickle
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import logging
 import os
 import time
@@ -53,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard training over an N-device mesh (not ported yet)")
+                   help="train data parallel over an N-rank mesh; N > 1 runs "
+                        "under python -m torch.distributed.run --nproc-per-node N")
     p.add_argument("--checkpoint_dir", type=str, default="",
                    help="write checkpoints every --checkpoint_every epochs "
                         "during training (the reference's ModelCheckpoint "
@@ -67,15 +72,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_of(args):
+    """The --mesh N mesh: None for 0, a one-rank mesh for 1, else the
+    torchrun group of N ranks (ValueError, saying how to launch, without
+    one)."""
+    if not args.mesh:
+        return None
+    from radarml_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    device = args.platform or None
+    if args.mesh == 1:
+        return make_mesh(1, device=device_of(args))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != args.mesh:
+        raise ValueError(
+            f"--mesh {args.mesh} needs a group of {args.mesh} ranks (found "
+            f"{world}): launch with python -m torch.distributed.run "
+            f"--nproc-per-node {args.mesh} -m radarml_tpu_torch.apps.dnn --mesh "
+            f"{args.mesh} ...")
+    init_distributed(device=device)
+    return make_mesh(args.mesh)
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (sharded CNN training) is not ported yet "
-                                  "(ROADMAP A15)")
-    os.makedirs(args.results_dir, exist_ok=True)
-    setup_logging(os.path.join(args.results_dir, "train.log"), args.logging_level)
-    device = device_of(args)
+    mesh = _mesh_of(args)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(args.results_dir, exist_ok=True)
+    setup_logging(os.path.join(args.results_dir, "train.log") if writer else None,
+                  args.logging_level)
+    device = device_of(args) if mesh is None else mesh.device
     warm_transfers(device)
+    if mesh is not None:
+        logger.info("mesh %s over %s, rank %d on %s", mesh.shape, mesh.backend,
+                    mesh.rank, device)
 
     if not args.datasets and args.synthetic:
         from radarml_tpu_torch.data.synthetic import make_dataset
@@ -102,26 +133,31 @@ def main(argv=None) -> dict:
     # Architecture summary next to the checkpoint (the reference dumps
     # plot_model PNGs here, dnn.py:426-427).
     title = f"MultiViewCNN n_classes={n_classes} rescale={RESCALE}"
-    tree = cnn_params_to_numpy(model)
-    write_model_summary(os.path.join(args.results_dir, "c_model_summary.txt"), tree,
-                        title=title)
-    plot_model_pngs([(os.path.join(args.results_dir, "dnn_model.png"), tree, title)])
+    if writer:
+        tree = cnn_params_to_numpy(model)
+        write_model_summary(os.path.join(args.results_dir, "c_model_summary.txt"), tree,
+                            title=title)
+        plot_model_pngs([(os.path.join(args.results_dir, "dnn_model.png"), tree, title)])
 
     cfg = TrainConfig(batch_size=args.batch_size, epochs=args.epochs)
     t0 = time.perf_counter()
     best, history = train_cnn(
         model, pre["X_train"], pre["y_train"], pre["X_val"], pre["y_val"],
-        w_classes=pre["w_classes"], config=cfg,
+        w_classes=pre["w_classes"], config=cfg, mesh=mesh,
         checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
     )
     seconds = time.perf_counter() - t0
+    if mesh is not None:  # the replicas must hold the same parameters
+        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in best.values()))
+        logger.info("rank %d parameters sha256 %s", mesh.rank, digest.hexdigest())
 
     out_path = os.path.join(args.results_dir, "c_model.pickle")
     classes = list(pre["label_encoder"].classes_)
-    save_model(out_path, "cnn", params=cnn_params_to_numpy(best), classes=classes,
-               rescale=RESCALE, history=history)
-    logger.info("Saved classifier to %s", out_path)
+    if writer:
+        save_model(out_path, "cnn", params=cnn_params_to_numpy(best), classes=classes,
+                   rescale=RESCALE, history=history)
+        logger.info("Saved classifier to %s", out_path)
     return {"history": history, "model_path": out_path, "model": model,
             "classes": classes, "train_seconds": seconds}
 

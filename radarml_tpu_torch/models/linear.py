@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from radarml_tpu_torch.core.device import resolve_device
+from radarml_tpu_torch.parallel.mesh import check_mesh
 
 __all__ = [
     "LinearModel",
@@ -306,6 +307,11 @@ def _l1_ratio(penalty: str, l1_ratio: float) -> float:
     return 1.0 if penalty == "l1" else 0.0
 
 
+#: The walk's product runs over blocks of this many folds (the reference's
+#: five CV folds make one block): one shape whatever the fold count.
+_FOLD_BLOCK = 5
+
+
 def _zeros_state(lead: Tuple[int, ...], n_ova: int, n_features: int, t,
                  device) -> SGDState:
     z = torch.zeros(lead + (n_ova, n_features), dtype=torch.float32, device=device)
@@ -354,10 +360,11 @@ WALK_LOG: List[dict] = []
 class _Walk:
     """One epoch of per-sample SGD for (folds, candidates) fits at once.
 
-    Owns static buffers: the fold training sets X (folds, n, F) and y
-    (folds, n), the permutation row, the per-candidate schedule
-    constants, the state with leading (folds, k) axes and, for early
-    stopping, the active mask and each fit's summed epoch loss. `epoch`
+    Owns static buffers: the fold training sets X (folds, n, F; in whole
+    blocks of folds, see __init__) and y (folds, n), the permutation row,
+    the per-candidate schedule constants, the state with leading
+    (folds, k) axes and, for early stopping, the active mask and each
+    fit's summed epoch loss. `epoch`
     walks the samples in the permutation's order; with `masked`, a fit
     whose mask is off keeps the state it had before the epoch (the JAX
     package's masked while_loop). On the card the epoch is captured as
@@ -372,13 +379,20 @@ class _Walk:
         self.n_ova = 1 if n_classes == 2 else n_classes
         self.shape = (folds, k, n, F)
         self.device = dev
-        self.X = torch.zeros((folds, n, F), **f32)
+        # The fold stacks X and coef are held in whole blocks of
+        # _FOLD_BLOCK folds (the folds past `folds` stay zero), which
+        # _sample's product reads: one shape for any fold count.
+        blocks = -(-folds // _FOLD_BLOCK) * _FOLD_BLOCK
+        self.X = torch.zeros((blocks, n, F), **f32)
         self.y = torch.zeros((folds, n), dtype=torch.int64, device=dev)
         self.perm = torch.zeros((n,), dtype=torch.int64, device=dev)
         self.alpha = torch.zeros((k,), **f32)
         self.l1r = torch.zeros((k,), **f32)
         self.t0 = torch.zeros((k,), **f32)
-        self.state = _zeros_state((folds, k), self.n_ova, F, 0.0, dev)
+        coef = torch.zeros((blocks, k * self.n_ova, F), **f32)
+        self.coef_blocks = coef.split(_FOLD_BLOCK)
+        self.state = _zeros_state((folds, k), self.n_ova, F, 0.0, dev)._replace(
+            coef=coef[:folds].view(folds, k, self.n_ova, F))
         self.old = _zeros_state((folds, k), self.n_ova, F, 0.0, dev)
         self.active = torch.ones((folds, k), dtype=torch.bool, device=dev)
         self.sumloss = torch.zeros((folds, k), **f32)
@@ -386,7 +400,7 @@ class _Walk:
         self.graph = None
 
     def load(self, X, y, alphas, l1rs, t0s, state: SGDState) -> None:
-        self.X.copy_(X)
+        self.X[:len(y)].copy_(X)
         self.y.copy_(y)
         self.alpha.copy_(alphas)
         self.l1r.copy_(l1rs)
@@ -399,7 +413,8 @@ class _Walk:
         """The update for the permutation's s-th sample, in place."""
         st = self.state
         p = self.perm[s:s + 1]
-        x = self.X.index_select(1, p)[:, 0]  # (folds, F)
+        rows = self.X.index_select(1, p)  # (blocks, 1, F)
+        x = rows[:st.coef.shape[0], 0]  # (folds, F)
         yv = self.y.index_select(1, p)  # (folds, 1)
         if self.n_ova == 1:
             y_ova = torch.where(yv == 1, 1.0, -1.0)
@@ -409,10 +424,14 @@ class _Walk:
         alpha = self.alpha
         eta = 1.0 / (alpha * st.t)  # (folds, k)
         folds, k, C, F = st.coef.shape
-        margin = (
-            torch.matmul(st.coef.view(folds, k * C, F), x[:, :, None]).view(folds, k, C)
-            + st.intercept
-        ) * y_ova
+        # One batched product a block of folds, of one shape and layout
+        # whatever the fold count: a batched product picks its route by the
+        # batch count (a lone fold's took another on the CPU), and a fold's
+        # bits must not depend on how many folds share the walk.
+        xs = rows.view(len(rows), F, 1).split(_FOLD_BLOCK)
+        dots = [torch.bmm(c, xb) for c, xb in zip(self.coef_blocks, xs)]
+        dots = dots[0] if len(dots) == 1 else torch.cat(dots)
+        margin = (dots[:folds].view(folds, k, C) + st.intercept) * y_ova
         if self.masked:
             # sklearn's sumloss: each sample's loss at the weights before
             # its update
@@ -607,17 +626,14 @@ def sgd_fit(
     return SGDState(*(f[0, 0] for f in out))
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _many_state(lead, n_classes, n_features, t0s, device) -> SGDState:
     n_ova = 1 if n_classes == 2 else n_classes
     st = _zeros_state(lead, n_ova, n_features, 0.0, device)
     return st._replace(t=torch.as_tensor(t0s, device=device).expand(lead).clone())
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the grid over a mesh is not ported yet (ROADMAP A15)"
-        )
 
 
 def sgd_fit_many(
@@ -676,11 +692,26 @@ def sgd_fit_many_folds(
         Xs: (folds, n, F) stacked fold training sets (equal-size), numpy
             or a tensor (its device is the default).
         ys: (folds, n) labels.
-        mesh: not ported (ROADMAP A15); raises NotImplementedError.
+        mesh: a parallel.mesh.Mesh: the folds shard over its data ranks
+            (the last fold repeated up to a multiple of their count, the
+            copies dropped) and every rank returns every fold. A fold's
+            walk is the same bits whatever stack it is in, so the sharded
+            result equals the single-device one.
 
     Returns an SGDState with leading axes (folds, candidates).
     """
-    _no_mesh(mesh)
+    if check_mesh(mesh) is not None:
+        n_out = len(ys)
+        order = mesh.padded_rows(n_out)
+        if isinstance(Xs, torch.Tensor):
+            Xs = Xs.index_select(0, torch.as_tensor(order, device=Xs.device))
+        else:
+            Xs = np.asarray(Xs)[order]
+        local = sgd_fit_many_folds(
+            Xs, _host(ys)[order], n_classes, penalty, average, alphas, l1_ratios,
+            epochs=epochs, seed=seed, tol=tol, n_iter_no_change=n_iter_no_change,
+            device=mesh.device if device is None else device)
+        return SGDState(*(mesh.all_gather(f)[:n_out] for f in local))
     Xs = _as_f32(Xs, device)
     dev = Xs.device
     ys = torch.as_tensor(ys, dtype=torch.int64, device=dev)

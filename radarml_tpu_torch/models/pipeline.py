@@ -75,6 +75,7 @@ from radarml_tpu_torch.ops.i8_tails import (
 )
 from radarml_tpu_torch.ops.resample import bicubic_pair, spline_zoom_pair
 from radarml_tpu_torch.ops.score import fused_native_score, native_templates
+from radarml_tpu_torch.parallel.mesh import check_mesh
 
 UNKNOWN = -1  # prediction index when below min_proba (the "Unknown" label)
 
@@ -171,7 +172,10 @@ class RadarPredictor:
     #              template error up to max|t|/254 per element, so its
     #              decisions are not guaranteed to equal fast+int8's.
     fused_quant: str = "split"
-    mesh: object = None  # sharded serving is not ported yet
+    # A parallel.mesh.Mesh: each rank scores its contiguous slice of the
+    # batch on its own device and every rank returns the whole batch's
+    # outputs. The batch must divide by the mesh's data ranks.
+    mesh: object = None
     # Device dtype of the scan stream: "float32" | "bfloat16" | "uint8" |
     # "int8" (value-128 on the wire). All four are lossless for 8-bit
     # radar cubes; the 8-bit ones truncate non-integer values.
@@ -182,10 +186,7 @@ class RadarPredictor:
         if self.mode == "pallas" and self.cube_dtype in ("uint8", "int8"):
             raise ValueError("pallas mode supports float32/bfloat16 "
                              "streams; use mode='fused' for int8")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet (ROADMAP A15)"
-            )
+        check_mesh(self.mesh)
         is_svc = isinstance(self.model, SVCModel)
         is_neural = isinstance(self.model, NeuralClassifier)
         if not (is_svc or is_neural or isinstance(self.model, LinearModel)):
@@ -198,6 +199,8 @@ class RadarPredictor:
             raise ValueError(f"unknown cube_dtype {self.cube_dtype!r}")
         if self.device is not None:
             dev = torch.device(self.device)
+        elif self.mesh is not None:
+            dev = self.mesh.device
         elif is_svc or is_neural:
             dev = self.model.device
         else:
@@ -658,7 +661,28 @@ class RadarPredictor:
             (pred, best_proba, proba) on `device`: (B, T) int32 class
             index or UNKNOWN; (B, T) best probability; (B, T, C) full
             matrix.
+
+        With a mesh, this rank scores its contiguous slice of the B scans
+        and the slices are gathered, so every rank returns all B rows. B
+        must divide by the mesh's data ranks; fused mode takes (B, X, Y,
+        Z) cubes only, as each rank packs its own shard.
         """
+        if self.mesh is not None:
+            return self._call_sharded(cubes, target_xyz, target_valid)
+        return self._call(cubes, target_xyz, target_valid)
+
+    def _call_sharded(self, cubes, target_xyz, target_valid):
+        if self.mode == "fused" and getattr(cubes, "ndim", None) != 4:
+            raise ValueError(
+                "fused mesh serving takes (B, X, Y, Z) cubes: a packed batch "
+                "cannot be split on the scan axis, so packing happens per shard"
+            )
+        rows = self.mesh.rows(len(cubes), "scan batch")
+        out = self._call(cubes[rows], target_xyz[rows],
+                         None if target_valid is None else target_valid[rows])
+        return tuple(self.mesh.all_gather(o) for o in out)
+
+    def _call(self, cubes, target_xyz, target_valid):
         dev = self.device
         xyz = torch.as_tensor(target_xyz, dtype=torch.float32).to(dev)
         if target_valid is None:

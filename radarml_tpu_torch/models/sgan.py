@@ -33,6 +33,7 @@ takes its three (B, H, W, 1) slices); dropout takes its masks as tensors.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -44,11 +45,13 @@ from torch import nn
 from radarml_tpu_torch.models.cnn import SameConv2d, flax_to_state_dict, init_tree, \
     state_dict_to_flax
 from radarml_tpu_torch.models.linear import full_f32
+from radarml_tpu_torch.parallel.mesh import all_reduce_sum
 
 __all__ = [
     "LATENT_DIM",
     "SGAN_RESCALE",
     "FlaxBatchNorm",
+    "global_batch_stats",
     "Generator",
     "Discriminator",
     "custom_activation",
@@ -70,7 +73,17 @@ def custom_activation(logits: torch.Tensor) -> torch.Tensor:
 
 
 class FlaxBatchNorm(nn.Module):
-    """BatchNorm over every axis but 1, with flax's statistics."""
+    """BatchNorm over every axis but 1, with flax's statistics.
+
+    With `mesh` set to a mesh of several data ranks (`global_batch_stats`),
+    training mode takes the statistics of the global batch: Σx, Σx² and
+    the count per channel are summed over the ranks by a reduction whose
+    backward sums as well, so the gradient is the global batch's (as
+    `nn.SyncBatchNorm` does), and the running statistics move the same
+    way on every rank.
+    """
+
+    mesh = None
 
     def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-3):
         super().__init__()
@@ -85,8 +98,11 @@ class FlaxBatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
             axes = (0,) + tuple(range(2, x.ndim))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            if self.mesh is None:
+                mean = x.mean(axes)
+                var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            else:
+                mean, var = self._global_stats(x, axes)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -95,6 +111,30 @@ class FlaxBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+    def _global_stats(self, x: torch.Tensor, axes):
+        C = x.shape[1]
+        count = torch.full((1,), float(x.numel() // C), dtype=x.dtype, device=x.device)
+        sums = all_reduce_sum(self.mesh, torch.cat([x.sum(axes), (x * x).sum(axes),
+                                                     count]))
+        mean = sums[:C] / sums[-1]
+        return mean, torch.clamp(sums[C:2 * C] / sums[-1] - mean * mean, min=0.0)
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh, *modules):
+    """Within the block, the FlaxBatchNorm layers of `modules` take their
+    training statistics over the mesh's global batch (nothing changes for
+    a mesh of one data rank, or none)."""
+    layers = [m for mod in modules for m in mod.modules() if isinstance(m, FlaxBatchNorm)]
+    on = mesh is not None and mesh.data_size > 1
+    for m in layers:
+        m.mesh = mesh if on else None
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.mesh = None
 
 
 class _GenBranch(nn.Module):

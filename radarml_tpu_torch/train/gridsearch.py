@@ -24,8 +24,11 @@ sorted, last key cycling fastest.
   The refit is `models.svc.svc_fit`, whose RBF Gram is the hand-written
   kernel on the card (ops/rbf.py).
 
-The `mesh` argument is kept and raises NotImplementedError: sharding the
-grid over devices is ROADMAP A15.
+With `mesh` (a parallel.mesh.Mesh), the SGD grid's folds shard over the
+data ranks (`sgd_fit_many_folds`) and the SVC grid's candidate axis (the
+C values of a kernel group) does: every rank computes the Gram itself,
+solves its candidates' SMO batch, and the decisions are gathered. Every
+rank then scores, selects and refits the same way.
 """
 
 from __future__ import annotations
@@ -44,7 +47,6 @@ from radarml_tpu_torch.models.linear import (
     SGDConfig,
     _as_f32,
     _l1_ratio,
-    _no_mesh,
     full_f32,
     predict as linear_predict,
     sgd_fit,
@@ -52,6 +54,7 @@ from radarml_tpu_torch.models.linear import (
     sgd_fit_many_folds,
     sgd_model,
 )
+from radarml_tpu_torch.parallel.mesh import check_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -145,6 +148,11 @@ class GridSearchResult:
         logger.info(self.best_score)
         logger.info(" Best hyperparameters:")
         logger.info(self.best_params)
+
+
+def _mesh_device(mesh, device):
+    """The device a search computes on: `device`, else the mesh rank's."""
+    return mesh.device if check_mesh(mesh) is not None and device is None else device
 
 
 def _best(candidates, scores, seconds) -> Tuple[int, float, List[Dict]]:
@@ -246,8 +254,7 @@ def grid_search_sgd(
 
     Returns a GridSearchResult whose best_model is (LinearModel, cfg).
     """
-    _no_mesh(mesh)
-    Xd = _as_f32(X, device)
+    Xd = _as_f32(X, _mesh_device(mesh, device))
     y = np.asarray(y)
     n_classes = len(np.unique(y))
 
@@ -282,7 +289,7 @@ def grid_search_sgd(
     grid = grid or SGD_PARAM_GRID
     if vmap_candidates:
         res = _run_grid_sgd_batched(
-            Xd, y, grid, n_classes, folds, epochs, seed, refit, tol,
+            Xd, y, grid, n_classes, folds, epochs, seed, refit, tol, mesh,
         )
     else:
         res = _run_grid(Xd, y, grid, fit_score, refit, folds)
@@ -293,7 +300,7 @@ def grid_search_sgd(
 
 
 def _run_grid_sgd_batched(
-    Xd, y, grid, n_classes, folds, epochs, seed, refit, tol=None,
+    Xd, y, grid, n_classes, folds, epochs, seed, refit, tol=None, mesh=None,
 ) -> GridSearchResult:
     """Candidate-batched CV: one walk per (penalty, average) group over
     every fold × candidate.
@@ -326,7 +333,7 @@ def _run_grid_sgd_batched(
         l1rs = [_l1_ratio(penalty, candidates[i].get("l1_ratio", 0.15)) for i in idxs]
         states = sgd_fit_many_folds(
             Xs, ys, n_classes, penalty, average,
-            alphas, l1rs, epochs=epochs, seed=seed, tol=tol,
+            alphas, l1rs, epochs=epochs, seed=seed, tol=tol, mesh=mesh,
         )
         # (folds, cand, C, F) model batch
         coef = states.avg_coef if average else states.coef
@@ -374,8 +381,7 @@ def grid_search_svc(
     `svc_fit`. X (numpy or tensor) is moved to `device` (default: where a
     tensor X lies, else the CUDA card; pass "cpu").
     """
-    _no_mesh(mesh)
-    Xd = _as_f32(X, device)
+    Xd = _as_f32(X, _mesh_device(mesh, device))
     y = np.asarray(y)
 
     def make_cfg(params, prob) -> tsvc.SVCConfig:
@@ -390,7 +396,7 @@ def grid_search_svc(
 
     if device_batched:
         return _run_grid_svc_batched(
-            Xd, y, grid or SVC_PARAM_GRID, folds, probability, make_cfg
+            Xd, y, grid or SVC_PARAM_GRID, folds, probability, make_cfg, mesh
         )
 
     def fit_score(params, Xtr, ytr, Xte, yte):
@@ -404,7 +410,8 @@ def grid_search_svc(
     return _run_grid(Xd, y, grid or SVC_PARAM_GRID, fit_score, refit, folds)
 
 
-def _run_grid_svc_batched(Xd, y, grid, folds, probability, make_cfg) -> GridSearchResult:
+def _run_grid_svc_batched(Xd, y, grid, folds, probability, make_cfg,
+                          mesh=None) -> GridSearchResult:
     """Device-resident SVC CV: one batched SMO call per kernel group.
 
     1. G = X·Xᵀ (one full-float32 product) and the pairwise d² once.
@@ -418,6 +425,10 @@ def _run_grid_svc_batched(Xd, y, grid, folds, probability, make_cfg) -> GridSear
     4. Test decisions come from α: dec = (α·y)ᵀ K[idx, :] − ρ against the
        resident Gram. Voting (libsvm argmax, ties to the lower class) runs
        on the small (nC, pairs, n_te) host array.
+
+    With a mesh, each rank solves its slice of a group's C values (the
+    last repeated up to a multiple of the data ranks) and the decisions
+    and iteration counts are gathered.
     """
     full_f32()
     t_start = time.perf_counter()
@@ -500,10 +511,13 @@ def _run_grid_svc_batched(Xd, y, grid, folds, probability, make_cfg) -> GridSear
             # does this Gram, or a γ·d² past ~87 leaves entries that move
             # the degenerate candidates' near-zero decisions
             K = torch.where(K < torch.finfo(torch.float32).tiny, 0.0, K)
-        Cs = torch.as_tensor(
-            np.asarray([float(candidates[i]["C"]) for i in idxs], np.float32),
-            device=dev)
-        dec, n_iter = solve_group(K, Cs)
+        Cs = np.asarray([float(candidates[i]["C"]) for i in idxs], np.float32)
+        if mesh is not None:
+            Cs = Cs[mesh.padded_rows(len(Cs))]
+        dec, n_iter = solve_group(K, torch.as_tensor(Cs, device=dev))
+        if mesh is not None:
+            dec = mesh.all_gather(dec)[:len(idxs)]
+            n_iter = mesh.all_gather(n_iter)
         smo_iters[f"{kernel}" + ("" if gamma is None else f" gamma {gamma}")] = int(
             n_iter.max())
         dec = dec.cpu().numpy()  # (nC, FP, n)

@@ -53,13 +53,15 @@ from radarml_tpu_torch.models.sgan import (
     FlaxBatchNorm,
     Generator,
     custom_activation,
+    global_batch_stats,
     n_upsamples_for,
     sgan_init_trees,
     sgan_params_from_numpy,
     sgan_params_to_numpy,
 )
 from radarml_tpu_torch.ops.resample import bicubic_pair
-from radarml_tpu_torch.train.trainer import seeded_generator
+from radarml_tpu_torch.parallel.mesh import local_mesh
+from radarml_tpu_torch.train.trainer import all_reduce_grads, seeded_generator
 
 logger = logging.getLogger(__name__)
 
@@ -160,13 +162,6 @@ def make_state(gen: Generator, disc: Discriminator, cfg: SGANConfig) -> SGANStat
                      _adam(list(gen.parameters()) + list(disc.parameters()), cfg, dev))
 
 
-def _bce(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Keras binary_crossentropy on probabilities, clipped like Keras."""
-    eps = 1e-7
-    p = torch.clamp(p, eps, 1.0 - eps)
-    return -torch.mean(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
-
-
 def draw_step(cfg: SGANConfig, half: int, disc: Discriminator,
               generator: torch.Generator) -> SGANDraws:
     """One step's draws from `generator`, on its device."""
@@ -185,6 +180,15 @@ def draw_step(cfg: SGANConfig, half: int, disc: Discriminator,
                      masks=(m(half), m(half), m(half), m(cfg.n_batch)))
 
 
+def _shard_draws(draws: SGANDraws, mesh) -> SGANDraws:
+    """This rank's rows of one step's global draws."""
+    def rows(t):
+        return t[mesh.rows(len(t))]
+
+    masks = tuple(None if m is None else [rows(a) for a in m] for m in draws.masks)
+    return SGANDraws(*(rows(t) for t in draws[:-1]), masks=masks)
+
+
 def make_sgan_step(gen: Generator, disc: Discriminator, cfg: SGANConfig,
                    real_weight: float = 1.0, mesh=None) -> Callable:
     """The four-phase train step.
@@ -192,53 +196,80 @@ def make_sgan_step(gen: Generator, disc: Discriminator, cfg: SGANConfig,
     Signature: step(state, sup_views, sup_labels, real_views, draws)
     → (state, losses dict of 0-d tensors). Views are (B, H, W, 3) stacks
     on the networks' device; `state` is updated in place.
+
+    With a mesh of several data ranks, the inputs are the global batch on
+    every rank and the state is replicated: each rank takes its rows of
+    the views, the labels and the draws (latents, label noise, dropout
+    masks), the means of the losses divide by the global batch, the
+    BatchNorms take global statistics (`models.sgan.global_batch_stats`)
+    and the gradients are summed over the ranks before each update, so
+    the step computes the single-device step's function. The losses
+    returned are the global batch's.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded SGAN training is not ported yet "
-                                  "(ROADMAP A15)")
+    mesh = local_mesh(mesh, next(disc.parameters()).device)
+    d = mesh.data_size
     bn = set(_bn_params(disc))
     frozen = [p for n, p in disc.named_parameters() if n not in bn]
+    d_params = list(disc.parameters())
+    gan_params = list(gen.parameters()) + d_params
+
+    def gmean(t):
+        """This rank's share of the global batch's mean of `t`."""
+        return torch.mean(t) / d
+
+    def bce(p, y):
+        """Keras binary_crossentropy on probabilities, clipped like Keras."""
+        eps = 1e-7
+        p = torch.clamp(p, eps, 1.0 - eps)
+        return -gmean(y * torch.log(p) + (1.0 - y) * torch.log(1.0 - p))
 
     def step(state: SGANState, sup_views, sup_labels, real_views, draws: SGANDraws):
+        sup_views = sup_views[mesh.rows(len(sup_views))]
+        sup_labels = sup_labels[mesh.rows(len(sup_labels))]
+        real_views = real_views[mesh.rows(len(real_views))]
+        draws = _shard_draws(draws, mesh)
         c_masks, r_masks, f_masks, g_masks = draws.masks
+        with global_batch_stats(mesh, gen, disc):
+            # ---- phase 1: supervised classifier on the labeled half-batch ----
+            state.c_opt.zero_grad(set_to_none=True)
+            logits = disc(sup_views, True, c_masks)
+            c_loss = -gmean(torch.log_softmax(logits, -1).gather(1, sup_labels[:, None]))
+            c_loss.backward()
+            all_reduce_grads(mesh, d_params)
+            state.c_opt.step()
+            c_acc = gmean((logits.detach().argmax(-1) == sup_labels).to(torch.float32))
 
-        # ---- phase 1: supervised classifier on the labeled half-batch ----
-        state.c_opt.zero_grad(set_to_none=True)
-        logits = disc(sup_views, True, c_masks)
-        c_loss = -torch.log_softmax(logits, -1).gather(1, sup_labels[:, None]).mean()
-        c_loss.backward()
-        state.c_opt.step()
-        c_acc = (logits.detach().argmax(-1) == sup_labels).to(torch.float32).mean()
+            # ---- phase 2: unsupervised d on real, positive smoothing ----
+            state.d_opt.zero_grad(set_to_none=True)
+            p = custom_activation(disc(real_views, True, r_masks))
+            dr_loss = real_weight * bce(p, draws.y_real)
+            dr_loss.backward()
+            all_reduce_grads(mesh, d_params)
+            state.d_opt.step()
 
-        # ---- phase 2: unsupervised d on real, positive smoothing ----
-        state.d_opt.zero_grad(set_to_none=True)
-        p = custom_activation(disc(real_views, True, r_masks))
-        dr_loss = real_weight * _bce(p, draws.y_real)
-        dr_loss.backward()
-        state.d_opt.step()
+            # ---- phase 3: d on fakes (generator in inference mode) ----
+            with torch.no_grad():
+                fake = torch.cat(gen(draws.z_fake, train=False), dim=-1)
+            state.d_opt.zero_grad(set_to_none=True)
+            df_loss = bce(custom_activation(disc(fake, True, f_masks)), draws.y_fake)
+            df_loss.backward()
+            all_reduce_grads(mesh, d_params)
+            state.d_opt.step()
 
-        # ---- phase 3: d on fakes (generator in inference mode) ----
-        with torch.no_grad():
-            fake = torch.cat(gen(draws.z_fake, train=False), dim=-1)
-        state.d_opt.zero_grad(set_to_none=True)
-        df_loss = _bce(custom_activation(disc(fake, True, f_masks)), draws.y_fake)
-        df_loss.backward()
-        state.d_opt.step()
+            # ---- phase 4: generator via the stacked GAN ----
+            state.gan_opt.zero_grad(set_to_none=True)
+            fake3 = torch.cat(gen(draws.z_gan, train=True), dim=-1)
+            g_loss = bce(custom_activation(disc(fake3, True, g_masks)), draws.y_gan)
+            g_loss.backward()
+            all_reduce_grads(mesh, gan_params)
+            # Freeze everything in the discriminator except BatchNorm.
+            for q in frozen:
+                q.grad.zero_()
+            state.gan_opt.step()
 
-        # ---- phase 4: generator via the stacked GAN ----
-        state.gan_opt.zero_grad(set_to_none=True)
-        fake3 = torch.cat(gen(draws.z_gan, train=True), dim=-1)
-        g_loss = _bce(custom_activation(disc(fake3, True, g_masks)), draws.y_gan)
-        g_loss.backward()
-        # Freeze everything in the discriminator except BatchNorm.
-        for q in frozen:
-            q.grad.zero_()
-        state.gan_opt.step()
-
-        losses = {"c_loss": c_loss.detach(), "c_acc": c_acc,
-                  "d_real": dr_loss.detach(), "d_fake": df_loss.detach(),
-                  "gan": g_loss.detach()}
-        return state, losses
+        out = mesh.all_reduce_(torch.stack([c_loss.detach(), c_acc, dr_loss.detach(),
+                                            df_loss.detach(), g_loss.detach()]))
+        return state, dict(zip(("c_loss", "c_acc", "d_real", "d_fake", "gan"), out))
 
     return step
 

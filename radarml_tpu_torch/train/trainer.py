@@ -13,6 +13,14 @@ from a torch.Generator seeded from (seed, epoch), so a resumed run
 replays the uninterrupted one. Data, parameters and the optimizer stay
 on the model's device; the host reads the epoch's four metrics once per
 epoch, which is when it decides on the best parameters and the stop.
+
+With a mesh of several data ranks (parallel/mesh.py), training is data
+parallel: the parameters start as rank 0's, each rank takes its rows of
+every batch and of the batch's dropout masks (drawn whole from the same
+stream on every rank), the weighted loss divides by the global batch's
+weight, the gradients are summed over the ranks, and Adam steps the same
+way everywhere. The history is the global batch's, and every rank
+scores the whole validation set.
 """
 
 from __future__ import annotations
@@ -26,11 +34,12 @@ import numpy as np
 import torch
 
 from radarml_tpu_torch.models.cnn import dropout_masks
+from radarml_tpu_torch.parallel.mesh import local_mesh
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["TrainConfig", "weighted_xent_loss", "seeded_generator", "make_cnn_step",
-           "train_cnn"]
+           "all_reduce_grads", "train_cnn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,16 +55,20 @@ class TrainConfig:
 
 
 def weighted_xent_loss(logits: torch.Tensor, y: torch.Tensor,
-                       weights: torch.Tensor) -> torch.Tensor:
+                       weights: torch.Tensor, w_sum: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Per-sample class-weighted sparse categorical cross-entropy.
 
     Keras class_weight semantics: each sample's loss scales by its
-    class's weight; the batch loss is the weighted mean.
+    class's weight; the batch loss is the weighted mean. `w_sum` is the
+    mean's denominator where these rows are one rank's share of a larger
+    batch (default: their own Σw).
     """
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, y[:, None])[:, 0]
     w = weights[y]
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w) if w_sum is None else w_sum,
+                                            min=1e-8)
 
 
 def seeded_generator(device: torch.device, *entropy: int) -> torch.Generator:
@@ -66,21 +79,44 @@ def seeded_generator(device: torch.device, *entropy: int) -> torch.Generator:
     return g
 
 
-def make_cnn_step(model, opt: torch.optim.Optimizer, weights: torch.Tensor):
+def make_cnn_step(model, opt: torch.optim.Optimizer, weights: torch.Tensor, mesh=None):
     """One Adam step on a batch: step(xb, yb, masks) → (loss, accuracy),
     both 0-d tensors on the device (accuracy from the logits before the
-    update, as the JAX step computes it)."""
+    update, as the JAX step computes it).
+
+    With a mesh of several data ranks, xb, yb and masks are this rank's
+    rows of the batch; the loss and accuracy returned are the whole
+    batch's, on every rank. Without one, the mesh is a one-rank mesh,
+    whose sums and divisions by its one rank leave every bit as it is."""
+    mesh = local_mesh(mesh, next(model.parameters()).device)
+    params = list(model.parameters())
 
     def step(xb, yb, masks):
         logits = model(xb, masks)
-        loss = weighted_xent_loss(logits, yb, weights)
+        w_sum = mesh.all_reduce_(torch.sum(weights[yb]))  # the global batch's Σw
+        loss = weighted_xent_loss(logits, yb, weights, w_sum)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(mesh, params)
         opt.step()
-        acc = (logits.detach().argmax(-1) == yb).to(torch.float32).mean()
-        return loss.detach(), acc
+        acc = (logits.detach().argmax(-1) == yb).to(torch.float32).mean() / mesh.data_size
+        out = mesh.all_reduce_(torch.stack([loss.detach(), acc]))
+        return out[0], out[1]
 
     return step
+
+
+def all_reduce_grads(mesh, params) -> None:
+    """Sum the gradients of `params` over the mesh's data ranks, in place
+    (one collective over a flat buffer; nothing on one rank)."""
+    if mesh.data_size == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
 
 
 def _clone_state(model) -> Dict[str, torch.Tensor]:
@@ -108,15 +144,20 @@ def train_cnn(
     `checkpoint_every` epochs and at the end; `resume=True` continues from
     the latest one and reproduces the uninterrupted run.
 
+    With a mesh of several data ranks the training is data parallel (see
+    the module docstring; the batch size must divide by the data ranks),
+    and only the mesh's first rank writes checkpoints.
+
     Returns:
         (best_state, history): the best state dict and per-epoch loss,
         accuracy, val_loss, val_accuracy (the Keras history contract the
         reference logs, dnn.py:382-389).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded CNN training is not ported yet (ROADMAP A15)")
     dev = next(model.parameters()).device
+    mesh = local_mesh(mesh, dev)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            mesh.broadcast_(t)
     y_train = np.asarray(y_train)
     y_val = np.asarray(y_val)
     n_classes = int(max(y_train.max(), y_val.max() if y_val.size else 0)) + 1
@@ -129,7 +170,7 @@ def train_cnn(
     opt = torch.optim.Adam(model.parameters(), lr=config.learning_rate,
                            betas=(config.beta1, 0.999), eps=1e-8,
                            fused=dev.type == "cuda")
-    step = make_cnn_step(model, opt, weights_d)
+    step = make_cnn_step(model, opt, weights_d, mesh)
 
     n = len(y_train)
     # Datasets below the batch size train as one full batch; the ragged
@@ -137,6 +178,7 @@ def train_cnn(
     bs = max(min(config.batch_size, n), 1)
     n_batches = max(n // bs, 1)
     n_used = n_batches * bs
+    rows = mesh.rows(bs, "batch size")
     Xd = torch.as_tensor(X_train, dtype=torch.float32).to(dev)
     yd = torch.as_tensor(y_train, dtype=torch.int64).to(dev)
     Xv = torch.as_tensor(X_val, dtype=torch.float32).to(dev)
@@ -152,6 +194,7 @@ def train_cnn(
     epoch, best, best_val, stale = 0, _clone_state(model), float("inf"), 0
     hist = np.full((E, 4), np.nan, np.float32)
     store = None
+    writer = mesh.rank == 0  # every rank resumes; one writes
     if checkpoint_dir is not None:
         from radarml_tpu_torch.train.checkpoint import CheckpointStore
 
@@ -188,8 +231,10 @@ def train_cnn(
         losses = torch.empty(n_batches, device=dev)
         accs = torch.empty(n_batches, device=dev)
         for b in range(n_batches):
-            idx = batches[b]
+            idx = batches[b][rows]
             masks = dropout_masks(2, (bs, width), model.dropout_rate, gen)
+            if masks is not None:
+                masks = [m[rows] for m in masks]
             losses[b], accs[b] = step(Xd.index_select(0, idx), yd.index_select(0, idx),
                                       masks)
         row = [losses.mean(), accs.mean()]
@@ -207,7 +252,7 @@ def train_cnn(
         else:
             stale += 1
         epoch += 1
-        if store is not None and ((epoch - start) % max(int(checkpoint_every), 1) == 0
+        if store is not None and writer and ((epoch - start) % max(int(checkpoint_every), 1) == 0
                                   or epoch == E or stale >= patience):
             save()
     wall = time.perf_counter() - t0

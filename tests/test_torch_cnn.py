@@ -191,7 +191,9 @@ def test_mesh_raises():
     model = cnn.init_cnn(3, (8, 8), seed=0, device="cpu")
     X = np.zeros((4, 8, 8, 3), np.float32)
     y = np.zeros(4, np.int64)
-    with pytest.raises(NotImplementedError, match="A15"):
+    # data-parallel training is ported (tests/test_torch_mesh_train.py);
+    # anything but a parallel.mesh.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         trainer.train_cnn(model, X, y, X, y, mesh=object())
 
 

@@ -1,8 +1,9 @@
 """The port's grid searches and metrics against the JAX package's
 (train/gridsearch.py, train/metrics.py).
 
-Re-runs tests/test_gridsearch.py but its mesh cases, which become a test
-that `mesh=` raises and names ROADMAP A15. Folds and grid order are
+Re-runs tests/test_gridsearch.py but its mesh cases, which run on gloo
+ranks in tests/test_torch_mesh_train.py; here `mesh=` refuses anything
+but a parallel.mesh.Mesh. Folds and grid order are
 integer and equal; the grids run on the same numpy blobs in both
 packages and give equal best parameters and equal fold scores. The
 SVC's batched solver shares Q across the C axis and equals the
@@ -176,9 +177,11 @@ def test_shared_q_solver_equals_per_candidate_solves(rng):
 
 @pytest.mark.parametrize("search", ["sgd", "svc"])
 def test_mesh_raises_and_names_a15(rng, search):
+    """Sharding is ported (ROADMAP A15, done): a mesh that is not a
+    parallel.mesh.Mesh is refused and the error names the type."""
     X, y = _blobs(rng, n=30)
     fn = tg.grid_search_sgd if search == "sgd" else tg.grid_search_svc
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         fn(X, y, folds=3, mesh=object(), device=CPU)
 
 

@@ -9,9 +9,10 @@ too, as they may be where the card is (only rpc/ imports them; serve's
 the train app and the metrics where matplotlib is missing (the card's
 machine has none; only plot_confusion_matrix imports it), once over the
 dnn and sgan apps where matplotlib is missing (only
-utils/summary.plot_model_png imports it), and once over viz/ and its two
+utils/summary.plot_model_png imports it), once over viz/ and its two
 apps (visualize, ground_truth_samples) where matplotlib is missing (they
-import it only where they draw).
+import it only where they draw), and once over parallel/ and the two
+timing utilities (slopetime, watchdog). No import starts a process group.
 
 A scan of the sources pins which modules import grpc (rpc/ only) and
 matplotlib (viz/, its two apps, train/metrics.py, utils/summary.py),
@@ -48,6 +49,9 @@ elif WITHOUT == "matplotlib":
     mods = ["radarml_tpu_torch.apps.train", "radarml_tpu_torch.train"]
 elif WITHOUT == "matplotlib_neural":
     mods = ["radarml_tpu_torch.apps.dnn", "radarml_tpu_torch.apps.sgan"]
+elif WITHOUT == "parallel":
+    mods = ["radarml_tpu_torch.parallel", "radarml_tpu_torch.parallel.spawn",
+            "radarml_tpu_torch.utils.slopetime", "radarml_tpu_torch.utils.watchdog"]
 else:
     mods = [m.name for m in pkgutil.walk_packages(radarml_tpu_torch.__path__,
                                                   "radarml_tpu_torch.")]
@@ -60,8 +64,10 @@ leaked = sorted(
     or m.split(".")[0] in ("jaxlib", "flax", "optax", "triton", "sklearn")
 )
 from radarml_tpu_torch.ops import _cuda_build
+import torch.distributed as dist
 print(json.dumps({"modules": names, "leaked": leaked,
-                  "loaded": sorted(_cuda_build._loaded)}))
+                  "loaded": sorted(_cuda_build._loaded),
+                  "group": dist.is_available() and dist.is_initialized()}))
 """
 
 
@@ -109,10 +115,19 @@ ALL_MODULES = (
     "radarml_tpu_torch.apps.ground_truth_samples",
     "radarml_tpu_torch.viz.plots",
     "radarml_tpu_torch.apps.visualize",
+    "radarml_tpu_torch.parallel",
+    "radarml_tpu_torch.parallel.mesh",
+    "radarml_tpu_torch.parallel.train_step",
+    "radarml_tpu_torch.parallel.spawn",
+    "radarml_tpu_torch.utils.slopetime",
+    "radarml_tpu_torch.utils.watchdog",
 )
 APPS = ("radarml_tpu_torch.apps.predict", "radarml_tpu_torch.apps.serve",
         "radarml_tpu_torch.apps.common_cli", "radarml_tpu_torch.drivers.native",
         "radarml_tpu_torch.serving.export", "radarml_tpu_torch.ops.library")
+PARALLEL = ("radarml_tpu_torch.parallel", "radarml_tpu_torch.parallel.mesh",
+            "radarml_tpu_torch.parallel.train_step", "radarml_tpu_torch.parallel.spawn",
+            "radarml_tpu_torch.utils.slopetime", "radarml_tpu_torch.utils.watchdog")
 VIZ = ("radarml_tpu_torch.viz.plots", "radarml_tpu_torch.apps.visualize",
        "radarml_tpu_torch.apps.ground_truth_samples", "radarml_tpu_torch.fusion.capture")
 
@@ -126,9 +141,11 @@ NEURAL = ("radarml_tpu_torch.apps.dnn", "radarml_tpu_torch.apps.sgan",
 
 @pytest.mark.parametrize("without,expected",
                          [("", ALL_MODULES), ("grpc", APPS), ("matplotlib", TRAIN),
-                          ("matplotlib_neural", NEURAL), ("viz", VIZ)],
+                          ("matplotlib_neural", NEURAL), ("viz", VIZ),
+                          ("parallel", PARALLEL)],
                          ids=["all_modules", "apps_without_grpc", "train_without_matplotlib",
-                              "neural_apps_without_matplotlib", "viz_without_matplotlib"])
+                              "neural_apps_without_matplotlib", "viz_without_matplotlib",
+                              "parallel_and_timing_utils"])
 def test_port_imports_without_jax_or_reference(without, expected):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(
@@ -139,6 +156,7 @@ def test_port_imports_without_jax_or_reference(without, expected):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     assert res["loaded"] == []  # no kernel built at import
+    assert res["group"] is False  # and no process group started
     for name in expected:
         assert name in res["modules"]
     if without == "grpc":
@@ -167,3 +185,16 @@ def test_only_these_modules_import(package):
     if package == "grpc":  # rpc/__init__ imports grpc through its modules
         found.add("rpc/__init__.py")
     assert found == IMPORTERS[package]
+
+
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/mesh.py",
+                                    "parallel/train_step.py", "parallel/spawn.py",
+                                    "utils/slopetime.py", "utils/watchdog.py"])
+def test_multi_device_modules_import_no_reference(module):
+    """parallel/ and the timing utilities keep their own copies: no line
+    of theirs imports jax, radarml_tpu or sklearn."""
+    import re
+
+    text = (REPO / "radarml_tpu_torch" / module).read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|jaxlib|radarml_tpu|sklearn)\b", text,
+                         re.M)

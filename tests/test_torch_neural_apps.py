@@ -93,8 +93,11 @@ def test_apps_raise_without_a_card(app, tmp_path, monkeypatch):
         app.main(["--synthetic", "9", "--results_dir", str(tmp_path)])
 
 
-def test_dnn_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A15"):
+def test_dnn_mesh_raises(tmp_path, monkeypatch):
+    """--mesh 2 outside a group of two ranks says how to launch it (the
+    torchrun run is in tests/test_torch_mesh_train.py)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc-per-node 2"):
         dnn_app.main(["--platform", "cpu", "--mesh", "2", "--results_dir", str(tmp_path)])
 
 

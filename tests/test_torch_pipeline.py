@@ -258,12 +258,14 @@ def test_pallas_refuses_a_partial_mask(rng):
 @pytest.mark.parametrize(
     "kw,item",
     [  # the id the case had beside the fused tails' cases
-        pytest.param(dict(mesh=object()), "A15", id="kw5-A15"),
+        # sharded serving is ported (ROADMAP A15, done): what is refused
+        # now is a mesh that is not a parallel.mesh.Mesh
+        pytest.param(dict(mesh=object()), "parallel.mesh.Mesh", id="kw5-A15"),
     ],
 )
 def test_unported_parts_raise(rng, kw, item):
     _, tkw, _ = _fixture(rng)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         tpipe.RadarPredictor(**kw, **tkw)
     # the neural families are ported (ROADMAP A12, A13): a NeuralClassifier builds
     assert tpipe.NeuralClassifier(apply=None, rescale=(8, 8), n_classes=3).n_classes == 3

@@ -406,5 +406,7 @@ def test_sgan_init_rejects_bad_rescale_and_mesh():
     with pytest.raises(ValueError):
         st.sgan_init(cfg, (16, 32), device="cpu")
     gen, disc, _ = st.sgan_init(cfg, SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
+    # the sharded step is ported (tests/test_torch_mesh_train.py); anything
+    # but a parallel.mesh.Mesh is refused
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         st.make_sgan_step(gen, disc, cfg, mesh=object())

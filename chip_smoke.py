@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict, SVC, serving, training, neural, artifact, capture and multi-device paths on one CUDA card.
+"""Drive the PyTorch port's predict, SVC, serving, training, neural, artifact, capture, multi-device and reference-pickle paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -168,8 +168,18 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              steps, seconds, ms a fused four-phase step by CUDA events and
              traced, both precise-BN recalibrations' ms, the c head's val
              accuracy, peak memory); each artifact served by the predict app
-             in exact mode equal to a direct RadarPredictor call (1e-6). Its
-             record is printed as a {"neural": ...} JSON line.
+             in exact mode equal to a direct RadarPredictor call (1e-6).
+             The kill-and-resume case of tests/test_torch_cnn.py (36
+             samples at 16x16, and at 80x80; 12 epochs against 8 with a
+             checkpoint every 4, then resumed from other weights): the
+             resumed run's history and best parameters bit-equal to an
+             uninterrupted run that checkpoints (train_cnn takes cuDNN's
+             deterministic algorithms when it checkpoints or resumes); as
+             controls, the same runs under cuDNN's default algorithms and
+             the test's uninterrupted run without checkpoints, each
+             reported equal or parted; a CNN step's ms under the default
+             and the deterministic algorithms, interleaved. Its record is
+             printed as a {"neural": ...} JSON line.
 14. export — the serving artifacts (serving/export.py; the kernels as
              torch ops, ops/library.py) at full width, each exported,
              written, loaded back from its file on the card and called:
@@ -237,6 +247,27 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              down, under the same bars (deterministic too), with the same
              control. Any failed check fails the run. Its record is printed
              as a {"mesh": ...} JSON line.
+16. reference — the reference's own sklearn pickles
+             (radarml_tpu_torch/assets/reference_pickles/: a
+             CalibratedClassifierCV over an SGDClassifier and an RBF SVC,
+             both at 10,010 features, and a LabelEncoder) loaded through
+             apps/common_cli's allow-list with no sklearn module imported
+             (sklearn is not installed on the card's machine; the check
+             holds wherever the script runs). RadarPredictors from the
+             linear pickle in exact, fast int8, pallas (bf16) and fused
+             under all five tails, and from the SVC pickle in exact mode,
+             each called once on expected.npz's 64 scans (4 slots, one
+             target) on the card: probabilities within 5e-5 of sklearn's
+             (expected.npz) with decisions equal (the SVC within 1e-3,
+             decisions where the margin exceeds 1e-3); fused decisions equal
+             fast int8's (probabilities within 1e-6); each kernel's counter
+             up by exactly its one call; each kernel against its plain
+             version on this model and these scans (int8 tables bit-equal,
+             B7 and B6 against float64 at most 2x the plain version's);
+             each mode's step at B=64 (CUDA events); the predict app in a
+             process of its own (--mode fused, 128 synthetic scans) equal to
+             a direct call, without importing sklearn. Its record is
+             printed as a {"reference": ...} JSON line.
 
 Every phase's seconds are printed as it ends ([time] lines).
 
@@ -251,7 +282,9 @@ with its ms at the train path's two shapes (train_shapes); and every
 kernel's over phase 14's artifact calls, as launches_export (B1's also
 over the artifact serve loop, launches_export_serve); and each rank's
 over phase 15's sharded call, as launches_mesh ([rank 0, rank 1]; the
-int8 kernels on their tail's path, B7 on pallas, B6 on the SVC). bound_ms is
+int8 kernels on their tail's path, B7 on pallas, B6 on the SVC); and
+every kernel's over phase 16's calls on the reference pickles, as
+launches_reference. bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
@@ -311,6 +344,7 @@ from radarml_tpu_torch.ops import i8_score, i8_tails, rbf, score  # noqa: E402
 from radarml_tpu_torch.ops.features import FeatureSpec, process_samples  # noqa: E402
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
 from radarml_tpu_torch.train.gridsearch import SGD_PARAM_GRID, parameter_grid  # noqa: E402
+from radarml_tpu_torch.train.trainer import deterministic_cudnn  # noqa: E402
 from radarml_tpu_torch.utils.profiling import TRACES, kernel_device_ms  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1328,6 +1362,72 @@ def device_share(fn, reps: int, top_n: int = 6) -> dict:
             "top": [(name, ms, n // reps) for name, (ms, n) in top]}
 
 
+def separable(n, rescale, seed, scale=0.1):
+    """tests/test_torch_cnn.py's fixture: class c lifts view c by 1."""
+    rng = np.random.default_rng(seed)
+    y = (np.arange(n) % 3).astype(np.int64)
+    X = rng.normal(size=(n,) + rescale + (3,)).astype(np.float32) * scale
+    for c in range(3):
+        X[y == c, :, :, c] += 1.0
+    return X, y
+
+
+def kill_and_resume(d, dev, rescale, tag) -> dict:
+    """tests/test_torch_cnn.py's kill-and-resume case on the card: an
+    uninterrupted 12-epoch run (without checkpoints, the test's, and with
+    them), an 8-epoch run killed after its checkpoint at 8 and resumed from
+    other weights to 12. Whether the resumed run equals each uninterrupted
+    one, bit for bit (history and best parameters)."""
+    from radarml_tpu_torch.models.cnn import init_cnn
+    from radarml_tpu_torch.train.trainer import TrainConfig, train_cnn
+
+    X, y = separable(36, rescale, 3)
+    Xv, yv = X[:12], y[:12]
+    cfg = TrainConfig(batch_size=12, epochs=12, patience=50)
+
+    def run(seed, config, ckpt=None, resume=False):
+        return train_cnn(init_cnn(3, rescale, seed=seed, device=dev), X, y, Xv, yv,
+                         config=config, checkpoint_dir=ckpt, checkpoint_every=4,
+                         resume=resume)
+
+    plain = run(0, cfg)
+    whole = run(0, cfg, os.path.join(d, f"whole_{tag}"))
+    killed = os.path.join(d, f"killed_{tag}")
+    run(0, TrainConfig(batch_size=12, epochs=8, patience=50), killed)
+    resumed = run(9, cfg, killed, resume=True)
+
+    def same(a, b):
+        return a[1] == b[1] and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+
+    return {"equal_checkpointed": same(resumed, whole), "equal_test_form": same(resumed, plain),
+            "whole_equal_plain": same(whole, plain),
+            "last_val_loss": [whole[1]["val_loss"][-1], resumed[1]["val_loss"][-1]]}
+
+
+def resume_check(d, dev) -> dict:
+    """C5 on the card: kill_and_resume at the test's 16x16 and at 80x80,
+    as shipped (checks: the resumed run equals the uninterrupted run that
+    checkpoints) and, as a control, with train_cnn's deterministic cuDNN
+    taken out (reported)."""
+    import contextlib
+
+    from radarml_tpu_torch.train import trainer
+
+    out = {}
+    for rescale in ((16, 16), (80, 80)):
+        name = f"{rescale[0]}x{rescale[1]}"
+        out[name] = kill_and_resume(d, dev, rescale, name)
+        check(out[name]["equal_checkpointed"],
+              f"C5: the resumed CNN run at {name} parts from the uninterrupted one")
+        shipped = trainer.deterministic_cudnn
+        trainer.deterministic_cudnn = contextlib.nullcontext
+        try:
+            out[f"{name}_default_cudnn"] = kill_and_resume(d, dev, rescale, f"{name}_default")
+        finally:
+            trainer.deterministic_cudnn = shipped
+    return out
+
+
 def phase_neural(dev, smi) -> dict:
     """Phase 13: the neural families on the card, with the artifacts in a
     temporary directory."""
@@ -1381,7 +1481,13 @@ def neural_in(d, dev, smi) -> dict:
     xb = torch.rand((64, 80, 80, 3), generator=rng_t, device=dev) * 2 - 1
     yb = torch.randint(0, 3, (64,), generator=rng_t, device=dev)
     cnn_step = lambda: step(xb, yb, dropout_masks(2, (64, 64), 0.5, rng_t))  # noqa: E731
-    step_ms = interleaved({"step": cnn_step}, inner=20, rounds=5)["step"]
+    def cnn_step_replay():
+        with deterministic_cudnn():
+            return cnn_step()
+
+    both_ms = interleaved({"step": cnn_step, "deterministic": cnn_step_replay},
+                          inner=20, rounds=5)
+    step_ms = both_ms["step"]
     cnn_share = device_share(cnn_step, 20)
     # a warm epoch: train_cnn at the app's shapes, after a run that warms
     # cuDNN (the app's own epochs include its first-call set-up)
@@ -1398,6 +1504,7 @@ def neural_in(d, dev, smi) -> dict:
     warm_epoch_s = (time.perf_counter() - t0) / 3
     res["cnn"] = {"epochs": epochs, "s_per_epoch": out["train_seconds"] / epochs,
                   "s_per_epoch_warm": warm_epoch_s, "ms_per_step": step_ms,
+                  "ms_per_step_deterministic": both_ms["deterministic"],
                   "steps_per_epoch": steps_per_epoch, "app_s": app_s,
                   "best_val_loss": hist["val_loss"][best],
                   "best_val_accuracy": hist["val_accuracy"][best],
@@ -1420,7 +1527,21 @@ def neural_in(d, dev, smi) -> dict:
         f"predict --mode exact over c_model.pickle, {N_NEURAL_SCANS} scans: {n_ans} targets "
         f"== a direct RadarPredictor call (proba delta {d_cnn:.2e})")
 
-    # c. the sgan app at 128x128 (n_batch 32, 150 supervised samples)
+    # c. C5: kill and resume on the card
+    t0 = time.perf_counter()
+    res["resume"] = resume_check(d, dev)
+    say("neural", f"on {smi}: kill-and-resume (tests/test_torch_cnn.py's case, 12 epochs "
+        f"against 8 + resume) in {time.perf_counter() - t0:.1f} s, the resumed run bit-equal "
+        "to: " + "; ".join(
+            f"{k}: the uninterrupted run with checkpoints {v['equal_checkpointed']}, without "
+            f"(the test's form) {v['equal_test_form']}; the two uninterrupted runs "
+            f"{v['whole_equal_plain']}; last val loss {v['last_val_loss'][0]:.9g} / "
+            f"{v['last_val_loss'][1]:.9g}" for k, v in res["resume"].items())
+        + f"; a CNN step (batch 64, 80x80) {step_ms:.3f} ms under cuDNN's default "
+        f"algorithms, {both_ms['deterministic']:.3f} ms under its deterministic ones "
+        "(CUDA events, interleaved)")
+
+    # d. the sgan app at 128x128 (n_batch 32, 150 supervised samples)
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1980,19 +2101,6 @@ def step_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-class cudnn_deterministic:
-    """Within the block cuDNN takes deterministic algorithms (benchmark
-    off), so that one device repeats itself bit for bit."""
-
-    def __enter__(self):
-        b = torch.backends.cudnn
-        self.saved = b.deterministic, b.benchmark
-        b.deterministic, b.benchmark = True, False
-
-    def __exit__(self, *exc):
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.saved
-
-
 def mesh_sgan_run(dev, mesh, nudge: int = 0):
     """MESH_CFG["sgan_steps"] fused steps at 128x128 (n_batch 32) from
     seeded weights (each moved one float32 ulp up or down with `nudge`
@@ -2162,7 +2270,7 @@ def mesh_rank(argv) -> None:
         t0 = time.perf_counter()
         from radarml_tpu_torch.train import sgan_trainer
 
-        with cudnn_deterministic():
+        with deterministic_cudnn():
             rep["sgan"] = mesh_sgan_run(dev, mesh)
             # the control: the same steps with the gradient sums skipped
             reduce_grads = sgan_trainer.all_reduce_grads
@@ -2250,7 +2358,7 @@ def mesh_in(d, dev, smi, svc_model) -> dict:
         two_future = pool.submit(mesh_group, d, "two", 2)
         grids = mesh_grids(d, dev, None)
         fold_equal = mesh_fold_walks(X_cell, y_cell, dev)
-        with cudnn_deterministic():
+        with deterministic_cudnn():
             nudged_dnn = dnn_nudged_histories(ds, dev)
             sg = [mesh_sgan_run(dev, None) for _ in range(2)]
             nudged = [mesh_sgan_run(dev, None, nudge=n) for n in (1, -1)]
@@ -2462,6 +2570,199 @@ def mesh_in(d, dev, smi, svc_model) -> dict:
         + [("pallas", "fused_native_score"), ("svc_exact", "rbf_gram")]}
     res["s"] = time.perf_counter() - t_phase
     say("mesh", f"phase 15 in {res['s']:.1f} s")
+    return res
+
+
+# -- phase 16: the reference's sklearn pickles --------------------------------
+
+REF_DIR = os.path.join(HERE, "radarml_tpu_torch", "assets", "reference_pickles")
+# The JAX package's bar for a reference pickle served through the
+# predictor (tests/test_reference_parity.py:93-94), the fused-against-fast
+# int8 bar of phase 4, and the SVC golden bar (SVC_PROBA_ATOL).
+REF_LINEAR_ATOL, REF_FUSED_ATOL = 5e-5, 1e-6
+REF_MODES = ("exact", "fast_i8", "pallas", "fused_combo", "fused_lookup", "fused_glookup",
+             "fused_sel", "fused_sel3", "svc_exact")
+# The predict app in a process of its own: its results and whether any
+# sklearn module was imported, as one JSON line.
+PREDICT_CHILD = """import json, sys
+from radarml_tpu_torch.apps import predict
+res = predict.main(sys.argv[1:])
+print(json.dumps({"results": res,
+                  "sklearn": sorted(m for m in sys.modules if m.split(".")[0] == "sklearn")}))
+"""
+
+
+def sklearn_modules() -> list:
+    return sorted(m for m in sys.modules if m.split(".")[0] == "sklearn")
+
+
+def phase_reference(dev, smi) -> dict:
+    """Phase 16: the reference's sklearn pickles served on the card, with
+    the predict app's files in a temporary directory."""
+    with tempfile.TemporaryDirectory() as d:
+        return reference_in(d, dev, smi)
+
+
+def reference_in(d, dev, smi) -> dict:
+    t_phase = time.perf_counter()
+    path = {n: os.path.join(REF_DIR, f"{n}.pickle")
+            for n in ("svm_radar_classifier", "svc_radar_classifier", "radar_labels")}
+    check(not sklearn_modules(), f"sklearn modules before phase 16: {sklearn_modules()}")
+    model, calib = common_cli.load_model(path["svm_radar_classifier"], device=dev)
+    svc_model, none = common_cli.load_model(path["svc_radar_classifier"], device=dev)
+    classes = list(common_cli.load_label_encoder(path["radar_labels"]).classes_)
+    check(none is None and calib is not None and not sklearn_modules(),
+          f"loading the reference pickles imported {sklearn_modules()}")
+    with np.load(os.path.join(REF_DIR, "expected.npz")) as f:
+        e = {k: f[k] for k in f.files}
+    check(classes == [str(c) for c in e["classes"]], "the label encoder's classes")
+    n = int(e["n_scans"])
+    cubes, targets = make_scan_batch(n, seed=int(e["scan_seed"]))
+    cubes = np.rint(cubes)
+    xyz, valid = pad_targets([[(t.x, t.y, t.z)] for t in targets], max_targets=4)
+    check(np.array_equal(xyz[:, 0], e["targets_xyz"]), "expected.npz's targets")
+    kw = dict(train_arena=DEFAULT_ARENA, scan_arena=DEFAULT_ARENA, model=model,
+              calibration=calib, min_proba=0.0, device=dev)
+    preds = {"exact": RadarPredictor(mode="exact", **kw),
+             "fast_i8": RadarPredictor(mode="fast", cube_dtype="int8", **kw),
+             "pallas": RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw)}
+    for tail in ("combo", "lookup", "glookup", "sel", "sel3"):
+        preds[f"fused_{tail}"] = RadarPredictor(mode="fused", fused_tail=tail, **kw)
+    preds["svc_exact"] = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, svc_model,
+                                        min_proba=0.0, mode="exact", device=dev)
+    xyz_d, valid_d = torch.from_numpy(xyz).to(dev), torch.from_numpy(valid).to(dev)
+    src = {}
+    for name, p in preds.items():
+        if p.mode == "fused":
+            src[name] = p.pack_host(cubes.astype(np.uint8)).to(dev)
+        elif p.mode == "pallas":
+            src[name] = p.encode_host(cubes).to(dev)
+        else:
+            src[name] = torch.from_numpy(cubes.astype(np.float32)).to(dev)
+
+    # a. the main path: one call a predictor, every kernel counted
+    before = launch_counts()
+    out = {}
+    for name in REF_MODES:
+        res = preds[name](src[name], xyz_d, valid_d)
+        check(all(r.device.type == dev.type for r in res), f"{name} left the card")
+        out[name] = [r.cpu().numpy() for r in res]
+    launched = rise(before)
+    want_launches = {"onepass_tables_combined_i8": 1, "onepass_tables_i8": 1,
+                     "onepass_tables_grouped_i8": 1, "onepass_tables_sel_i8": 1,
+                     "onepass_scores_i8": 1, "fused_native_score": 1, "rbf_gram": 1}
+    check(launched == want_launches, f"phase 16 launches {launched}, expected {want_launches}")
+
+    # b. against sklearn (expected.npz) and against each other
+    err = {}
+    for name, (pr, best, proba) in out.items():
+        check(pr.shape == (n, 4) and proba.shape == (n, 4, 3) and np.isfinite(proba).all(),
+              f"{name} shapes / finite")
+        check((pr[:, 1:] == -1).all(), f"{name} padded slots not UNKNOWN")
+        ref = e["svc_proba" if name == "svc_exact" else "linear_proba"]
+        err[name] = float(np.abs(proba[:, 0] - ref).max())
+    for name in REF_MODES[:-1]:
+        check(err[name] <= REF_LINEAR_ATOL,
+              f"{name} on the reference pickle vs sklearn: {err[name]} > {REF_LINEAR_ATOL}")
+        check(np.array_equal(out[name][0][:, 0], e["linear_pred"]),
+              f"{name} decisions differ from sklearn's")
+    fused_fast = {}
+    for name in REF_MODES[3:-1]:
+        check(np.array_equal(out[name][0], out["fast_i8"][0]),
+              f"{name} decisions != fast int8's on the reference pickle")
+        fused_fast[name] = float(np.abs(out[name][2] - out["fast_i8"][2]).max())
+        check(fused_fast[name] <= REF_FUSED_ATOL, f"{name} vs fast int8 {fused_fast[name]}")
+    check(err["svc_exact"] <= SVC_PROBA_ATOL,
+          f"the SVC pickle vs sklearn: {err['svc_exact']} > {SVC_PROBA_ATOL}")
+    svc_ok = margin_ok(e["svc_proba"], e["svc_proba"].max(1), 0.0, SVC_MARGIN)
+    check(np.array_equal(out["svc_exact"][0][svc_ok, 0], e["svc_proba"].argmax(1)[svc_ok]),
+          "the SVC pickle's decisions differ from sklearn's where the margin exceeds 1e-3")
+
+    # c. each kernel against its plain version on this model and these scans
+    dims = DEFAULT_ARENA.grid_shape
+    quant2 = preds["fused_combo"]._quantized_split_templates(2)
+    w_combo = i8_score.build_combined_weights(quant2, dims, levels=2, device=dev)
+    w_tails = i8_tails.build_grouped_weights(quant2, dims, 16, device=dev)
+    cube = src["fused_combo"]
+    ijk = torch.stack(preds["fused_combo"]._indices(xyz_d), -1).to(torch.int32)
+    pairs = {"onepass_tables_combined_i8": (
+        lambda: i8_score.onepass_tables_combined_i8(cube, w_combo),
+        lambda: i8_score.onepass_tables_combined_i8_ref(cube, w_combo))}
+    for name in TAIL_KERNELS:
+        pairs[name] = tail_fns(name, w_tails, cube, ijk, None)
+    kernel_err = {}
+    for name, (kern, plain) in pairs.items():
+        got, ref = kern(), plain()
+        kernel_err[name] = max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+        check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+              f"{name} != its plain version on the reference model")
+    tm = score.native_templates(*preds["pallas"]._split_templates(), device=dev)
+    native = native_errors(src["pallas"], tm)
+    for k_err, p_err, o_max, _, again in native:
+        check(k_err <= 2 * p_err + 1e-6 * o_max and again,
+              f"B7 on the reference model: {k_err} vs plain {p_err}")
+    kernel_err["fused_native_score"] = max(t[3] for t in native)
+    rows = []
+    for b, t in enumerate(targets):
+        i, j, k = (int(v) for v in DEFAULT_ARENA.clamped_matrix_indices(t.x, t.y, t.z))
+        rows.append((cubes[b][:, j, :], cubes[b][i, :, :], cubes[b][:, :, k]))
+    F = process_samples(rows, scale=True, device=dev)
+    ((_, k_err, p_err, _, _),) = rbf_errors(F, svc_model.support_vectors, (svc_model.gamma,))
+    check(k_err <= 2 * p_err + 1e-6, f"B6 on the reference SVC: {k_err} vs plain {p_err}")
+    kernel_err["rbf_gram"] = float((rbf.rbf_gram(F, svc_model.support_vectors, svc_model.gamma)
+                                    - rbf.rbf_gram_ref(F, svc_model.support_vectors,
+                                                       svc_model.gamma)).abs().max())
+
+    # d. each mode's step at B=64, inputs on the card
+    ms = interleaved({name: (lambda p=preds[name], c=src[name]: p(c, xyz_d, valid_d))
+                      for name in REF_MODES}, inner=10, rounds=3)
+
+    # e. the predict app in a process of its own, --mode fused, against a
+    # direct call on the same synthetic scans
+    n_app, batch_app, minp = 128, 64, 0.5
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", PREDICT_CHILD, "--svm_model", path["svm_radar_classifier"],
+         "--label_encoder", path["radar_labels"], "--min_proba", str(minp),
+         "--log_file", os.path.join(d, "predict.log"), "--driver", "synthetic",
+         "--driver_seed", "1234", "--mode", "fused", "--batch_scans", str(batch_app),
+         "--num_scans", str(n_app), "--logging_level", "warning"],
+        cwd=d, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": HERE})
+    app_s = time.perf_counter() - t0
+    check(child.returncode == 0, f"the predict app failed: {child.stderr[-2000:]}")
+    app = json.loads(child.stdout.strip().splitlines()[-1])
+    check(not app["sklearn"], f"the predict app imported {app['sklearn']}")
+    direct = RadarPredictor(DEFAULT_ARENA, DEFAULT_ARENA, model, calib, min_proba=minp,
+                            mode="fused", device=dev)
+    scans, lists = synthetic_scans(n_app, 1234)
+    axyz, avalid = pad_targets(lists, 4)
+    pr, best, _ = (r.cpu().numpy() for r in direct(scans, axyz, avalid))
+    want = [("Unknown" if pr[b, t] == -1 else classes[int(pr[b, t])], float(best[b, t]))
+            for b in range(n_app) for t in range(4) if avalid[b, t]]
+    got = app["results"]
+    check([m for m, _ in got] == [m for m, _ in want], "the predict app's names != direct")
+    d_app = float(np.abs(np.array([p for _, p in got]) - np.array([p for _, p in want])).max())
+    check(d_app <= 1e-6, f"the predict app vs a direct call {d_app}")
+    check(not sklearn_modules(), f"phase 16 imported {sklearn_modules()}")
+    res = {"max_err_vs_sklearn": err, "fused_vs_fast_i8": fused_fast, "launches": launched,
+           "kernel_vs_plain": kernel_err, "step_ms_b64": ms, "predict_app_s": app_s,
+           "predict_app_targets": len(got), "predict_app_delta": d_app,
+           "s": time.perf_counter() - t_phase}
+    say("reference", f"on {smi}: the reference's pickles (radarml_tpu_torch/assets/"
+        f"reference_pickles/, sklearn {e['sklearn_version']}, numpy {e['numpy_version']}) "
+        f"loaded with no sklearn module; {n} scans x 4 slots (one target), max |proba - "
+        "sklearn|: " + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+        + f" (bars {REF_LINEAR_ATOL} linear, {SVC_PROBA_ATOL} SVC), linear decisions == "
+        f"sklearn's, SVC's on {int(svc_ok.sum())} of {n} with margin > 1e-3; fused == fast "
+        "int8 decisions, proba delta " + ", ".join(f"{k} {v:.2e}" for k, v in fused_fast.items())
+        + "; launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
+        + "; each kernel == its plain version on this model (max |kernel - plain| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in kernel_err.items())
+        + "); step ms at B=64 (CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; predict --mode fused in its own process ({app_s:.1f} s): {len(got)} targets == "
+        f"a direct call (proba delta {d_app:.2e}); phase 16 in {res['s']:.1f} s")
     return res
 
 
@@ -3158,6 +3459,11 @@ def main() -> None:
     print(json.dumps({"mesh": mesh}), flush=True)
     lap("phase 15 (mesh)")
 
+    # -- 16. the reference's sklearn pickles ----------------------------------
+    ref = phase_reference(dev, smi)
+    print(json.dumps({"reference": ref}), flush=True)
+    lap("phase 16 (reference pickles)")
+
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
         return {
@@ -3170,6 +3476,7 @@ def main() -> None:
             "bound_ms_b64": small["bound"], "device_ms_b64": small["device"],
             "launches_export": export["launches_export"][name],
             "launches_mesh": mesh["launches_mesh"][name],
+            "launches_reference": ref["launches"][name],
         }
 
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
@@ -3197,6 +3504,7 @@ def main() -> None:
         "scans_per_s": {k: rates[k] for k in ("pallas", "pallas_f32", "fast")},
         "launches_export": export["launches_export"]["fused_native_score"],
         "launches_mesh": mesh["launches_mesh"]["fused_native_score"],
+        "launches_reference": ref["launches"]["fused_native_score"],
     })
     rbf_b, rbf_by = rbf_bound(queries, S)
     records.append({
@@ -3231,6 +3539,7 @@ def main() -> None:
         "svc_fit_s": fit_warm_s,
         "launches_export": export["launches_export"]["rbf_gram"],
         "launches_mesh": mesh["launches_mesh"]["rbf_gram"],
+        "launches_reference": ref["launches"]["rbf_gram"],
     })
     say("profiler", f"{TRACES['taken']} traces taken for device times, {TRACES['lacking']} "
         f"of them without a kernel's records (each taken again)")

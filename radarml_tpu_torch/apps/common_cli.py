@@ -17,12 +17,39 @@ Port of radarml_tpu/apps/common_cli.py.
   models/sgan.py). The port's dnn and sgan apps write those two kinds
   with the same keys and tree layout, so the JAX package loads them.
   Label encoders are v1 dicts {"format", "classes"}.
-- Reference sklearn pickles (models and label encoders) raise
-  NotImplementedError (ROADMAP A4): sklearn is not installed where the
-  port runs, and the port never imports it.
+- The reference's own sklearn pickles load too, without sklearn (it is
+  not installed where the port runs, and the port never imports it): a
+  `CalibratedClassifierCV` over a linear estimator (the reference's
+  `svm_radar_classifier.pickle`) through `models.linear.
+  from_sklearn_calibrated`, an `SVC` through `models.svc.
+  from_sklearn_svc`, and a `LabelEncoder` (`radar_labels.pickle`) as its
+  `classes_`.
 
-Loading unpickles with an allow-list (numpy arrays and plain Python
-containers); any other class is refused before it is imported.
+Loading unpickles with an allow-list; every other global is refused
+with `pickle.UnpicklingError` before it is imported, and nothing but
+the following is ever looked up or called:
+- numpy's array, dtype and scalar reconstructors, `ndarray`, `dtype`,
+  `_reconstruct`, `scalar` and (protocol 5) `_frombuffer`, under numpy
+  1's `numpy.core.*` and numpy 2's `numpy._core.*` spellings alike, each
+  mapped to the installed numpy's object. Any other numpy global (a
+  function such as `numpy.load` or `numpy.testing`'s `runstring`) is
+  refused;
+- the builtin containers and scalars (`dict`, `list`, `tuple`, `set`,
+  `frozenset`, `int`, `float`, `complex`, `str`, `bytes`, `bytearray`,
+  `bool`, `slice`, `range`) and `collections.OrderedDict`;
+- the sklearn classes of `SKLEARN_CLASSES` (`CalibratedClassifierCV`,
+  `_CalibratedClassifier`, `_SigmoidCalibration`, `FrozenEstimator`,
+  `SGDClassifier`, `SVC`, `LabelEncoder`, under their current modules
+  and their pre-0.22 public ones) and the Cython loss objects of an
+  `SGDClassifier`'s state (any name in `sklearn._loss._loss`,
+  `sklearn.linear_model._sgd_fast` or the pre-0.22
+  `sklearn.linear_model.sgd_fast`). Each loads as an `SklearnState`: an
+  inert holder named after the class that keeps the attributes its
+  pickled state sets, swallows constructor arguments and has no other
+  behaviour. No module of sklearn is imported.
+Pickles of protocol 3 and up (Python 3's defaults) are read; at
+protocols 0-2 these objects' pickles name `copyreg` or `_codecs`
+helpers, which are refused with the rest.
 """
 
 from __future__ import annotations
@@ -35,6 +62,7 @@ import pickle
 import sys
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from radarml_tpu_torch.core.arena import DEFAULT_ARENA, Arena, ProjMask
@@ -43,13 +71,17 @@ from radarml_tpu_torch.data.labels import LabelEncoder
 from radarml_tpu_torch.drivers.base import DEFAULT_THRESHOLD
 from radarml_tpu_torch.models.linear import LinearModel, SigmoidCalibration
 from radarml_tpu_torch.models.linear import from_numpy as linear_from_numpy
+from radarml_tpu_torch.models.linear import from_sklearn_calibrated
 from radarml_tpu_torch.models.pipeline import NeuralClassifier
 from radarml_tpu_torch.models.svc import SVCModel
 from radarml_tpu_torch.models.svc import from_numpy as svc_from_numpy
+from radarml_tpu_torch.models.svc import from_sklearn_svc
 
 __all__ = [
     "FORMAT",
     "LOG_FORMAT",
+    "SKLEARN_CLASSES",
+    "SklearnState",
     "add_common_flags",
     "add_driver_flags",
     "add_scan_arena_flag",
@@ -222,22 +254,96 @@ def build_driver(args, arena: Arena = DEFAULT_ARENA):
 # Model artifacts
 # --------------------------------------------------------------------------
 
+class SklearnState:
+    """An sklearn object's pickled state, held without sklearn.
+
+    Subclasses are named after the sklearn class the pickle named
+    (`sklearn_class` keeps its full name), so `type(obj).__name__` reads
+    as sklearn's. The state's entries become attributes; constructor
+    arguments (the Cython loss objects') are swallowed. Nothing else: no
+    method of sklearn runs, and nothing is imported."""
+
+    sklearn_class = ""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        else:  # a Cython object's own state: kept, never read
+            self.__dict__["_state"] = state
+
+
+# (module, name) -> the class's current full name. The reference's
+# Raspberry Pi pickles carry the pre-0.22 public module spellings.
+SKLEARN_CLASSES = {
+    ("sklearn.calibration", "CalibratedClassifierCV"):
+        "sklearn.calibration.CalibratedClassifierCV",
+    ("sklearn.calibration", "_CalibratedClassifier"):
+        "sklearn.calibration._CalibratedClassifier",
+    ("sklearn.calibration", "_SigmoidCalibration"):
+        "sklearn.calibration._SigmoidCalibration",
+    ("sklearn.frozen._frozen", "FrozenEstimator"): "sklearn.frozen._frozen.FrozenEstimator",
+    ("sklearn.linear_model._stochastic_gradient", "SGDClassifier"):
+        "sklearn.linear_model._stochastic_gradient.SGDClassifier",
+    ("sklearn.linear_model.stochastic_gradient", "SGDClassifier"):
+        "sklearn.linear_model._stochastic_gradient.SGDClassifier",
+    ("sklearn.svm._classes", "SVC"): "sklearn.svm._classes.SVC",
+    ("sklearn.svm.classes", "SVC"): "sklearn.svm._classes.SVC",
+    ("sklearn.preprocessing._label", "LabelEncoder"):
+        "sklearn.preprocessing._label.LabelEncoder",
+    ("sklearn.preprocessing.label", "LabelEncoder"):
+        "sklearn.preprocessing._label.LabelEncoder",
+}
+# Modules whose every class is a Cython loss object of an SGDClassifier's
+# state: held, never called.
+SKLEARN_LOSS_MODULES = frozenset({
+    "sklearn._loss._loss", "sklearn.linear_model._sgd_fast",
+    "sklearn.linear_model.sgd_fast",
+})
+
+
+def _sklearn_holder(full_name: str) -> type:
+    name = full_name.rpartition(".")[2]
+    return type(name, (SklearnState,), {"sklearn_class": full_name,
+                                         "__module__": __name__, "__qualname__": name})
+
+
+def _numpy_globals() -> dict:
+    """(module, name) -> the installed numpy's array, dtype and scalar
+    reconstructors, under numpy 1's and numpy 2's module spellings."""
+    try:
+        from numpy._core import multiarray, numeric
+    except ImportError:  # numpy 1 before numpy._core existed
+        from numpy.core import multiarray, numeric
+    table = {("numpy", "ndarray"): np.ndarray, ("numpy", "dtype"): np.dtype}
+    for core in ("numpy.core", "numpy._core"):
+        table[(f"{core}.multiarray", "_reconstruct")] = multiarray._reconstruct
+        table[(f"{core}.multiarray", "scalar")] = multiarray.scalar
+        table[(f"{core}.numeric", "_frombuffer")] = numeric._frombuffer
+    return table
+
+
+_NUMPY_GLOBALS = _numpy_globals()
+
+
 class _ArtifactUnpickler(pickle.Unpickler):
-    """Unpickles numpy arrays and plain containers; refuses the rest."""
+    """Unpickles numpy arrays, plain containers and the allowed sklearn
+    classes (as SklearnState holders); refuses every other global before
+    it is imported (see the module docstring)."""
 
     def find_class(self, module: str, name: str):
-        root = module.split(".")[0]
-        if root == "numpy":
-            return super().find_class(module, name)
+        if (module, name) in _NUMPY_GLOBALS:
+            return _NUMPY_GLOBALS[(module, name)]
         if module == "builtins" and name in _BUILTINS:
             return super().find_class(module, name)
         if module == "collections" and name == "OrderedDict":
             return super().find_class(module, name)
-        if root == "sklearn":
-            raise NotImplementedError(
-                f"reference sklearn pickles ({module}.{name}) are not ported "
-                "(ROADMAP A4): sklearn is not installed where the port runs"
-            )
+        if (module, name) in SKLEARN_CLASSES:
+            return _sklearn_holder(SKLEARN_CLASSES[(module, name)])
+        if module in SKLEARN_LOSS_MODULES and name.isidentifier():
+            return _sklearn_holder(f"{module}.{name}")
         raise pickle.UnpicklingError(
             f"refusing to unpickle {module}.{name} from a model artifact"
         )
@@ -265,16 +371,22 @@ def save_label_encoder(path: str, le: LabelEncoder) -> None:
 
 
 def load_label_encoder(path: str) -> LabelEncoder:
-    """Read a v1 label encoder; a reference sklearn pickle is refused
-    (NotImplementedError, ROADMAP A4) before sklearn is imported."""
+    """Read a v1 label encoder or a reference sklearn LabelEncoder pickle
+    (its `classes_` as str)."""
     obj = _load(path)
-    if not (isinstance(obj, dict) and obj.get("format") == FORMAT):
-        raise ValueError(f"{path} is not a {FORMAT} label encoder")
-    return LabelEncoder(classes_=tuple(str(c) for c in obj["classes"]))
+    if isinstance(obj, dict) and obj.get("format") == FORMAT:
+        classes = obj["classes"]
+    elif type(obj).__name__ == "LabelEncoder":  # only a holder has this name
+        classes = obj.classes_
+    else:
+        raise ValueError(f"{path} is neither a {FORMAT} nor an sklearn label encoder")
+    return LabelEncoder(classes_=tuple(str(c) for c in classes))
 
 
 def load_model_meta(path: str) -> dict:
-    """Raw artifact payload of a v1 pickle; {} for anything else."""
+    """Raw artifact payload of a v1 pickle; {} for anything else (a
+    reference sklearn pickle keeps its hyperparameters in the estimator
+    instead). Online learning resumes the SGD schedule from it."""
     obj = _load(path)
     if isinstance(obj, dict) and obj.get("format") == FORMAT:
         return obj
@@ -285,13 +397,18 @@ def load_model(
     path: str, device: torch.device | str | None = None
 ) -> Tuple[Union[LinearModel, SVCModel, NeuralClassifier], Optional[SigmoidCalibration]]:
     """Load a scoring model onto `device` (default: the CUDA card; pass
-    "cpu" for the CPU): (model, calibration or None)."""
+    "cpu" for the CPU): (model, calibration or None).
+
+    Reads the v1 artifacts and the reference's sklearn pickles
+    (CalibratedClassifierCV over a linear estimator; SVC)."""
     obj = _load(path)
     if not (isinstance(obj, dict) and obj.get("format") == FORMAT):
-        raise NotImplementedError(
-            f"{path} is not a {FORMAT} artifact; reference sklearn pickles "
-            "are not ported (ROADMAP A4)"
-        )
+        cls = type(obj).__name__  # an sklearn holder's is sklearn's
+        if cls == "CalibratedClassifierCV":
+            return from_sklearn_calibrated(obj, device=device)
+        if cls == "SVC":
+            return from_sklearn_svc(obj, device=device), None
+        raise ValueError(f"unrecognized model artifact {cls!r} in {path}")
     kind = obj["kind"]
     if kind == "linear":
         return linear_from_numpy(

@@ -21,7 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import time
+import threading
 
 import numpy as np
 import torch
@@ -144,7 +144,10 @@ def warm(predictor, batch: int, grid, device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, stop: threading.Event | None = None) -> dict:
+    """Serve for --duration seconds (0: until interrupted); `stop`, when
+    given and set, ends the serve loop sooner (a caller that embeds the
+    app in a thread)."""
     args = build_parser().parse_args(argv)
     setup_logging(None, args.logging_level)
     if args.export_serving and args.serving_artifact:
@@ -250,12 +253,13 @@ def main(argv=None) -> dict:
         return reloader
 
     def serve_for_duration():
+        ended = stop or threading.Event()
         try:
             if args.duration > 0:
-                time.sleep(args.duration)
+                ended.wait(args.duration)
             else:
-                while True:
-                    time.sleep(1)
+                while not ended.wait(1):
+                    pass
         except KeyboardInterrupt:
             pass
 

@@ -21,8 +21,11 @@ stop state once an epoch. A capture that fails raises.
 
 The epoch permutations come from `np.random.default_rng(seed)` as in the
 JAX package, so both packages walk the samples in the same order.
-`sgd_state_from_numpy` carries a JAX `SGDState` across. The sklearn
-loaders are not ported (ROADMAP A4).
+`sgd_state_from_numpy` carries a JAX `SGDState` across.
+`from_sklearn_linear` / `from_sklearn_calibrated` read a fitted sklearn
+estimator's attributes, so they take a live sklearn object or the inert
+holder that apps/common_cli unpickles a reference pickle into without
+sklearn.
 
 Float32 products on the card run in full float32: TF32 is switched off
 (the JAX package computes at Precision.HIGHEST).
@@ -51,6 +54,8 @@ __all__ = [
     "predict_proba_log_loss",
     "predict_proba_calibrated",
     "from_numpy",
+    "from_sklearn_linear",
+    "from_sklearn_calibrated",
     "full_f32",
     "fit_sigmoid_calibration",
     "calibrate_ovr",
@@ -113,6 +118,52 @@ def from_numpy(
     if calib_a is not None:
         calib = SigmoidCalibration(a=f32(calib_a), b=f32(calib_b))
     return model, calib
+
+
+def from_sklearn_linear(clf, device: torch.device | str | None = None) -> LinearModel:
+    """A fitted sklearn linear estimator (SGDClassifier, LogisticRegression,
+    LinearSVC; or its unpickled holder) → the port's LinearModel on
+    `device` (default: the CUDA card)."""
+    return from_numpy(*_sklearn_coef(clf), device=device)[0]
+
+
+def _sklearn_coef(clf):
+    return np.asarray(clf.coef_), np.ravel(np.asarray(clf.intercept_))
+
+
+def from_sklearn_calibrated(
+    cal_clf, device: torch.device | str | None = None
+) -> Tuple[LinearModel, SigmoidCalibration]:
+    """sklearn's CalibratedClassifierCV(prefit, sigmoid) over a linear
+    estimator, the artifact the reference pickles (train.py:729-731) →
+    (LinearModel, SigmoidCalibration) on `device` (default: the CUDA card).
+
+    Reads either spelling: `estimator` or `base_estimator`, a
+    FrozenEstimator around it (sklearn >= 1.6's prefit), `calibrators`
+    or `calibrators_`. Where sklearn's probabilities are not the ones
+    this model computes it raises ValueError: several calibrated
+    classifiers (sklearn averages them) or a calibrator without Platt's
+    a_ / b_ (isotonic)."""
+    ccs = list(cal_clf.calibrated_classifiers_)
+    if len(ccs) != 1:
+        raise ValueError(
+            f"CalibratedClassifierCV holds {len(ccs)} calibrated classifiers, whose "
+            "probabilities sklearn averages; only one (cv='prefit' or a "
+            "FrozenEstimator) is a single linear model")
+    cc = ccs[0]
+    base = getattr(cc, "estimator", None) or getattr(cc, "base_estimator", None)
+    while base is not None and not hasattr(base, "coef_"):  # FrozenEstimator
+        base = getattr(base, "estimator", None)
+    if base is None:
+        raise ValueError("the calibrated classifier wraps no linear estimator (no coef_)")
+    calibrators = getattr(cc, "calibrators", None)
+    if calibrators is None:
+        calibrators = cc.calibrators_
+    if not all(hasattr(c, "a_") and hasattr(c, "b_") for c in calibrators):
+        raise ValueError("a calibrator lacks a_ / b_: only sigmoid (Platt) calibration "
+                         "is a SigmoidCalibration, not isotonic")
+    return from_numpy(*_sklearn_coef(base), [float(c.a_) for c in calibrators],
+                      [float(c.b_) for c in calibrators], device=device)
 
 
 def decision_function(model: LinearModel, X: torch.Tensor) -> torch.Tensor:

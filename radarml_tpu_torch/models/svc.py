@@ -19,7 +19,9 @@ Port of radarml_tpu/models/svc.py, the reference's
   scaling fits on the same deterministic stratified folds as the JAX
   package.
 * **Interop** — `from_numpy` carries a JAX-fitted SVC (as numpy arrays)
-  across. `from_sklearn_svc` is not ported (ROADMAP A4, parked).
+  across; `from_sklearn_svc` a fitted sklearn SVC, live or as the inert
+  holder that apps/common_cli unpickles a reference pickle into without
+  sklearn.
 
 Float32 products run in full float32 (no TF32), as the JAX package
 scores at Precision.HIGHEST.
@@ -43,6 +45,7 @@ __all__ = [
     "SVCModel",
     "decision_function_ovo",
     "from_numpy",
+    "from_sklearn_svc",
     "kernel_matrix",
     "platt_fit",
     "predict",
@@ -191,6 +194,40 @@ def from_numpy(
         gamma=float(gamma),
         probA=f32(probA),
         probB=f32(probB),
+    )
+
+
+def _first_attr(obj, *names):
+    """The first of `names` that `obj` has: a public attribute, then the
+    private twin that sklearn's pickled state stores under it."""
+    for name in names:
+        if hasattr(obj, name):
+            return getattr(obj, name)
+    raise AttributeError(f"{type(obj).__name__} has none of {names}")
+
+
+def from_sklearn_svc(clf, device: torch.device | str | None = None) -> SVCModel:
+    """A fitted sklearn.svm.SVC (or its unpickled holder) → the port's
+    SVCModel on `device` (default: the CUDA card): serving parity for
+    reference-trained pickles (reference predict.py:224-227).
+
+    sklearn stores the binary problem with the decision negated (positive
+    → classes_[1]); both dual_coef_ and intercept_ are negated back to the
+    internal OvO convention (positive → the pair's first class), so
+    scoring, voting and Platt orientation are the same for every k."""
+    n_support = _first_attr(clf, "n_support_", "_n_support")
+    probA = _first_attr(clf, "probA_", "_probA")
+    probB = _first_attr(clf, "probB_", "_probB")
+    dual = np.asarray(clf.dual_coef_, np.float32)
+    intercept = np.asarray(clf.intercept_, np.float32)
+    if len(n_support) == 2:
+        dual, intercept = -dual, -intercept
+    if probA is None or len(probA) == 0:
+        probA = probB = None
+    return from_numpy(
+        clf.support_vectors_, dual, intercept, n_support, kernel=clf.kernel,
+        gamma=float(_first_attr(clf, "_gamma", "gamma")), probA=probA, probB=probB,
+        device=device,
     )
 
 

@@ -25,6 +25,7 @@ scores the whole validation set.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -39,7 +40,7 @@ from radarml_tpu_torch.parallel.mesh import local_mesh
 logger = logging.getLogger(__name__)
 
 __all__ = ["TrainConfig", "weighted_xent_loss", "seeded_generator", "make_cnn_step",
-           "all_reduce_grads", "train_cnn"]
+           "all_reduce_grads", "deterministic_cudnn", "train_cnn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +120,20 @@ def all_reduce_grads(mesh, params) -> None:
         off += g.numel()
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Within the block cuDNN takes deterministic algorithms (benchmark
+    off), so that one device repeats a run bit for bit; the settings are
+    restored after."""
+    b = torch.backends.cudnn
+    saved = b.deterministic, b.benchmark
+    b.deterministic, b.benchmark = True, False
+    try:
+        yield
+    finally:
+        b.deterministic, b.benchmark = saved
+
+
 def _clone_state(model) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
@@ -142,7 +157,9 @@ def train_cnn(
     With `checkpoint_dir`, a checkpoint (live and best parameters,
     optimizer state, epoch, early-stop state, history) is written every
     `checkpoint_every` epochs and at the end; `resume=True` continues from
-    the latest one and reproduces the uninterrupted run.
+    the latest one and reproduces the uninterrupted run. Such a run takes
+    cuDNN's deterministic algorithms, so that on the card too the resumed
+    run equals an uninterrupted one that checkpoints.
 
     With a mesh of several data ranks the training is data parallel (see
     the module docstring; the batch size must divide by the data ranks),
@@ -225,36 +242,41 @@ def train_cnn(
     start = epoch
     width = model.dense_width
     t0 = time.perf_counter()
-    while epoch < E and stale < patience:
-        gen = seeded_generator(dev, config.seed, epoch)
-        batches = torch.as_tensor(perms[epoch], device=dev)
-        losses = torch.empty(n_batches, device=dev)
-        accs = torch.empty(n_batches, device=dev)
-        for b in range(n_batches):
-            idx = batches[b][rows]
-            masks = dropout_masks(2, (bs, width), model.dropout_rate, gen)
-            if masks is not None:
-                masks = [m[rows] for m in masks]
-            losses[b], accs[b] = step(Xd.index_select(0, idx), yd.index_select(0, idx),
-                                      masks)
-        row = [losses.mean(), accs.mean()]
-        if has_val:
-            with torch.no_grad():
-                logits = model(Xv)
-            nll = -torch.log_softmax(logits, -1).gather(1, yv[:, None])[:, 0]
-            row += [nll.mean(), (logits.argmax(-1) == yv).to(torch.float32).mean()]
-        else:
-            row += [torch.tensor(float("nan"), device=dev)] * 2
-        hist[epoch] = torch.stack(row).cpu().numpy()  # the epoch's one host read
-        metric = hist[epoch, 2] if has_val else hist[epoch, 0]
-        if metric < best_val:
-            best, best_val, stale = _clone_state(model), float(metric), 0
-        else:
-            stale += 1
-        epoch += 1
-        if store is not None and writer and ((epoch - start) % max(int(checkpoint_every), 1) == 0
-                                  or epoch == E or stale >= patience):
-            save()
+    # A run that checkpoints or resumes takes cuDNN's deterministic
+    # algorithms, so that the resumed run replays the uninterrupted one
+    # on the card too (the default ones may sum in another order each run).
+    replay = deterministic_cudnn() if checkpoint_dir is not None else contextlib.nullcontext()
+    with replay:
+        while epoch < E and stale < patience:
+            gen = seeded_generator(dev, config.seed, epoch)
+            batches = torch.as_tensor(perms[epoch], device=dev)
+            losses = torch.empty(n_batches, device=dev)
+            accs = torch.empty(n_batches, device=dev)
+            for b in range(n_batches):
+                idx = batches[b][rows]
+                masks = dropout_masks(2, (bs, width), model.dropout_rate, gen)
+                if masks is not None:
+                    masks = [m[rows] for m in masks]
+                losses[b], accs[b] = step(Xd.index_select(0, idx), yd.index_select(0, idx),
+                                          masks)
+            row = [losses.mean(), accs.mean()]
+            if has_val:
+                with torch.no_grad():
+                    logits = model(Xv)
+                nll = -torch.log_softmax(logits, -1).gather(1, yv[:, None])[:, 0]
+                row += [nll.mean(), (logits.argmax(-1) == yv).to(torch.float32).mean()]
+            else:
+                row += [torch.tensor(float("nan"), device=dev)] * 2
+            hist[epoch] = torch.stack(row).cpu().numpy()  # the epoch's one host read
+            metric = hist[epoch, 2] if has_val else hist[epoch, 0]
+            if metric < best_val:
+                best, best_val, stale = _clone_state(model), float(metric), 0
+            else:
+                stale += 1
+            epoch += 1
+            due = (epoch - start) % max(int(checkpoint_every), 1) == 0
+            if store is not None and writer and (due or epoch == E or stale >= patience):
+                save()
     wall = time.perf_counter() - t0
     model.load_state_dict(best)
 

@@ -128,23 +128,29 @@ def test_neural_artifacts_are_not_ported(tmp_path, kind, item):
 
 
 def test_sklearn_pickles_are_refused_before_import(tmp_path, monkeypatch):
-    """A reference sklearn pickle names A4, and the loader refuses its
-    classes before importing anything of sklearn."""
+    """Reference sklearn pickles load, and no sklearn module is imported
+    (the name is from before they were ported, ROADMAP A4): the SVC loads
+    as the JAX loader loads it. A dict of another format gives {} from
+    load_model_meta and is no model; a class outside the allow-list is
+    refused before it is imported."""
     from sklearn.svm import SVC
 
     path = tmp_path / "sk.pkl"
     clf = SVC(kernel="rbf").fit(np.eye(4), [0, 1, 0, 1])
     with open(path, "wb") as fp:
         pickle.dump(clf, fp)
+    jm, _ = jcli.load_model(str(path))
     for name in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
         monkeypatch.delitem(sys.modules, name)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tcli.load_model(str(path), device="cpu")
+    tm, tcal = tcli.load_model(str(path), device="cpu")
+    assert tcal is None and tm.n_support == jm.n_support == (2, 2)
+    np.testing.assert_array_equal(tm.dual_coef.numpy(), np.asarray(jm.dual_coef))
+    assert tcli.load_model_meta(str(path)) == {}
     assert not any(m.split(".")[0] == "sklearn" for m in sys.modules)
     with open(path, "wb") as fp:
         pickle.dump({"format": "other"}, fp)
     assert tcli.load_model_meta(str(path)) == {}
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="unrecognized model artifact"):
         tcli.load_model(str(path), device="cpu")
     with open(path, "wb") as fp:
         pickle.dump(tmp_path, fp)  # any class outside the allow-list

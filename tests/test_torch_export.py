@@ -325,15 +325,18 @@ def test_serve_cli_hot_reload_fused_artifact(tmp_path):
 
     labels_seen = []
     out = {}
+    # The loop serves until a "person" is logged after the re-export (or
+    # the deadline far above the export's seconds), not for fixed seconds.
+    stop = threading.Event()
 
     def run():
         out["res"] = serve_app.main([
             "--platform", "cpu", "--label_encoder", le_path,
             "--serving_artifact", art_path, "--scan_arena", arena_flag,
-            "--duration", "6", "--scan_period", "0.05",
+            "--duration", "120", "--scan_period", "0.05",
             "--max_batch", "4", "--min_proba", "0.0",
             "--reload_poll", "0.3", "--log_detections",
-        ])
+        ], stop=stop)
 
     class Grab(logging.Handler):
         def emit(self, record):
@@ -353,9 +356,14 @@ def test_serve_cli_hot_reload_fused_artifact(tmp_path):
         while "cat" not in labels_seen and time.time() < deadline:
             time.sleep(0.2)
         export_model(2)  # atomic re-export: swap to always-person
+        deadline = time.time() + 100
+        while "person" not in labels_seen and th.is_alive() and time.time() < deadline:
+            time.sleep(0.2)
+        stop.set()
         th.join(timeout=120)
         assert not th.is_alive()
     finally:
+        stop.set()
         log.removeHandler(grab)
 
     res = out["res"]

@@ -1,6 +1,10 @@
 """Drive the PyTorch port's predict, SVC, serving, training, neural, artifact, capture, multi-device and reference-pickle paths on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With --parent DIR (a tree of an earlier commit, e.g. unpacked by git
+archive), phase 6 also builds that tree's kernel sources and times them
+beside this tree's in the same process.
 
 Phases, one line of findings each; any failure raises (non-zero exit):
 
@@ -32,8 +36,15 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              (9, 13, 180) and B 5 at (5, 7, 9), integer and non-integer
              cubes; each table's error against float64 is at most 2x the
              plain version's + 1e-6 x max|oracle|, a second call gives the
-             same bits, and 8 classes, over the shared-memory limit at the
-             default arena, raise ValueError.
+             same bits. Past the earlier limits (one class group of 8 rows
+             in B1-B5; 7 classes and Z <= 256 in B7): B1-B5 at C2 10 / 16
+             / 18 / 32 (levels 2) and 9 / 16 (levels 1), B 1 / 7 / 64 /
+             133 at the default arena and B 7 / 64 at the finer scan
+             arenas 43x31x351, 22x31x351 and 43x61x351 (Z = 351: the
+             byte-copy path), each plane masked at one of them, equal to
+             their plain versions; B7 within its bars at C 8 / 9 / 16 and
+             at the finer arenas, B7's work plan (class groups, z-chunks)
+             equal to the host's mirror of it.
 4. slice   — the demo linear model (radarml_tpu_torch/assets/
              demo_linear.npz) scores 512 synthetic scans (4 target slots
              each) through RadarPredictor in exact, fast f32, fast int8,
@@ -62,10 +73,16 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              path's three float32 einsums on the same cube; the lookup and
              glookup kernels' at B 1 / 7 / 64 / 131 / 132 / 133 with their
              plans (and the glookup plan at y-groups 5 / 16 / 31, which is
-             one plan); and fused
+             one plan); fused
              (every tail) / fast int8 / fast f32 / pallas (bf16 and f32
              streams) / exact scans per second at B=4096 with inputs
-             resident on the card.
+             resident on the card; each table kernel's device time a call
+             (its CUDA launches summed, their count printed) and bound at
+             B=4096 and 64 at 9 classes (int8 C2 = 18: three class groups
+             in one launch; B7 two launches) and at 43x31x351 with 3
+             classes (B7 two z-chunks, two launches); with --parent, the parent's kernel sources beside
+             this tree's at B=4096 (the same bits, profiler device times in
+             the order parent, this, this, parent, twice).
 7. rbf     — the RBF Gram kernel against its plain version and a float64
              oracle, on scaled features of the SVC dataset (process_samples
              (scale=True) of make_dataset(1824, hardness=1.0)) and on
@@ -268,6 +285,20 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              process of its own (--mode fused, 128 synthetic scans) equal to
              a direct call, without importing sklearn. Its record is
              printed as a {"reference": ...} JSON line.
+17. shapes — the shapes past the table kernels' earlier limits, served:
+             a 5-class and a 9-class random linear model at the default
+             arena and the demo model at the 43x31x351 scan arena, B 64
+             and 4096 (64 synthetic scans tiled), 4 slots, through
+             exact / fast / fast int8 / fused (all five tails, and single)
+             / pallas (bf16, f32): finite outputs of the model's class
+             count, every fused split tail's decisions equal fast int8's
+             (probabilities within 1e-6), pallas decisions equal fast
+             f32's where the top-2 margin exceeds 1e-4, each kernel's
+             counter up by exactly its calls; the predict app in a process
+             of its own, --mode fused with split and single quantization
+             and --scan_arena 10,360,1,-42,42,2,-30,30,2 (the app has no
+             pallas mode), equal to direct calls. Its record is printed as
+             a {"shapes": ...} JSON line.
 
 Every phase's seconds are printed as it ends ([time] lines).
 
@@ -284,7 +315,10 @@ over the artifact serve loop, launches_export_serve); and each rank's
 over phase 15's sharded call, as launches_mesh ([rank 0, rank 1]; the
 int8 kernels on their tail's path, B7 on pallas, B6 on the SVC); and
 every kernel's over phase 16's calls on the reference pickles, as
-launches_reference. bound_ms is
+launches_reference; and over phase 17's calls at the new shapes, as
+launches_shapes (beside device_ms_shapes, phase 6's device ms a call
+there, with the CUDA launches a call).
+bound_ms is
 the larger of the bytes each kernel must move (every input read once,
 every output written once) over 3.35 TB/s and the operations its function
 needs over the card's peak for their type (int8 1,979 TOP/s; float32 67
@@ -315,6 +349,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -325,7 +360,12 @@ from radarml_tpu_torch.apps import common_cli  # noqa: E402
 from radarml_tpu_torch.apps import predict as predict_app  # noqa: E402
 from radarml_tpu_torch.apps import serve as serve_app  # noqa: E402
 from radarml_tpu_torch.apps import train as train_app  # noqa: E402
-from radarml_tpu_torch.core.arena import DEFAULT_ARENA, RADAR_MAX, derive_targets  # noqa: E402
+from radarml_tpu_torch.core.arena import (  # noqa: E402
+    DEFAULT_ARENA,
+    RADAR_MAX,
+    Arena,
+    derive_targets,
+)
 from radarml_tpu_torch.data.balance import balance_classes  # noqa: E402
 from radarml_tpu_torch.data.labels import LabelEncoder, filter_samples  # noqa: E402
 from radarml_tpu_torch.data.split import train_val_test_split  # noqa: E402
@@ -345,7 +385,9 @@ from radarml_tpu_torch.ops.features import FeatureSpec, process_samples  # noqa:
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
 from radarml_tpu_torch.train.gridsearch import SGD_PARAM_GRID, parameter_grid  # noqa: E402
 from radarml_tpu_torch.train.trainer import deterministic_cudnn  # noqa: E402
-from radarml_tpu_torch.utils.profiling import TRACES, kernel_device_ms  # noqa: E402
+from radarml_tpu_torch.utils import kernel_probe  # noqa: E402
+from radarml_tpu_torch.utils.profiling import (  # noqa: E402
+    TRACES, kernel_device_calls, kernel_device_ms)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(HERE, "radarml_tpu_torch", "assets", "demo_linear.npz")
@@ -618,11 +660,12 @@ class DetectionLog(logging.Handler):
                 first()
 
 
-def synthetic_scans(n: int, seed: int):
-    """The first n scans of `--driver synthetic --driver_seed seed`, as
-    the apps see them: (cubes, target lists)."""
+def synthetic_scans(n: int, seed: int, arena=DEFAULT_ARENA):
+    """The first n scans of `--driver synthetic --driver_seed seed` (at
+    the apps' --scan_arena `arena`), as the apps see them: (cubes, target
+    lists)."""
     cubes, lists = [], []
-    with RadarSession(SyntheticRadar(arena=DEFAULT_ARENA, seed=seed, max_targets=2)) as r:
+    with RadarSession(SyntheticRadar(arena=arena, seed=seed, max_targets=2)) as r:
         for _ in range(n):
             r.trigger()
             lists.append([(t.x, t.y, t.z) for t in r.get_sensor_targets()])
@@ -2766,7 +2809,387 @@ def reference_in(d, dev, smi) -> dict:
     return res
 
 
-def main() -> None:
+# -- the shapes past the table kernels' earlier limits (phases 3, 6, 17) ----------
+
+# The finer scan arenas: tests/test_apps.py:580 (the predict app's
+# --scan_arena 10,360,1,-42,42,2,-30,30,2), tests/test_pipeline.py:388, and
+# every axis at half the default step.
+FINE_ARENAS = {"43x31x351": dict(r_res=1.0, theta_res=2.0), "22x31x351": dict(r_res=1.0),
+               "43x61x351": dict(r_res=1.0, theta_res=2.0, phi_res=1.0)}
+FINE_SPEC = "10,360,1,-42,42,2,-30,30,2"  # FINE_ARENAS["43x31x351"] as the apps take it
+# (class rows C2, levels) of phase 3's cases past one class group of 8 rows
+SHAPE_ROWS = ((10, 2), (16, 2), (18, 2), (32, 2), (9, 1), (16, 1))
+# The predict app twice in one process of its own, --mode fused with split
+# and with single quantization (the app has no pallas mode, in the JAX
+# package or the port): both results as one JSON line.
+PREDICT_TWICE = """import json, sys
+from radarml_tpu_torch.apps import predict
+argv = sys.argv[1:] + ["--mode", "fused", "--fused_quant"]
+print(json.dumps({q: predict.main(argv + [q]) for q in ("split", "single")}))
+"""
+
+
+def shape_parity(dev, rng) -> str:
+    """Phase 3's cases past the earlier limits. B1-B5 equal their plain
+    versions (torch.equal) at C2 10 / 16 / 18 / 32 (levels 2) and 9 / 16
+    (levels 1): B 1 / 7 / 64 / 133 at the default arena, B 7 / 64 at the
+    three finer arenas (Z = 351: the byte-copy path), each plane masked
+    in turn at 43 x 31 x 351 with C2 = 10; each shape has a plan (class
+    rows a group, slab width). B7 within its bars at C 8 / 9 / 16 (class
+    groups) and at the finer arenas (two z-chunks a scan), its plan the
+    host mirror's (ops/score.native_plan). Returns the progress line."""
+    dims = DEFAULT_ARENA.grid_shape
+    fine = {k: Arena(**v).grid_shape for k, v in FINE_ARENAS.items()}
+    cases = [(dims, B, c2, lv, None) for c2, lv in SHAPE_ROWS for B in (1, 7, SMALL_B, 133)]
+    cases += [(fd, B, c2, lv, None) for fd in fine.values() for c2, lv in SHAPE_ROWS
+              for B in (7, SMALL_B)]
+    cases += [(fine["43x31x351"], 7, 10, 2, m) for m in (0, 1, 2)]
+    lib = i8_score._library()
+    n_runs, err = 0, 0
+    for cdims, B, c2, levels, masked in cases:
+        w = i8_tails.build_grouped_weights(random_quant(rng, cdims, levels, masked, C=c2 // levels),
+                                           cdims, min(16, cdims[1]), levels=levels, device=dev)
+        planes = tuple(q is not None for q in (w.q_xz, w.q_yz, w.q_xy))
+        rows = lib.i8_score_group_rows(*cdims, c2, *planes)
+        check(1 <= rows <= 8 and lib.i8_score_slab_width(*cdims, c2, *planes) >= 1,
+              f"no int8 plan at dims={cdims} C2={c2}")
+        cube = torch.from_numpy(rng.integers(-128, 128, (B,) + cdims, dtype=np.int8)).to(dev)
+        ijk = slots(rng, cdims, B, 4, dev)
+        valid = torch.from_numpy(rng.random((B, 4)) < 0.75).to(dev)
+        runs = [("onepass_tables_combined_i8",
+                 (lambda: i8_score.onepass_tables_combined_i8(cube, w),
+                  lambda: i8_score.onepass_tables_combined_i8_ref(cube, w)))]
+        runs += [(name, tail_fns(name, w, cube, ijk,
+                                 valid if name == "onepass_scores_i8" else None))
+                 for name in TAIL_KERNELS]
+        for name, (kernel, plain) in runs:
+            got = kernel()
+            torch.cuda.synchronize()
+            for g, r in zip(got, plain()):
+                err = max(err, int((g.long() - r.long()).abs().max()))
+                check(g.shape == r.shape and torch.equal(g, r),
+                      f"{name} != plain at dims={cdims} B={B} C2={c2} levels={levels} "
+                      f"masked={masked}")
+            if masked is not None:
+                check(not got[masked].any(), f"{name}: masked plane gave non-zero")
+            n_runs += 1
+    native_cases = ([(dims, B, C) for C in (8, 9, 16) for B in (7, 300)]
+                    + [(fd, B, C) for fd in fine.values() for C in (3, 5) for B in (7, SMALL_B)]
+                    + [(fine["43x31x351"], 7, 9)])
+    nlib = score._library()
+    cgen = torch.Generator(device=dev).manual_seed(17)
+    worst = 0.0
+    for ndims, B, C in native_cases:
+        plan = (nlib.native_score_plan_zchunk(*ndims, C), nlib.native_score_plan_group(*ndims, C))
+        check(plan == score.native_plan(*ndims, C),
+              f"B7 plan {plan} != the host mirror's at dims={ndims} C={C}")
+        X, Y, Z = ndims
+        tm = score.native_templates(*[rng.normal(size=(C,) + sh).astype(np.float32) * 0.01
+                                      for sh in ((X, Z), (Y, Z), (X, Y))], device=dev)
+        cube = (torch.rand((B,) + ndims, generator=cgen, device=dev) * 255).to(torch.bfloat16)
+        for t, (ek, er, omax, _, same) in zip(("m1", "m2", "m3"), native_errors(cube, tm)):
+            where = f"B7 {t} at dims={ndims} B={B} C={C}"
+            check(same, f"{where}: a second call gave other bits")
+            check(ek <= 2.0 * er + 1e-6 * omax,
+                  f"{where}: error vs float64 {ek:.3e} > 2x plain {er:.3e} + 1e-6 x {omax:.3e}")
+            worst = max(worst, ek / max(2.0 * er + 1e-6 * omax, 1e-30))
+    plans = {f"{k} C2={c2}": (lib.i8_score_group_rows(*fd, c2, 1, 1, 1),
+                              lib.i8_score_slab_width(*fd, c2, 1, 1, 1))
+             for k, fd in fine.items() for c2 in (6, 10)}
+    return (f"past the earlier limits: B1-B5 equal their plain versions in {n_runs} runs "
+            f"({len(cases)} cases: C2 10/16/18/32 at levels 2 and 9/16 at levels 1, B "
+            f"1/7/64/133 at {dims} and B 7/64 at {', '.join(fine)}, each plane masked at "
+            f"43x31x351 C2=10; max_abs_err {err}); plans (rows a class group, slab width) "
+            f"{plans}; B7 within its bars in {len(native_cases)} cases (C 8/9/16 at {dims}, "
+            f"C 3/5 at the finer arenas, C 9 at 43x31x351; worst error at "
+            f"{worst:.2f} of its bar), each B7 plan the host mirror's")
+
+
+def shape_timing(dev) -> dict:
+    """Phase 6 at the new shapes: each table kernel's device time at
+    B=4096 and B=64 with its bound, at 9 classes on the default arena (the
+    int8 kernels at C2 = 18, three class groups of 6 rows; B7 at C = 9, two
+    groups) and at 43 x 31 x 351 with 3 classes (C2 = 6; B7 two z-chunks).
+    "device" is the device time of one op call, summed over the CUDA
+    launches its plan makes ("launches": one for B1-B5, two for B7 at
+    both shapes), so that it stands beside the call's bound. Random int8 /
+    bf16 cubes and templates, 4 slots a scan. Returns {shape: {name: {B:
+    {"device": ms, "launches": n, "bound": ms, "bound_by": ...}}}}."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+    out = {}
+    for shape, dims, C in (("9_classes", DEFAULT_ARENA.grid_shape, 9),
+                           ("43x31x351", Arena(**FINE_ARENAS["43x31x351"]).grid_shape, 3)):
+        X, Y, Z = dims
+        cube = torch.randint(-128, 128, (BIG,) + dims, generator=gen, device=dev,
+                             dtype=torch.int8)
+        bf = (torch.rand((BIG,) + dims, generator=gen, device=dev) * 255).to(torch.bfloat16)
+        ijk = torch.stack([torch.randint(0, n, (BIG, 4), generator=gen, device=dev)
+                           for n in dims], -1).to(torch.int32)
+        w = i8_tails.build_grouped_weights(random_quant(rng, dims, 2, C=C), dims, 16, device=dev)
+        tm = score.native_templates(*[torch.randn((C,) + sh, generator=gen, device=dev) * 0.01
+                                      for sh in ((X, Z), (Y, Z), (X, Y))])
+        res = {}
+        for B in (BIG, SMALL_B):
+            c, k = cube[:B], ijk[:B]
+            fns = {"onepass_tables_combined_i8":
+                   lambda c=c: i8_score.onepass_tables_combined_i8(c, w)}
+            for name in TAIL_KERNELS:
+                fns[name] = tail_fns(name, w, c, k, None)[0]
+            fns["native_tables"] = lambda b=bf[:B]: score.native_tables(b, tm)
+            got = kernel_device_calls(fns, {n: KERNEL_SYMBOLS[n] for n in fns}, reps=5,
+                                      log=retrace)
+            for name, (v, n) in got.items():
+                b_ms, b_by = (native_bound(B, dims, C) if name == "native_tables"
+                              else int8_bound(name, B, dims, 2 * C, 4))
+                res.setdefault(name, {})[B] = {"device": v, "launches": n, "bound": b_ms,
+                                               "bound_by": b_by}
+        out[shape] = res
+        del cube, bf
+    return out
+
+
+def build_parent(parent: str, tmp: str) -> dict:
+    """The parent tree's i8_score.cu and native_score.cu (PARENT/radarml_tpu_torch/
+    ops/csrc), built with the port's nvcc flags into `tmp` by
+    utils/kernel_probe.build_variants and bound by the wrappers' own
+    `_bind`: name -> ctypes library."""
+    csrc = os.path.join(parent, "radarml_tpu_torch", "ops", "csrc")
+    libs = {}
+    for name, bind in (("i8_score", i8_score._bind), ("native_score", score._bind)):
+        with open(os.path.join(csrc, f"{name}.cu")) as f:
+            text = f.read()
+        libs[name] = bind(kernel_probe.build_variants(name, {}, Path(tmp),
+                                                      {"parent": text})["parent"])
+    return libs
+
+
+def parent_compare(dev, smi, parent: str, cube, w, ijk, bf16, tm) -> dict:
+    """The parent's kernel sources beside this tree's in one process, at
+    B=4096 on phase 6's inputs (the demo model's templates, the tiled demo
+    scans): the five int8 kernels and B7 through their C entries, the
+    same bits from both, then device times from profiler traces taken in
+    the order parent, this tree, this tree, parent, twice over."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="parent_kernels_") as tmp:
+        parent_libs = build_parent(parent, tmp)
+    build_s = time.perf_counter() - t0
+    libs = {"parent": parent_libs, "this tree": {"i8_score": i8_score._library(),
+                                                 "native_score": score._library()}}
+    B = cube.shape[0]
+    X, Y, Z, _ = w.dims
+    C2, T = w.c2, ijk.shape[1]
+    kidx = ijk[..., 2].contiguous()
+    qp = [q.data_ptr() for q in (w.q_xz, w.q_yz, w.q_xy)]
+    P, XS = i8_tails.lookup_plan_on_card(B, w, "lookup")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(parent_libs["i8_score"].i8_score_slab_width(X, Y, Z, C2, 1, 1, 1)
+          == libs["this tree"]["i8_score"].i8_score_slab_width(X, Y, Z, C2, 1, 1, 1),
+          "the parent's whole-scan slab width differs at the default arena")
+
+    def calls(lib, nlib):
+        def outs(*shapes):
+            return [torch.empty(sh, dtype=torch.int32, device=dev) for sh in shapes]
+
+        def run(fn, extra, o, *ints):
+            err = getattr(lib, fn)(cube.data_ptr(), *qp, *extra, *[t.data_ptr() for t in o],
+                                   B, X, Y, Z, C2, *ints, stream)
+            check(err == 0, f"{fn} failed: CUDA error {err}")
+            return o
+
+        tabs = ((B, C2, Y), (B, C2, X), (B, Z, C2))
+
+        def native():
+            m = [torch.empty((B, tm.dims[3], n), dtype=torch.float32, device=dev)
+                 for n in (Y, X, Z)]
+            err = nlib.native_score_tables(bf16.data_ptr(), tm.t_xz.data_ptr(),
+                                           tm.t_yz.data_ptr(), tm.t_xy.data_ptr(),
+                                           *[t.data_ptr() for t in m], B, X, Y, Z, tm.dims[3],
+                                           stream)
+            check(err == 0, f"native_score_tables failed: CUDA error {err}")
+            return m
+
+        return {
+            "onepass_tables_combined_i8": lambda: run("i8_score_onepass_tables", (), outs(*tabs)),
+            "onepass_tables_i8": lambda: run("i8_score_lookup_tables", (), outs(*tabs), XS, P),
+            "onepass_tables_grouped_i8": lambda: run("i8_score_grouped_tables", (), outs(*tabs),
+                                                     XS, P),
+            "onepass_tables_sel_i8": lambda: run("i8_score_sel_tables", (kidx.data_ptr(),),
+                                                 outs(tabs[0], tabs[1], (B, T, C2)), T),
+            "onepass_scores_i8": lambda: run("i8_score_sel3_scores", (ijk.data_ptr(), None),
+                                             outs(*[(B, T, C2)] * 3), T),
+            "native_tables": native,
+        }
+
+    fns = {tag: calls(v["i8_score"], v["native_score"]) for tag, v in libs.items()}
+    for name in fns["parent"]:
+        a, b = fns["parent"][name](), fns["this tree"][name]()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{name}: the parent's sources and this tree's give other bits at the default")
+    times = {tag: {name: [] for name in fns[tag]} for tag in fns}
+    for tag in ("parent", "this tree", "this tree", "parent") * 2:
+        ms = kernel_device_ms(fns[tag], {n: KERNEL_SYMBOLS[n] for n in fns[tag]}, reps=20,
+                              log=retrace)
+        for name, v in ms.items():
+            times[tag][name].append(v)
+    say("timing", f"B={B} on {smi}, the parent's kernel sources ({parent}, built in "
+        f"{build_s:.1f} s) beside this tree's, same bits, device ms in the order P N N P "
+        "twice: " + "; ".join(
+            f"{name} parent {'/'.join(f'{v:.4f}' for v in times['parent'][name])}, this tree "
+            f"{'/'.join(f'{v:.4f}' for v in times['this tree'][name])}"
+            for name in times["parent"]))
+    return times
+
+
+def phase_shapes(dev, smi) -> dict:
+    """Phase 17: the shapes past the table kernels' earlier limits served
+    on the card, with the predict app's files in a temporary directory."""
+    with tempfile.TemporaryDirectory() as d:
+        return shapes_in(d, dev, smi)
+
+
+def shapes_in(d, dev, smi) -> dict:
+    t_phase = time.perf_counter()
+    g = dict(np.load(ASSET))
+    rng = np.random.default_rng(17)
+    fine = Arena(**FINE_ARENAS["43x31x351"])
+    F = DEFAULT_ARENA.feature_length
+    models = {"demo_43x31x351": (fine, g["coef"], g["intercept"], g["calib_a"], g["calib_b"],
+                                 float(g["min_proba"]))}
+    for C in (5, 9):
+        models[f"{C}_classes"] = (DEFAULT_ARENA, rng.normal(size=(C, F)).astype(np.float32) * 0.01,
+                                  rng.normal(size=C).astype(np.float32),
+                                  -rng.uniform(0.5, 2.0, size=C).astype(np.float32),
+                                  (rng.normal(size=C) * 0.1).astype(np.float32), 0.3)
+    # The predict app in a process of its own on the demo model at the
+    # finer scan arena, --mode fused (split and single), running while the
+    # models below are served; its results are held to direct calls after.
+    lin, le = os.path.join(d, "linear.pkl"), os.path.join(d, "le.pkl")
+    classes = [str(c) for c in g["classes"]]
+    common_cli.save_label_encoder(le, LabelEncoder(tuple(classes)))
+    common_cli.save_model(lin, "linear", coef=g["coef"], intercept=g["intercept"],
+                          calib_a=g["calib_a"], calib_b=g["calib_b"], classes=classes)
+    n_app, minp_app = 16, 0.5
+    t_app = time.perf_counter()
+    app_out, app_err = os.path.join(d, "app.out"), os.path.join(d, "app.err")
+    with open(app_out, "w") as fo, open(app_err, "w") as fe:  # files: a pipe could fill
+        child = subprocess.Popen(
+            [sys.executable, "-c", PREDICT_TWICE, "--svm_model", lin, "--label_encoder", le,
+             "--min_proba", str(minp_app), "--log_file", os.path.join(d, "predict.log"),
+             "--driver", "synthetic", "--driver_seed", "1234", "--scan_arena", FINE_SPEC,
+             "--batch_scans", str(n_app), "--num_scans", str(n_app), "--logging_level",
+             "warning"], cwd=d, stdout=fo, stderr=fe, env={**os.environ, "PYTHONPATH": HERE})
+    before = launch_counts()
+    calls = dict.fromkeys(before, 0)
+    rows, model_s = {}, {}
+    for mname, (arena, coef, icpt, ca, cb, minp) in models.items():
+        t_model = time.perf_counter()
+        model, calib = from_numpy(coef, icpt, ca, cb, device=dev)
+        kw = dict(train_arena=DEFAULT_ARENA, scan_arena=arena, model=model, calibration=calib,
+                  min_proba=minp, device=dev)
+        preds = {"exact": RadarPredictor(mode="exact", **kw),
+                 "fast": RadarPredictor(mode="fast", **kw),
+                 "fast_i8": RadarPredictor(mode="fast", cube_dtype="int8", **kw),
+                 "fused_single": RadarPredictor(mode="fused", fused_quant="single", **kw),
+                 "pallas": RadarPredictor(mode="pallas", cube_dtype="bfloat16", **kw),
+                 "pallas_f32": RadarPredictor(mode="pallas", **kw)}
+        for tail, _ in [("combo", None)] + list(TAIL_KERNELS.values()):
+            preds[f"fused_{tail}"] = RadarPredictor(mode="fused", fused_tail=tail, **kw)
+        cubes, targets = make_scan_batch(SMALL_B, arena=arena, seed=int(g["scan_seed"]))
+        cubes = np.rint(cubes)
+        xyz, valid = pad_targets([[(t.x, t.y, t.z)] for t in targets], max_targets=4)
+        reps = BIG // SMALL_B
+        src64 = {"f32": torch.from_numpy(cubes.astype(np.float32)).to(dev),
+                 "i8": preds["fused_combo"].pack_host(cubes.astype(np.uint8)).to(dev)}
+        src64["bf16"] = src64["f32"].to(torch.bfloat16)
+        xyz64, valid64 = torch.from_numpy(xyz).to(dev), torch.from_numpy(valid).to(dev)
+        for B in (SMALL_B, BIG):
+            src = src64 if B == SMALL_B else {k: v.repeat(reps, 1, 1, 1) for k, v in src64.items()}
+            bxyz = xyz64 if B == SMALL_B else xyz64.repeat(reps, 1, 1)
+            bvalid = valid64 if B == SMALL_B else valid64.repeat(reps, 1)
+            out = {}
+            for name, p in preds.items():
+                x = src["i8" if p.mode == "fused" else "bf16" if name == "pallas" else "f32"]
+                res = p(x, bxyz, bvalid)
+                out[name] = [r.cpu().numpy() for r in res]
+                if p.mode == "fused":
+                    calls[FUSED_KERNEL[p.fused_tail]] += 1
+                elif p.mode == "pallas":
+                    calls["fused_native_score"] += 1
+            C = coef.shape[0]
+            for name, (pr, best, proba) in out.items():
+                check(pr.shape == (B, 4) and proba.shape == (B, 4, C)
+                      and np.isfinite(proba).all() and np.isfinite(best).all(),
+                      f"{mname} {name} B={B}: shapes / finite")
+                check((pr[~np.asarray(bvalid.cpu())] == -1).all(),
+                      f"{mname} {name} B={B}: padded slots not UNKNOWN")
+            d_fused = {}
+            for tail in ["combo"] + [t for t, _ in TAIL_KERNELS.values()]:
+                f = out[f"fused_{tail}"]
+                check(np.array_equal(f[0], out["fast_i8"][0]),
+                      f"{mname} B={B}: fused {tail} decisions != fast int8's")
+                d_fused[tail] = float(np.abs(f[2] - out["fast_i8"][2]).max())
+                check(d_fused[tail] <= 1e-6, f"{mname} B={B}: fused {tail} proba {d_fused[tail]}")
+            ok = margin_ok(out["fast"][2], out["fast"][1], minp)
+            for name in ("pallas", "pallas_f32"):
+                check(np.array_equal(out[name][0][ok], out["fast"][0][ok]),
+                      f"{mname} B={B}: {name} decisions != fast f32's where the margin > 1e-4")
+            rows[f"{mname} B={B}"] = {
+                "fused_vs_fast_i8": max(d_fused.values()),
+                "pallas_vs_fast": float(np.abs(out["pallas_f32"][2] - out["fast"][2]).max()),
+                "decided": int(ok.sum())}
+        model_s[mname] = time.perf_counter() - t_model
+    launched = rise(before)
+    check(launched == calls, f"phase 17 launches {launched}, the calls imply {calls}")
+
+    # The predict app's process ends here; its results against direct calls.
+    child.wait(timeout=600)
+    app_s = time.perf_counter() - t_app
+    with open(app_out) as fo, open(app_err) as fe:
+        out_app, err_app = fo.read(), fe.read()
+    check(child.returncode == 0, f"the predict app failed: {err_app[-2000:]}")
+    app = json.loads(out_app.strip().splitlines()[-1])
+    model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"], device=dev)
+    scans, lists = synthetic_scans(n_app, 1234, arena=fine)
+    axyz, avalid = pad_targets(lists, 4)
+    d_app = {}
+    for quant in ("split", "single"):
+        direct = RadarPredictor(DEFAULT_ARENA, fine, model, calib, min_proba=minp_app,
+                                mode="fused", fused_quant=quant, device=dev)
+        pr, best, _ = (r.cpu().numpy() for r in direct(scans, axyz, avalid))
+        want_app = [("Unknown" if pr[b, t] == -1 else classes[int(pr[b, t])], float(best[b, t]))
+                    for b in range(n_app) for t in range(4) if avalid[b, t]]
+        got_app = app[quant]
+        check(len(got_app) > 0 and [m for m, _ in got_app] == [m for m, _ in want_app],
+              f"the predict app --fused_quant {quant} --scan_arena {FINE_SPEC}: names != direct")
+        d_app[quant] = float(np.abs(np.array([p for _, p in got_app])
+                                    - np.array([p for _, p in want_app])).max())
+        check(d_app[quant] <= 1e-6, f"the predict app --fused_quant {quant} vs direct "
+              f"{d_app[quant]}")
+    res = {"rows": rows, "launches": launched, "model_s": model_s, "predict_app_s": app_s,
+           "predict_app_targets": {m: len(app[m]) for m in app}, "predict_app_delta": d_app,
+           "s": time.perf_counter() - t_phase}
+    say("shapes", f"on {smi}: a 5-class and a 9-class linear model at the default arena and "
+        f"the demo model at the 43x31x351 scan arena ({FINE_SPEC}), B 64 and 4096 (64 "
+        "synthetic scans tiled), 4 slots, through exact / fast / fast int8 / fused (combo, "
+        "lookup, glookup, sel, sel3; single) / pallas (bf16, f32): every fused split tail == "
+        "fast int8 decisions, pallas == fast f32 decisions where the margin > 1e-4; "
+        + "; ".join(f"{k}: fused-fast_i8 proba {v['fused_vs_fast_i8']:.2e}, pallas-fast "
+                    f"{v['pallas_vs_fast']:.2e}, {v['decided']} decided" for k, v in rows.items())
+        + "; launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
+        + " (each its calls); s a model: " + ", ".join(f"{k} {v:.1f}" for k, v in model_s.items())
+        + f"; predict --mode fused --fused_quant split / single --scan_arena "
+        f"{FINE_SPEC} in its own process ({app_s:.1f} s): {res['predict_app_targets']} targets "
+        f"== direct calls (proba delta {d_app}); phase 17 in {res['s']:.1f} s")
+    return res
+
+
+def main(argv) -> None:
+    """`argv`: none, or --parent DIR: a tree of the parent commit (e.g.
+    unpacked by git archive) whose kernel sources phase 6 builds and times
+    beside this tree's."""
+    parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
     marks = [time.perf_counter()]
 
     def lap(done: str) -> None:
@@ -2911,23 +3334,15 @@ def main() -> None:
                   f"{where}: error vs float64 {ek:.3e} > 2x plain {er:.3e} + 1e-6 x {omax:.3e}")
             native_err, native_f64 = max(native_err, d), max(native_f64, ek)
             worst = max(worst, (ek / max(er, 1e-30), where))
-    C_over = 8
-    tm6 = score.native_templates(
-        *[torch.zeros((C_over,) + s) for s in ((dims[0], dims[2]), (dims[1], dims[2]),
-                                               (dims[0], dims[1]))], device=dev)
-    try:
-        score.native_tables(torch.zeros((1,) + dims, dtype=torch.bfloat16, device=dev), tm6)
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError(f"B7 took {C_over} classes over its shared-memory limit")
     say("kernel", f"B7 tables within 2x the plain float32 version's float64 error "
         f"(+1e-6 x max|oracle|) in {len(native_cases)} cases (B 1/7/64/300/4096 at "
         f"{dims} with C 3/2, B 7 with C 1/5/7 and a view 2 bytes off alignment, "
         f"(9, 13, 180) B 33, (5, 7, 9) B 5; integer and non-integer cubes), the same "
         f"bits on a second call; max |kernel - plain| {native_err:.3e}, "
         f"max |kernel - float64| {native_f64:.3e}, largest ratio to plain's error "
-        f"{worst[0]:.2f} ({worst[1]}); {C_over} classes refused: {refused}")
+        f"{worst[0]:.2f} ({worst[1]})")
+    t0 = time.perf_counter()
+    say("kernel", shape_parity(dev, rng) + f"; in {time.perf_counter() - t0:.1f} s")
 
     lap("phase 3 (kernel)")
     # -- 4. the slice -----------------------------------------------------
@@ -3184,6 +3599,21 @@ def main() -> None:
         f"ms vs plain {kernel_single['plain']:.4f} ms; "
         + "; ".join(f"{k} {rates[k]:.0f} scans/s ({step_ms[k]:.4f} ms/batch)"
                     for k in inputs))
+    t0 = time.perf_counter()
+    shape_ms = shape_timing(dev)
+    say("timing", f"on {smi}, device ms a call (its CUDA launches summed) with the bound "
+        "beside it, B=4096 / B=64 (random cubes and templates, 4 slots): " + "; ".join(
+            f"{shape}: " + ", ".join(
+                f"{name} {t[BIG]['device']:.4f} / {t[SMALL_B]['device']:.4f} in "
+                f"{t[BIG]['launches']} / {t[SMALL_B]['launches']} launches a call (bound "
+                f"{t[BIG]['bound']:.4f} / {t[SMALL_B]['bound']:.4f}, {t[BIG]['bound_by']})"
+                for name, t in res.items())
+            for shape, res in shape_ms.items()) + f"; in {time.perf_counter() - t0:.1f} s")
+    if parent is None:
+        say("timing", "no --parent tree given: the parent's kernel sources are not timed")
+    else:
+        parent_ms = parent_compare(dev, smi, parent, packed, w_tails, tijk, bf16_all, tm_demo)
+        print(json.dumps({"parent": parent_ms}), flush=True)
 
     lap("phase 6 (timing)")
     # -- 7. rbf kernel vs plain vs float64 --------------------------------
@@ -3464,6 +3894,11 @@ def main() -> None:
     print(json.dumps({"reference": ref}), flush=True)
     lap("phase 16 (reference pickles)")
 
+    # -- 17. the shapes past the table kernels' earlier limits -----------------
+    shapes = phase_shapes(dev, smi)
+    print(json.dumps({"shapes": shapes}), flush=True)
+    lap("phase 17 (shapes)")
+
     def int8_record(name, source, replaces, n_launched, err):
         big, small = int8_ms[BIG][name], int8_ms[SMALL_B][name]
         return {
@@ -3477,6 +3912,8 @@ def main() -> None:
             "launches_export": export["launches_export"][name],
             "launches_mesh": mesh["launches_mesh"][name],
             "launches_reference": ref["launches"][name],
+            "launches_shapes": shapes["launches"][name],
+            "device_ms_shapes": {shape: res[name] for shape, res in shape_ms.items()},
         }
 
     records = [int8_record("onepass_tables_combined_i8", KERNEL_SOURCE, REPLACES,
@@ -3505,6 +3942,8 @@ def main() -> None:
         "launches_export": export["launches_export"]["fused_native_score"],
         "launches_mesh": mesh["launches_mesh"]["fused_native_score"],
         "launches_reference": ref["launches"]["fused_native_score"],
+        "launches_shapes": shapes["launches"]["fused_native_score"],
+        "device_ms_shapes": {shape: res["native_tables"] for shape, res in shape_ms.items()},
     })
     rbf_b, rbf_by = rbf_bound(queries, S)
     records.append({
@@ -3540,6 +3979,7 @@ def main() -> None:
         "launches_export": export["launches_export"]["rbf_gram"],
         "launches_mesh": mesh["launches_mesh"]["rbf_gram"],
         "launches_reference": ref["launches"]["rbf_gram"],
+        "launches_shapes": shapes["launches"]["rbf_gram"],
     })
     say("profiler", f"{TRACES['taken']} traces taken for device times, {TRACES['lacking']} "
         f"of them without a kernel's records (each taken again)")
@@ -3554,4 +3994,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2:])
     else:
-        main()
+        main(sys.argv[1:])

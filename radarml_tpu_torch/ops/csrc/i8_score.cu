@@ -40,20 +40,33 @@
 //
 // What the design does about it: all three contractions run on the int8
 // tensor cores as mma.sync m16n8k32 (s8 x s8 -> s32), the templates as the
-// B operand (8 columns = at most 8 class rows, zeros past C2).
+// B operand (8 columns: the class rows of one class group, zeros past them).
+// - Class groups. The C2 class rows are cut into NG groups of at most CG
+//   rows (CG <= 8, one mma n-tile): the fewest groups whose whole-scan
+//   layout below fits a block's shared memory (i8_score_group_rows, which
+//   the wrapper asks before a launch). Each block takes one group and holds only its
+//   templates; the NG blocks of a scan part are neighbours in the grid and
+//   read the same slabs at about the same time, so the cube's bytes come
+//   from device memory about once and from L2 for the other groups. With
+//   C2 <= 8 at the default arena NG = 1 and nothing changes. What is left
+//   refused: an arena where one class row's whole-scan layout (x-slabs one
+//   row wide) does not fit, about 3 * Y * Z + 8 * X * Y + (X + Y) * Z bytes
+//   over 227 KB (at X = 43, Z = 351: more than 144 y values).
 // - The work plan. A scan is cut into P parts of contiguous x-slabs (part
 //   p takes slabs [p * nslab / P, (p + 1) * nslab / P), as
-//   ops/i8_tails.part_slabs computes them); block i takes part i % P of
-//   scans i / P, + G, + 2G, ... with G = gridDim.x / P, so a block keeps
-//   one part for its life. The combo, sel and sel3 kernels take whole scans
+//   ops/i8_tails.part_slabs computes them); block i takes class group i %
+//   NG and part i / NG % P of scans i / (NG * P), + G, + 2G, ... with G =
+//   gridDim.x / (NG * P), so a block keeps one group and part for its
+//   life. The combo, sel and sel3 kernels take whole scans
 //   (P = 1: one persistent block per SM walking scans b = blockIdx.x,
 //   + gridDim.x, ...). The lookup and glookup kernels take P from the host
 //   (ops/i8_tails.lookup_plan): 1 while the batch fills the resident
 //   blocks; below that resident / B parts, rounded down or up, whichever
 //   leaves the busiest block the fewest x rows, with a narrower slab where
 //   that gives more slabs, so that a small batch keeps every SM busy.
-//   Launches run min(B, resident / P) scans at a time, one block a part. A
-//   part's block holds only its part's qxz rows and packed qxy words.
+//   Launches run min(B, resident / (NG * P)) scans at a time, one block a
+//   (group, part). A part's block holds only its part's qxz rows and packed
+//   qxy words.
 // - The templates are copied into shared memory once per block and stay
 //   there: qxz and qyz one row per (x or y, class), zero-padded in z to
 //   whole 32-byte chunks plus 16 bytes, so the eight class rows of a
@@ -135,7 +148,7 @@
 
 namespace {
 
-constexpr int kMaxC2 = 8;      // class rows (levels * classes) per table: one mma n-tile
+constexpr int kMaxC2 = 8;      // class rows of one class group: one mma n-tile
 constexpr int kThreads = 512;  // one block per SM
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kSmemMax = 232448;  // one block's dynamic maximum (227 KB)
@@ -246,13 +259,34 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 }
 
 // Copy nrows rows of Z int8 values (row r at src + r * Z) into shared rows
-// of SW words, zero-padding z up to SW * 4, with byte loads.
+// of SW words, zero-padding z up to SW * 4, with byte loads. The general
+// instance issues a thread's 8 loads of a round before any of its stores,
+// so that they are in flight together; the other one, launched only on the
+// bulk-copy route, never runs this and keeps the loop of the kernel before
+// class groups.
+template <bool kGeneral>
 __device__ void copy_rows(int* dst, const int8_t* src, int nrows, int Z, int SW) {
   int8_t* d = reinterpret_cast<int8_t*>(dst);
   const int Zp = SW * 4;
-  for (int i = threadIdx.x; i < nrows * Zp; i += blockDim.x) {
-    const int r = i / Zp, z = i % Zp;
-    d[i] = z < Z ? src[(size_t)r * Z + z] : int8_t(0);
+  if (!kGeneral) {
+    for (int i = threadIdx.x; i < nrows * Zp; i += blockDim.x) {
+      const int r = i / Zp, z = i % Zp;
+      d[i] = z < Z ? src[(size_t)r * Z + z] : int8_t(0);
+    }
+    return;
+  }
+  constexpr int kInFlight = 8;
+  const int n = nrows * Zp, step = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kInFlight * step) {
+    int8_t v[kInFlight];
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k) {
+      const int i = i0 + k * step, r = i / Zp, z = i % Zp;
+      v[k] = i < n && z < Z ? src[(size_t)r * Z + z] : int8_t(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k)
+      if (i0 + k * step < n) d[i0 + k * step] = v[k];
   }
 }
 
@@ -280,43 +314,85 @@ __device__ void copy_templates(int* dst, const int8_t* src, int C2, int R, int r
   }
 }
 
-// What every kernel's walk is given: the cube, the templates, the x-slab
+// What every kernel's walk is given: the cube, the templates of all CT
+// class rows, the rows of a class group C2 and the groups NG, the x-slab
 // width XS and the parts P a scan is cut into; vec: slabs by bulk copy.
+// The walk hands its epilogue a copy for the block's own group: C2 its
+// rows, c0 its first row, the template pointers moved to that row.
 struct Walk {
   const int8_t* cube;
   const int8_t* qxz;
   const int8_t* qyz;
   const int8_t* qxy;
   int B, X, Y, Z, C2, XS, P, vec;
+  int CT, NG, c0;
 };
+
+// Every kernel and epilogue is compiled twice: kGeneral = false for one
+// class group on the bulk-copy route (the host launches it whenever NG = 1
+// and vec, and it is the code of the kernel before class groups, the
+// default arena's), true for the rest: several class groups or the
+// byte-copy route.
+//
+// In the epilogues below the other instance's expressions are the ones of
+// the kernel before class groups.
+//
+// Where element i = z * C2 + c of the block group's t3 set of scan b lies
+// in the scan-major (B, Z, CT) output.
+__device__ __forceinline__ size_t t3_at(const Walk& w, int b, int i) {
+  return ((size_t)b * w.Z + i / w.C2) * w.CT + w.c0 + i % w.C2;
+}
+
+// Where scan b's rows of the block group start in a (B, CT, n) output
+// (t1: n = Y, t2: n = X): the group's rows are contiguous in the scan's.
+__device__ __forceinline__ size_t rows_at(const Walk& w, int b, int n) {
+  return ((size_t)b * w.CT + w.c0) * n;
+}
 
 // The block routine of the three kernels: sums its part of each of its
 // scans into a table set in shared memory and, where the part is complete,
-// calls done(w, b, m1_s, m2_s, m3_s, xlo, xhi) with every thread of the
+// calls done(wg, b, m1_s, m2_s, m3_s, xlo, xhi) with every thread of the
 // block: scan b's sums m1_s[c * Y + y], m2_s[c * X + x], m3_s[z * C2 + c]
-// over x in [xlo, xhi). `done` hands the set back cleared, or clears it
-// later: before the part's last slab every thread calls
+// over x in [xlo, xhi) for the C2 class rows of the block's group, wg the
+// Walk of that group (C2 its rows, c0 the first of them). `done` hands the
+// set back cleared, or clears it later: before the part's last slab every
+// thread calls
 // done.ahead(other, words, ns) with the other set (`words` words, the
 // previous scan's) and the part's slab count; where ns > 1 a block barrier
 // of this scan has passed by then, so every thread is done with the other
 // set, and the scan after this one is the next to use it.
-template <class Done>
+template <bool kGeneral, class Done>
 __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   extern __shared__ __align__(16) int smem[];
   __shared__ __align__(8) uint64_t full_bar[2];
+  // This block's class group: rows [c0, c0 + C2) of the CT, whose templates
+  // start c0 rows on; the layout is the launch's (w.C2 rows a group). The
+  // other instance's one group is the launch's Walk itself, read where it
+  // lies, as the kernel before class groups read it.
+  Walk moved = w;
+  const int NG = kGeneral ? w.NG : 1;
+  if (kGeneral) {
+    moved.c0 = blockIdx.x % NG * w.C2;
+    moved.C2 = min(w.C2, w.CT - moved.c0);
+    if (w.qxz != nullptr) moved.qxz = w.qxz + (size_t)moved.c0 * w.X * w.Z;
+    if (w.qyz != nullptr) moved.qyz = w.qyz + (size_t)moved.c0 * w.Y * w.Z;
+    if (w.qxy != nullptr) moved.qxy = w.qxy + (size_t)moved.c0 * w.X * w.Y;
+  }
+  const Walk& wg = kGeneral ? moved : w;
   const int8_t* __restrict__ cube = w.cube;
-  const int8_t* __restrict__ qxz = w.qxz;
-  const int8_t* __restrict__ qyz = w.qyz;
-  const int8_t* __restrict__ qxy = w.qxy;
-  const int B = w.B, X = w.X, Y = w.Y, Z = w.Z, C2 = w.C2, XS = w.XS, vec = w.vec;
+  const int8_t* __restrict__ qxz = wg.qxz;
+  const int8_t* __restrict__ qyz = wg.qyz;
+  const int8_t* __restrict__ qxy = wg.qxy;
+  const int B = w.B, X = w.X, Y = w.Y, Z = w.Z, C2 = wg.C2, XS = w.XS, vec = w.vec;
   const bool h1 = qxz != nullptr, h2 = qyz != nullptr, h3 = qxy != nullptr;
-  const Layout L = make_layout(XS, w.P, X, Y, Z, C2, h1, h2, h3);
+  const Layout L = make_layout(XS, w.P, X, Y, Z, w.C2, h1, h2, h3);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   int* qxy_s = smem + L.qxy;  // [slab of the part][8 classes][KQ] words: 4 rows' bytes each, zeros past C2 and the slab
 
   // This block's part: slabs [s0, s1), x rows [xlo, xhi), of scans b0, b0 +
   // G, ...; its work units are (scan, slab of the part).
-  const int P = w.P, G = gridDim.x / P, part = blockIdx.x % P, b0 = blockIdx.x / P;
+  const int P = w.P, G = gridDim.x / (P * NG), part = blockIdx.x / NG % P,
+            b0 = blockIdx.x / (NG * P);
   const int s0 = part * L.nslab / P, s1 = (part + 1) * L.nslab / P, ns = s1 - s0;
   const int xlo = s0 * XS, xhi = min(X, s1 * XS);
   const int nscan = (B - b0 + G - 1) / G;
@@ -341,7 +417,7 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
         bulk_copy(buf, src, bytes, &full_bar[u & 1]);
       }
     } else {
-      copy_rows(buf, src, xs * Y, Z, L.SW);
+      copy_rows<kGeneral>(buf, src, xs * Y, Z, L.SW);
     }
   };
 
@@ -538,7 +614,7 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
 
     if (u + 2 < U) load_unit(u + 2);
     if (++s == s1) {  // the scan's part is complete: hand its set over
-      done(w, b, m1_s, m2_s, m3_s, xlo, xhi);
+      done(wg, b, m1_s, m2_s, m3_s, xlo, xhi);
       s = s0;
       b += G;
       set ^= 1;  // this set is next used two scans on, block barriers later
@@ -548,6 +624,7 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
 
 // Whole scans: every output element exactly once, by plain stores; each
 // element is cleared by the thread that wrote it out, so no barrier.
+template <bool kGeneral>
 struct StoreTables {
   int* t1;
   int* t2;
@@ -556,10 +633,12 @@ struct StoreTables {
   __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
                                              int* m3_s, int, int) const {
     const int n1 = w.C2 * w.Y, n2 = w.C2 * w.X, n3 = w.Z * w.C2;
+    const size_t o1 = kGeneral ? rows_at(w, b, w.Y) : (size_t)b * n1;
+    const size_t o2 = kGeneral ? rows_at(w, b, w.X) : (size_t)b * n2;
     for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
-      if (i < n1) { t1[(size_t)b * n1 + i] = m1_s[i]; m1_s[i] = 0; }
-      if (i < n2) { t2[(size_t)b * n2 + i] = m2_s[i]; m2_s[i] = 0; }
-      if (i < n3) { t3[(size_t)b * n3 + i] = m3_s[i]; m3_s[i] = 0; }
+      if (i < n1) { t1[o1 + i] = m1_s[i]; m1_s[i] = 0; }
+      if (i < n2) { t2[o2 + i] = m2_s[i]; m2_s[i] = 0; }
+      if (i < n3) { t3[kGeneral ? t3_at(w, b, i) : (size_t)b * n3 + i] = m3_s[i]; m3_s[i] = 0; }
     }
   }
 };
@@ -567,6 +646,7 @@ struct StoreTables {
 // A part of a scan: its own t2 rows (x in [xlo, xhi)) by plain stores, its
 // t1 and t3 partials added into zeroed outputs (int32 atomics, exact in any
 // order; a zero partial is skipped).
+template <bool kGeneral>
 struct AddPart {
   int* t1;
   int* t2;
@@ -574,18 +654,20 @@ struct AddPart {
   __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
                                              int* m3_s, int xlo, int xhi) const {
     const int n1 = w.C2 * w.Y, n2 = w.C2 * w.X, n3 = w.Z * w.C2;
+    const size_t o1 = kGeneral ? rows_at(w, b, w.Y) : (size_t)b * n1;
+    const size_t o2 = kGeneral ? rows_at(w, b, w.X) : (size_t)b * n2;
     for (int i = threadIdx.x; i < max(n3, max(n1, n2)); i += blockDim.x) {
       if (i < n1) {
-        if (m1_s[i]) atomicAdd(&t1[(size_t)b * n1 + i], m1_s[i]);
+        if (m1_s[i]) atomicAdd(&t1[o1 + i], m1_s[i]);
         m1_s[i] = 0;
       }
       if (i < n2) {
         const int x = i % w.X;
-        if (x >= xlo && x < xhi) t2[(size_t)b * n2 + i] = m2_s[i];
+        if (x >= xlo && x < xhi) t2[o2 + i] = m2_s[i];
         m2_s[i] = 0;
       }
       if (i < n3) {
-        if (m3_s[i]) atomicAdd(&t3[(size_t)b * n3 + i], m3_s[i]);
+        if (m3_s[i]) atomicAdd(&t3[kGeneral ? t3_at(w, b, i) : (size_t)b * n3 + i], m3_s[i]);
         m3_s[i] = 0;
       }
     }
@@ -594,6 +676,7 @@ struct AddPart {
 
 // The lookup kernel's epilogue: whole scans as the combo kernel's, parts
 // otherwise (one walk either way).
+template <bool kGeneral>
 struct LookupTables {
   int* t1;
   int* t2;
@@ -602,9 +685,9 @@ struct LookupTables {
   __device__ __forceinline__ void operator()(const Walk& w, int b, int* m1_s, int* m2_s,
                                              int* m3_s, int xlo, int xhi) {
     if (w.P == 1)
-      StoreTables{t1, t2, t3}(w, b, m1_s, m2_s, m3_s, xlo, xhi);
+      StoreTables<kGeneral>{t1, t2, t3}(w, b, m1_s, m2_s, m3_s, xlo, xhi);
     else
-      AddPart{t1, t2, t3}(w, b, m1_s, m2_s, m3_s, xlo, xhi);
+      AddPart<kGeneral>{t1, t2, t3}(w, b, m1_s, m2_s, m3_s, xlo, xhi);
   }
 };
 
@@ -641,6 +724,7 @@ struct ReadThenClear {
 // sel3: the T x C2 target reads of scan b, s1 = t1[c, j], s2 = t2[c, i],
 // s3 = t3[k, c] for the slot's (i, j, k), each zero for an index outside
 // its range (-1 included) and for a slot whose valid byte is 0.
+template <bool kGeneral>
 struct ReadScores {
   const int* ijk;
   const uint8_t* valid;  // (B, T) bytes, or null: every slot valid
@@ -657,7 +741,7 @@ struct ReadScores {
       const size_t slot = (size_t)b * T + t;
       const bool ok = valid == nullptr || valid[slot] != 0;
       const int x = ijk[slot * 3], y = ijk[slot * 3 + 1], z = ijk[slot * 3 + 2];
-      const size_t o = slot * C2 + c;
+      const size_t o = kGeneral ? slot * w.CT + w.c0 + c : slot * C2 + c;
       s1[o] = ok && y >= 0 && y < Y ? m1_s[c * Y + y] : 0;
       s2[o] = ok && x >= 0 && x < X ? m2_s[c * X + x] : 0;
       s3[o] = ok && z >= 0 && z < Z ? m3_s[z * C2 + c] : 0;
@@ -668,6 +752,7 @@ struct ReadScores {
 // sel: scan b's t1 and t2 stored whole, as StoreTables stores them, and of
 // t3 only the T x C2 reads d3 = t3[k, c] of each slot's z index k (zero
 // outside [0, Z), -1 included).
+template <bool kGeneral>
 struct SelTables {
   const int* kidx;
   int T;
@@ -678,57 +763,73 @@ struct SelTables {
   __device__ __forceinline__ void operator()(const Walk& w, int b, const int* m1_s,
                                              const int* m2_s, const int* m3_s) const {
     const int C2 = w.C2, Z = w.Z, n1 = C2 * w.Y, n2 = C2 * w.X;
+    const size_t o1 = kGeneral ? rows_at(w, b, w.Y) : (size_t)b * n1;
+    const size_t o2 = kGeneral ? rows_at(w, b, w.X) : (size_t)b * n2;
     for (int i = threadIdx.x; i < max(n1, n2); i += blockDim.x) {
-      if (i < n1) t1[(size_t)b * n1 + i] = m1_s[i];
-      if (i < n2) t2[(size_t)b * n2 + i] = m2_s[i];
+      if (i < n1) t1[o1 + i] = m1_s[i];
+      if (i < n2) t2[o2 + i] = m2_s[i];
+    }
+    if (!kGeneral) {
+      for (int i = threadIdx.x; i < T * C2; i += blockDim.x) {
+        const int k = kidx[(size_t)b * T + i / C2];
+        d3[(size_t)b * T * C2 + i] = k >= 0 && k < Z ? m3_s[k * C2 + i % C2] : 0;
+      }
+      return;
     }
     for (int i = threadIdx.x; i < T * C2; i += blockDim.x) {
-      const int k = kidx[(size_t)b * T + i / C2];
-      d3[(size_t)b * T * C2 + i] = k >= 0 && k < Z ? m3_s[k * C2 + i % C2] : 0;
+      const size_t slot = (size_t)b * T + i / C2;
+      const int k = kidx[slot];
+      d3[slot * w.CT + w.c0 + i % C2] = k >= 0 && k < Z ? m3_s[k * C2 + i % C2] : 0;
     }
   }
 };
 
 // Outputs are scan-major int32 t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2).
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 combo_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
-  StoreTables done{t1, t2, t3};
-  walk_scans(w, done);
+  StoreTables<kGeneral> done{t1, t2, t3};
+  walk_scans<kGeneral>(w, done);
 }
 
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 lookup_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
-  LookupTables done{t1, t2, t3};
-  walk_scans(w, done);
+  LookupTables<kGeneral> done{t1, t2, t3};
+  walk_scans<kGeneral>(w, done);
 }
 
 // The lookup kernel's plan and epilogue under a symbol of its own. The
 // y-group of its weights is the TPU kernel's tiling and changes nothing
 // here.
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 grouped_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
-  LookupTables done{t1, t2, t3};
-  walk_scans(w, done);
+  LookupTables<kGeneral> done{t1, t2, t3};
+  walk_scans<kGeneral>(w, done);
 }
 
 // Outputs t1 (B, C2, Y), t2 (B, C2, X) and d3 (B, T, C2); kidx (B, T) int32.
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 sel_tables_kernel(Walk w, const int* __restrict__ kidx, int T, int* __restrict__ t1,
                   int* __restrict__ t2, int* __restrict__ d3) {
-  ReadThenClear<SelTables> done{{kidx, T, t1, t2, d3}};
-  walk_scans(w, done);
+  ReadThenClear<SelTables<kGeneral>> done{{kidx, T, t1, t2, d3}};
+  walk_scans<kGeneral>(w, done);
 }
 
 // Outputs s1, s2, s3 (B, T, C2); ijk (B, T, 3) int32.
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 sel3_scores_kernel(Walk w, const int* __restrict__ ijk, const uint8_t* __restrict__ valid, int T,
                    int* __restrict__ s1, int* __restrict__ s2, int* __restrict__ s3) {
-  ReadThenClear<ReadScores> done{{ijk, valid, T, s1, s2, s3}};
-  walk_scans(w, done);
+  ReadThenClear<ReadScores<kGeneral>> done{{ijk, valid, T, s1, s2, s3}};
+  walk_scans<kGeneral>(w, done);
 }
 
-// The x-slab width of whole scans: the widest, balanced over the slabs,
-// whose block fits the shared-memory maximum; 0 if no slab fits.
+// The x-slab width of whole scans at C2 class rows a block: the widest,
+// balanced over the slabs, whose block fits the shared-memory maximum; 0 if
+// no slab fits.
 int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   for (int XS = X; XS >= 1; --XS) {
     if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total <= kSmemMax) {
@@ -739,23 +840,44 @@ int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   return 0;
 }
 
-// Fill `w` for a launch with x-slabs XS wide and P parts a scan; false for
-// shapes the kernels do not take.
+// The rows of a class group for C2 class rows in all: ceil(C2 / NG) for the
+// fewest groups NG whose rows (at most kMaxC2) have a whole-scan slab width;
+// 0 if not even one row has.
+int group_rows(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
+  for (int ng = (C2 + kMaxC2 - 1) / kMaxC2; ng <= C2; ++ng) {
+    const int cg = (C2 + ng - 1) / ng;
+    if (slab_width(X, Y, Z, cg, h1, h2, h3) > 0) return cg;
+  }
+  return 0;
+}
+
+// Fill `w` for a launch over CT class rows in groups of CG, with x-slabs XS
+// wide and P parts a scan; false for shapes the kernels do not take.
 bool make_walk(Walk& w, const void* cube, const void* qxz, const void* qyz, const void* qxy,
-               int B, int X, int Y, int Z, int C2, int XS, int P) {
-  if (B < 1 || X < 1 || Y < 1 || Z < 1 || C2 < 1 || C2 > kMaxC2 || XS < 1 || XS > X || P < 1 ||
-      P > (X + XS - 1) / XS)
+               int B, int X, int Y, int Z, int CT, int CG, int XS, int P) {
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || CT < 1 || CG < 1 || CG > kMaxC2 || CG > CT ||
+      XS < 1 || XS > X || P < 1 || P > (X + XS - 1) / XS)
     return false;
-  if (make_layout(XS, P, X, Y, Z, C2, qxz, qyz, qxy).total > kSmemMax) return false;
+  if (make_layout(XS, P, X, Y, Z, CG, qxz, qyz, qxy).total > kSmemMax) return false;
   w.cube = static_cast<const int8_t*>(cube);
   w.qxz = static_cast<const int8_t*>(qxz);
   w.qyz = static_cast<const int8_t*>(qyz);
   w.qxy = static_cast<const int8_t*>(qxy);
-  w.B = B; w.X = X; w.Y = Y; w.Z = Z; w.C2 = C2; w.XS = XS; w.P = P;
+  w.B = B; w.X = X; w.Y = Y; w.Z = Z; w.C2 = CG; w.XS = XS; w.P = P;
+  w.CT = CT; w.NG = (CT + CG - 1) / CG; w.c0 = 0;
   // Bulk copies need whole 16-byte rows from a 16-byte aligned cube (a slab
   // then starts and ends on 16 bytes) and at most 2^20 - 1 bytes a barrier.
   w.vec = Z % 16 == 0 && ((uintptr_t)cube & 15) == 0 && (long long)XS * Y * Z < (1 << 20);
   return true;
+}
+
+// A whole-scan walk (P = 1) under the class groups of group_rows and their
+// slab width; false for shapes the kernels do not take.
+bool whole_scan_walk(Walk& w, const void* cube, const void* qxz, const void* qyz,
+                     const void* qxy, int B, int X, int Y, int Z, int C2) {
+  const int CG = group_rows(X, Y, Z, C2, qxz, qyz, qxy);
+  return CG > 0 && make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, CG,
+                             slab_width(X, Y, Z, CG, qxz, qyz, qxy), 1);
 }
 
 // Blocks of `kernel` that fit on the card at once with `smem` bytes of
@@ -773,30 +895,37 @@ int resident_blocks(Kernel kernel, size_t smem, cudaError_t& err) {
   return err == cudaSuccess ? nsm * per_sm : 0;
 }
 
-// Launch `kernel` over `w` on `stream`: G = min(B, resident / P) scans at a
-// time, one block a part, so every block stays resident and keeps one
-// part. Returns cudaGetLastError(); the launch does not synchronise.
+// Launch a kernel over `w` on `stream`, its instance `one` (one class
+// group, bulk copies) or `general`: G = min(B, resident / (NG * P)) scans at
+// a time, one block a (class group, part), so every block stays resident and
+// keeps one group and part. Returns cudaGetLastError(); the launch does not
+// synchronise.
 template <typename Kernel, typename... Ts>
-int launch(Kernel kernel, const Walk& w, void* stream, Ts... outs) {
+int launch(Kernel one, Kernel general, const Walk& w, void* stream, Ts... outs) {
+  const Kernel kernel = w.NG > 1 || !w.vec ? general : one;
   const size_t smem =
       make_layout(w.XS, w.P, w.X, w.Y, w.Z, w.C2, w.qxz, w.qyz, w.qxy).total;
   cudaError_t err;
   const int resident = resident_blocks(kernel, smem, err);
   if (err != cudaSuccess) return (int)err;
-  const int G = min(w.B, max(1, resident / w.P));
-  kernel<<<G * w.P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(w, outs...);
+  const int G = min(w.B, max(1, resident / (w.NG * w.P)));
+  kernel<<<G * w.NG * w.P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(w, outs...);
   return (int)cudaGetLastError();
 }
 
-// Blocks of `kernel` resident at once when it takes whole scans (the batch
-// at and above which the work plan does not cut scans), or minus a CUDA
-// error (cudaErrorInvalidValue for shapes it does not take).
+// Blocks of `kernel` resident at once when it takes whole scans, over every
+// class group (the batch at and above which the work plan does not cut
+// scans is this over the groups), or minus a CUDA error
+// (cudaErrorInvalidValue for shapes it does not take).
 template <typename Kernel>
-int whole_scan_resident(Kernel kernel, int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  const int XS = slab_width(X, Y, Z, C2, h1, h2, h3);
-  if (XS == 0 || C2 < 1 || C2 > kMaxC2) return -(int)cudaErrorInvalidValue;
+int whole_scan_resident(Kernel one, Kernel general, int X, int Y, int Z, int C2, int h1, int h2,
+                        int h3) {
+  const int CG = C2 < 1 ? 0 : group_rows(X, Y, Z, C2, h1, h2, h3);
+  if (CG == 0) return -(int)cudaErrorInvalidValue;
+  const Kernel kernel = CG < C2 || Z % 16 ? general : one;
   cudaError_t err;
-  const int n = resident_blocks(kernel, make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total, err);
+  const int XS = slab_width(X, Y, Z, CG, h1, h2, h3);
+  const int n = resident_blocks(kernel, make_layout(XS, 1, X, Y, Z, CG, h1, h2, h3).total, err);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -804,12 +933,13 @@ int whole_scan_resident(Kernel kernel, int X, int Y, int Z, int C2, int h1, int 
 // Every element is written: at P > 1 t1 and t3 are first zeroed on
 // `stream`, and the parts add into them.
 template <typename Kernel>
-int split_tables(Kernel kernel, const void* cube, const void* qxz, const void* qyz,
-                 const void* qxy, void* t1, void* t2, void* t3, int B, int X, int Y, int Z,
-                 int C2, int XS, int P, void* stream) {
+int split_tables(Kernel one, Kernel general, const void* cube, const void* qxz,
+                 const void* qyz, const void* qxy, void* t1, void* t2, void* t3, int B, int X,
+                 int Y, int Z, int C2, int XS, int P, void* stream) {
   Walk w;
-  if (XS > slab_width(X, Y, Z, C2, qxz, qyz, qxy) ||
-      !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, XS, P))
+  const int CG = C2 < 1 ? 0 : group_rows(X, Y, Z, C2, qxz, qyz, qxy);
+  if (CG == 0 || XS > slab_width(X, Y, Z, CG, qxz, qyz, qxy) ||
+      !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, CG, XS, P))
     return (int)cudaErrorInvalidValue;
   if (P > 1) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -817,7 +947,7 @@ int split_tables(Kernel kernel, const void* cube, const void* qxz, const void* q
     if (err == cudaSuccess) err = cudaMemsetAsync(t3, 0, sizeof(int) * B * Z * C2, s);
     if (err != cudaSuccess) return (int)err;
   }
-  return launch(kernel, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
+  return launch(one, general, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
                 static_cast<int*>(t3));
 }
 
@@ -825,18 +955,28 @@ int split_tables(Kernel kernel, const void* cube, const void* qxz, const void* q
 
 extern "C" {
 
-// The x-slab width of whole scans (exposed so the wrapper can report it and
-// plan the lookup and glookup kernels' parts).
+// The x-slab width of whole scans under the class groups of group_rows
+// (exposed so the wrapper can report it and plan the lookup and glookup
+// kernels' parts); 0 for shapes the kernels do not take.
 int i8_score_slab_width(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  return slab_width(X, Y, Z, C2, h1, h2, h3);
+  const int CG = C2 < 1 ? 0 : group_rows(X, Y, Z, C2, h1, h2, h3);
+  return CG == 0 ? 0 : slab_width(X, Y, Z, CG, h1, h2, h3);
+}
+
+// The rows of a class group (group_rows); 0 for shapes the kernels do not
+// take, which ops/i8_score.card_operands refuses before any launch.
+int i8_score_group_rows(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  return C2 < 1 ? 0 : group_rows(X, Y, Z, C2, h1, h2, h3);
 }
 
 // whole_scan_resident of the lookup and the glookup kernel.
 int i8_score_lookup_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  return whole_scan_resident(lookup_tables_kernel, X, Y, Z, C2, h1, h2, h3);
+  return whole_scan_resident(lookup_tables_kernel<false>, lookup_tables_kernel<true>, X, Y, Z, C2,
+                             h1, h2, h3);
 }
 int i8_score_grouped_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  return whole_scan_resident(grouped_tables_kernel, X, Y, Z, C2, h1, h2, h3);
+  return whole_scan_resident(grouped_tables_kernel<false>, grouped_tables_kernel<true>, X, Y, Z,
+                             C2, h1, h2, h3);
 }
 
 // The combo kernel on `stream`: whole scans. Outputs are scan-major int32
@@ -847,11 +987,9 @@ int i8_score_onepass_tables(const void* cube, const void* qxz, const void* qyz,
                             const void* qxy, void* t1, void* t2, void* t3, int B,
                             int X, int Y, int Z, int C2, void* stream) {
   Walk w;
-  if (!make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2,
-                 slab_width(X, Y, Z, C2, qxz, qyz, qxy), 1))
-    return (int)cudaErrorInvalidValue;
-  return launch(combo_tables_kernel, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
-                static_cast<int*>(t3));
+  if (!whole_scan_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2)) return (int)cudaErrorInvalidValue;
+  return launch(combo_tables_kernel<false>, combo_tables_kernel<true>, w, stream,
+                static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(t3));
 }
 
 // The lookup and glookup kernels: the same tables, each scan cut into P
@@ -860,14 +998,14 @@ int i8_score_onepass_tables(const void* cube, const void* qxz, const void* qyz,
 int i8_score_lookup_tables(const void* cube, const void* qxz, const void* qyz,
                            const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                            int Y, int Z, int C2, int XS, int P, void* stream) {
-  return split_tables(lookup_tables_kernel, cube, qxz, qyz, qxy, t1, t2, t3, B, X, Y, Z, C2, XS,
-                      P, stream);
+  return split_tables(lookup_tables_kernel<false>, lookup_tables_kernel<true>, cube, qxz, qyz,
+                      qxy, t1, t2, t3, B, X, Y, Z, C2, XS, P, stream);
 }
 int i8_score_grouped_tables(const void* cube, const void* qxz, const void* qyz,
                             const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                             int Y, int Z, int C2, int XS, int P, void* stream) {
-  return split_tables(grouped_tables_kernel, cube, qxz, qyz, qxy, t1, t2, t3, B, X, Y, Z, C2, XS,
-                      P, stream);
+  return split_tables(grouped_tables_kernel<false>, grouped_tables_kernel<true>, cube, qxz, qyz,
+                      qxy, t1, t2, t3, B, X, Y, Z, C2, XS, P, stream);
 }
 
 // The sel kernel: whole scans; t1 (B, C2, Y) and t2 (B, C2, X) and the
@@ -877,11 +1015,11 @@ int i8_score_sel_tables(const void* cube, const void* qxz, const void* qyz, cons
                         const void* kidx, void* t1, void* t2, void* d3, int B, int X, int Y,
                         int Z, int C2, int T, void* stream) {
   Walk w;
-  if (T < 0 || !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2,
-                          slab_width(X, Y, Z, C2, qxz, qyz, qxy), 1))
+  if (T < 0 || !whole_scan_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2))
     return (int)cudaErrorInvalidValue;
-  return launch(sel_tables_kernel, w, stream, static_cast<const int*>(kidx), T,
-                static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(d3));
+  return launch(sel_tables_kernel<false>, sel_tables_kernel<true>, w, stream,
+                static_cast<const int*>(kidx), T, static_cast<int*>(t1), static_cast<int*>(t2),
+                static_cast<int*>(d3));
 }
 
 // The sel3 kernel: whole scans; the three selected reads s1, s2, s3
@@ -891,12 +1029,11 @@ int i8_score_sel3_scores(const void* cube, const void* qxz, const void* qyz, con
                          const void* ijk, const void* valid, void* s1, void* s2, void* s3,
                          int B, int X, int Y, int Z, int C2, int T, void* stream) {
   Walk w;
-  if (T < 0 || !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2,
-                          slab_width(X, Y, Z, C2, qxz, qyz, qxy), 1))
+  if (T < 0 || !whole_scan_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2))
     return (int)cudaErrorInvalidValue;
-  return launch(sel3_scores_kernel, w, stream, static_cast<const int*>(ijk),
-                static_cast<const uint8_t*>(valid), T, static_cast<int*>(s1),
-                static_cast<int*>(s2), static_cast<int*>(s3));
+  return launch(sel3_scores_kernel<false>, sel3_scores_kernel<true>, w, stream,
+                static_cast<const int*>(ijk), static_cast<const uint8_t*>(valid), T,
+                static_cast<int*>(s1), static_cast<int*>(s2), static_cast<int*>(s3));
 }
 
 }  // extern "C"

@@ -56,6 +56,21 @@
 // - A cube whose Z is not a multiple of 8, or whose pointers are not 16-byte
 //   aligned, goes the same way with the producer warp copying 2-byte values
 //   (z padded with zeros to an even count) instead of the copy engine.
+// - The work plan (make_plan). One launch takes C <= 8 classes (a template
+//   argument) and a z-chunk of at most 256 values (a lane's pairs stay in
+//   registers, kMaxPairs) whose templates fit a block. Past that the host
+//   cuts Z into chunks (176 and 175 at Z = 351) and the classes into
+//   groups (4 + 4 at C = 8 on the default arena, 5 + 4 at 9, 6 + 6 + 4 at
+//   16), one launch each, the chunks one after another on the stream: a
+//   launch writes its group's m3 rows of its chunk and, after the first
+//   chunk, adds its m1 and m2 sums to the ones before it, so every sum still
+//   runs in a fixed order. A chunk's rows are not contiguous in the cube, so
+//   it takes the copy route. Every chunk reads its own z of the cube; every
+//   class group reads the whole cube again (from L2 where the groups' blocks
+//   run close together). At the default arena with up to 7 classes the plan
+//   is one launch, the kernel as it was. What is left refused: one class at
+//   8 z values not fitting a block, i.e. the txy template (X * Y floats)
+//   near 227 KB.
 // Where it stands (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
 // utils/kernel_probe.py, PERF.md section 6): 0.9155 ms device at B=4096
 // with the demo model's C = 3, against 1.8097 for the kernel it replaces
@@ -190,6 +205,28 @@ __device__ __forceinline__ void consumers_sync(int threads) {
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
+// The copy route's loads: rows of Z values (row r at src + r * ZT) into
+// rows of ZS (zero past Z) at dst, by the 32 lanes of one warp, each lane's
+// 16 loads of a round issued before any of its stores so that they are in
+// flight together.
+template <class T>
+__device__ __forceinline__ void copy_padded(T* dst, const T* src, int rows, int Z, int ZT, int ZS,
+                                            int lane) {
+  constexpr int kInFlight = 16;
+  const int n = rows * ZS;
+  for (int i0 = lane; i0 < n; i0 += 32 * kInFlight) {
+    T v[kInFlight];
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k) {
+      const int i = i0 + 32 * k, r = i / ZS, z = i % ZS;
+      v[k] = i < n && z < Z ? src[(size_t)r * ZT + z] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k)
+      if (i0 + 32 * k < n) dst[i0 + 32 * k] = v[k];
+  }
+}
+
 // bf16 halves of a word: the lower address (even z) is the low half.
 __device__ inline float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ inline float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
@@ -233,12 +270,19 @@ __device__ __forceinline__ void row_step(const uint32_t* cube, const float* tyz_
   }
 }
 
+// One launch takes C classes and a z-chunk of Z values: the cube, txz and
+// tyz pointers start at the chunk's first z, their rows ZT values apart (the
+// arena's Z); txz, tyz, txy start at the launch's first class and m1, m2, m3
+// at its first row of CT classes a scan (m3 also at the chunk's first z).
+// With `accum` the launch adds its m1 and m2 sums to what is there: the
+// chunks run one after another on one stream, so every sum still runs in a
+// fixed order.
 template <int C>
 __global__ void __launch_bounds__(32 * (warps_for(C) + 1), 1)
 native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict__ txz,
                      const float* __restrict__ tyz, const float* __restrict__ txy,
                      float* __restrict__ m1, float* __restrict__ m2, float* __restrict__ m3,
-                     int B, int X, int Y, int Z, int vec) {
+                     int B, int X, int Y, int Z, int vec, int ZT, int CT, int accum) {
   constexpr int W = warps_for(C);
   constexpr int R = 32 / W;  // rows per warp whose m1 partials stay in registers
   constexpr int kConsumers = 32 * W;
@@ -294,7 +338,8 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
         float acc = part[0];
 #pragma unroll
         for (int w = 1; w < W; ++w) acc += part[w];
-        m2[((size_t)unit_scan(v) * C + lane % C) * X + unit_x0(v) + lane / C] = acc;
+        float* out = m2 + ((size_t)unit_scan(v) * CT + lane % C) * X + unit_x0(v) + lane / C;
+        *out = accum ? *out + acc : acc;
       }
     };
     if (vec && lane == 0) {
@@ -302,7 +347,7 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
       mbar_expect_tx(tmpl, tyz_bytes);
       bulk_copy(tyz_s, tyz, tyz_bytes, tmpl);
     }
-    const uint32_t slab_bytes = 2u * Y * Z, row_bytes = 4u * Z;  // on the fast route
+    const uint32_t slab_bytes = 2u * Y * Z, row_bytes = 4u * Z;  // on the fast route (ZT == Z)
     for (int u = 0; u < U; ++u) {
       const int s = u % L.NS, round = u / L.NS;
       if (round > 0) {
@@ -310,7 +355,7 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
         take(u - L.NS);
       }
       const int x0 = unit_x0(u), gx = unit_gx(u);
-      const uint16_t* src = cube + ((size_t)unit_scan(u) * X + x0) * Y * Z;
+      const uint16_t* src = cube + ((size_t)unit_scan(u) * X + x0) * Y * ZT;
       uint32_t* st = ring + s * L.stage;
       float* t = reinterpret_cast<float*>(st + L.txz);
       if (vec) {
@@ -326,17 +371,11 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
                       &full[s]);
         }
       } else {
-        for (int g = 0; g < gx; ++g) {
-          uint16_t* d = reinterpret_cast<uint16_t*>(st + g * L.slab);
-          for (int i = lane; i < Y * L.ZS; i += 32) {
-            const int y = i / L.ZS, z = i % L.ZS;
-            d[i] = z < Z ? src[((size_t)g * Y + y) * Z + z] : uint16_t(0);
-          }
-        }
-        for (int i = lane; i < C * gx * L.ZS; i += 32) {
-          const int c = i / (gx * L.ZS), g = i / L.ZS % gx, z = i % L.ZS;
-          t[(c * L.G + g) * L.ZS + z] = z < Z ? txz[((size_t)c * X + x0 + g) * Z + z] : 0.f;
-        }
+        for (int g = 0; g < gx; ++g)
+          copy_padded(reinterpret_cast<uint16_t*>(st + g * L.slab), src + (size_t)g * Y * ZT, Y,
+                      Z, ZT, L.ZS, lane);
+        for (int c = 0; c < C; ++c)
+          copy_padded(t + c * L.G * L.ZS, txz + ((size_t)c * X + x0) * ZT, gx, Z, ZT, L.ZS, lane);
         mbar_arrive(&full[s]);  // one arrival per lane, after its own copies
       }
       if (round > 0) store(u - L.NS);
@@ -354,7 +393,7 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
   if (!vec)
     for (int i = tid; i < C * Y * L.ZS; i += kConsumers) {
       const int z = i % L.ZS;
-      tyz_s[i] = z < Z ? tyz[(size_t)(i / L.ZS) * Z + z] : 0.f;
+      tyz_s[i] = z < Z ? tyz[(size_t)(i / L.ZS) * ZT + z] : 0.f;
     }
   for (int i = tid; i < C * X * Y; i += kConsumers) txy_s[i] = txy[i];
   for (int i = tid; i < C * Y; i += kConsumers) m1_s[i] = 0.f;
@@ -436,14 +475,18 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
       for (int c = 0; c < C; ++c) {
         const float v = warp_sum(p1[r][c]);
         p1[r][c] = 0.f;
-        if (lane == 0 && y < Y) m1[((size_t)b * C + c) * Y + y] = v;
+        if (lane == 0 && y < Y) {
+          float* out = m1 + ((size_t)b * CT + c) * Y + y;
+          *out = accum ? *out + v : v;
+        }
       }
     }
     if (lane == 0)
       for (int y = warp + R * W; y < Y; y += W)
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          m1[((size_t)b * C + c) * Y + y] = m1_s[c * Y + y];
+          float* out = m1 + ((size_t)b * CT + c) * Y + y;
+          *out = accum ? *out + m1_s[c * Y + y] : m1_s[c * Y + y];
           m1_s[c * Y + y] = 0.f;
         }
     // m3: the warps add their partials to the running sum in turn, warp 0
@@ -471,7 +514,7 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
           if (warp < W - 1) {
             *reinterpret_cast<float2*>(m3_s + c * L.ZS + 2 * pair) = v;
           } else {
-            float* out = m3 + ((size_t)b * C + c) * Z + 2 * pair;
+            float* out = m3 + ((size_t)b * CT + c) * ZT + 2 * pair;
             out[0] = v.x;
             if (2 * pair + 1 < Z) out[1] = v.y;
           }
@@ -485,12 +528,13 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
 
 template <int C>
 int launch(const void* cube, const void* txz, const void* tyz, const void* txy, void* m1,
-           void* m2, void* m3, int B, int X, int Y, int Z, cudaStream_t stream) {
+           void* m2, void* m3, int B, int X, int Y, int Z, int ZT, int CT, int accum,
+           cudaStream_t stream) {
   constexpr int kThreads = 32 * (warps_for(C) + 1);
   const Layout L = make_layout(X, Y, Z, C);
   if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int vec = Z % 8 == 0 && ((uintptr_t)cube & 15) == 0 && ((uintptr_t)txz & 15) == 0 &&
-                  ((uintptr_t)tyz & 15) == 0;
+  const int vec = Z == ZT && Z % 8 == 0 && ((uintptr_t)cube & 15) == 0 &&
+                  ((uintptr_t)txz & 15) == 0 && ((uintptr_t)tyz & 15) == 0;
   cudaError_t err = cudaFuncSetAttribute(native_tables_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
@@ -507,41 +551,107 @@ int launch(const void* cube, const void* txz, const void* tyz, const void* txy, 
   native_tables_kernel<C><<<grid, kThreads, L.total, stream>>>(
       static_cast<const uint16_t*>(cube), static_cast<const float*>(txz),
       static_cast<const float*>(tyz), static_cast<const float*>(txy), static_cast<float*>(m1),
-      static_cast<float*>(m2), static_cast<float*>(m3), B, X, Y, Z, vec);
+      static_cast<float*>(m2), static_cast<float*>(m3), B, X, Y, Z, vec, ZT, CT, accum);
   return (int)cudaGetLastError();
+}
+
+// The work plan of C classes at arena Z: z-chunks of ZC values (the last
+// one may be shorter) and class groups of CG classes (the last may have
+// fewer). The fewest chunks that keep a lane's pairs in registers (ZC <=
+// 2 * 32 * kMaxPairs), then the fewest groups of at most kMaxC classes
+// whose block fits the shared-memory maximum, then more chunks (ZC a
+// multiple of 8) until one class fits. False when not even 8 z of one
+// class fit (the txy template alone, C * X * Y floats, is then near 227
+// KB). ops/score.py's native_plan mirrors it for the tests; the wrapper asks
+// native_score_plan_zchunk before a launch.
+struct Plan {
+  int ZC, CG;
+};
+bool make_plan(int X, int Y, int Z, int C, Plan& p) {
+  constexpr int kMaxZ = 2 * 32 * kMaxPairs;
+  for (int nz = (Z + kMaxZ - 1) / kMaxZ;; ++nz) {
+    const int zc = nz == 1 ? Z : ((Z + nz - 1) / nz + 7) / 8 * 8;
+    for (int ng = (C + kMaxC - 1) / kMaxC; ng <= C; ++ng) {
+      const int cg = (C + ng - 1) / ng;
+      if (make_layout(X, Y, zc, cg).total <= kSmemMax) {
+        p.ZC = zc;
+        p.CG = cg;
+        return true;
+      }
+    }
+    if (zc <= 8) return false;
+  }
+}
+
+int launch_group(int cg, const void* cube, const void* txz, const void* tyz, const void* txy,
+                 void* m1, void* m2, void* m3, int B, int X, int Y, int Z, int ZT, int CT,
+                 int accum, cudaStream_t s) {
+  switch (cg) {
+    case 1: return launch<1>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    case 2: return launch<2>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    case 3: return launch<3>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    case 4: return launch<4>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    case 5: return launch<5>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    case 6: return launch<6>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    case 7: return launch<7>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    default: return launch<8>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory a block takes at these dims (exposed so the
-// wrapper's own count can be checked against it).
+// Bytes of dynamic shared memory a block takes at these dims with C classes
+// a launch (exposed so the wrapper's own count can be checked against it).
 long native_score_smem_bytes(int X, int Y, int Z, int C) {
   return make_layout(X, Y, Z, C).total;
+}
+
+// The work plan of make_plan: its z-chunk and its class group, or 0 for
+// shapes the kernel does not take (exposed so the wrapper's own plan can be
+// checked against it).
+int native_score_plan_zchunk(int X, int Y, int Z, int C) {
+  Plan p;
+  return X >= 1 && Y >= 1 && Z >= 1 && C >= 1 && make_plan(X, Y, Z, C, p) ? p.ZC : 0;
+}
+int native_score_plan_group(int X, int Y, int Z, int C) {
+  Plan p;
+  return X >= 1 && Y >= 1 && Z >= 1 && C >= 1 && make_plan(X, Y, Z, C, p) ? p.CG : 0;
 }
 
 // Launch the tables on `stream`: bf16 cube (B, X, Y, Z), float32 templates
 // txz (C, X, Z), tyz (C, Y, Z), txy (C, X, Y), all contiguous; float32
 // outputs m1 (B, C, Y), m2 (B, C, X), m3 (B, C, Z), every element written.
-// Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue for
-// shapes the kernel does not take); the launch does not synchronise.
+// One launch per (z-chunk, class group) of make_plan, the chunks in order
+// (each after the first adds its m1 and m2 sums); at the default arena with
+// up to 7 classes that is one launch. Returns cudaGetLastError() after the
+// last launch (or the first error, or cudaErrorInvalidValue for shapes the
+// kernel does not take); the launches do not synchronise.
 int native_score_tables(const void* cube, const void* txz, const void* tyz, const void* txy,
                         void* m1, void* m2, void* m3, int B, int X, int Y, int Z, int C,
                         void* stream) {
-  if (B < 1 || X < 1 || Y < 1 || Z < 1 || Z > 2 * 32 * kMaxPairs || C < 1 || C > kMaxC)
+  Plan p;
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || C < 1 || !make_plan(X, Y, Z, C, p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: return launch<1>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    case 2: return launch<2>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    case 3: return launch<3>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    case 4: return launch<4>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    case 5: return launch<5>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    case 6: return launch<6>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    case 7: return launch<7>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
-    default: return launch<8>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, s);
+  const uint16_t* v = static_cast<const uint16_t*>(cube);
+  const float *a = static_cast<const float*>(txz), *t = static_cast<const float*>(tyz),
+              *u = static_cast<const float*>(txy);
+  float *o1 = static_cast<float*>(m1), *o2 = static_cast<float*>(m2),
+        *o3 = static_cast<float*>(m3);
+  for (int z0 = 0; z0 < Z; z0 += p.ZC) {
+    const int zc = min(p.ZC, Z - z0);
+    for (int c0 = 0; c0 < C; c0 += p.CG) {
+      const int cg = min(p.CG, C - c0);
+      const int err = launch_group(
+          cg, v + z0, a + (size_t)c0 * X * Z + z0, t + (size_t)c0 * Y * Z + z0,
+          u + (size_t)c0 * X * Y, o1 + (size_t)c0 * Y, o2 + (size_t)c0 * X,
+          o3 + (size_t)c0 * Z + z0, B, X, Y, zc, Z, C, z0 > 0, s);
+      if (err != 0) return err;
+    }
   }
+  return 0;
 }
 
 }  // extern "C"

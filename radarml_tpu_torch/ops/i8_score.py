@@ -47,11 +47,11 @@ __all__ = [
     "pack_cubes_i8",
 ]
 
-#: Launches of the CUDA kernel in this process. Only the wrapper adds to
-#: it, once per launch; callers reset it to 0 to count a run.
+#: Calls that launched the CUDA kernel in this process. Only the wrapper
+#: adds to it, once a call; callers reset it to 0 to count a run.
 KERNEL_LAUNCHES = 0
 
-MAX_C2 = 8  # class rows per table the kernel is compiled for (kMaxC2)
+SMEM_MAX = 232448  # one block's dynamic shared memory on an H100 (kSmemMax)
 
 
 def encode_int8_cubes(cubes, device=None) -> torch.Tensor:
@@ -220,7 +220,9 @@ def card_operands(cube: torch.Tensor, weights: CombinedWeights) -> None:
     CUDA implementation of its op: an exported program calls the op
     directly, so this runs there on every call. Raises unless the cube
     and every template are contiguous, typed and shaped as the kernels
-    take them, on one CUDA device, with C2 <= MAX_C2."""
+    take them, on one CUDA device, at a shape the built kernels' work
+    plan takes (their `i8_score_group_rows`: every class count; at X =
+    43, Z = 351 up to 144 y values)."""
     _check(cube, weights)
     X, Y, Z, _ = weights.dims
     C2 = weights.c2
@@ -234,10 +236,14 @@ def card_operands(cube: torch.Tensor, weights: CombinedWeights) -> None:
             )
     if not cube.is_contiguous():
         raise ValueError("the kernels take a contiguous (B, X, Y, Z) cube")
-    if C2 > MAX_C2:
-        raise ValueError(f"the kernels take at most {MAX_C2} class rows, got {C2}")
     if cube.device.type != "cuda":
         raise ValueError(f"no one-pass kernel for device {cube.device}")
+    planes = [int(q is not None) for q in (weights.q_xz, weights.q_yz, weights.q_xy)]
+    if _library().i8_score_group_rows(X, Y, Z, C2, *planes) == 0:
+        raise ValueError(
+            f"no int8 table kernel plan fits dims {(X, Y, Z)}: the templates of one class "
+            f"row over x-slabs one row wide need more than the kernels' limit of {SMEM_MAX} "
+            f"bytes of shared memory (227 KB a block on an H100)")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -251,12 +257,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "i8_score_sel_tables": [p] * 8 + [i] * 6 + [p],
         "i8_score_sel3_scores": [p] * 9 + [i] * 6 + [p],
         "i8_score_slab_width": [i] * 7,
+        "i8_score_group_rows": [i] * 7,
         "i8_score_lookup_resident": [i] * 7,
         "i8_score_grouped_resident": [i] * 7,
     }
     for fn, types in argtypes.items():
-        getattr(lib, fn).argtypes = types
-        getattr(lib, fn).restype = i
+        if hasattr(lib, fn):  # i8_score_group_rows is absent from an earlier source's build
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = i
     return lib
 
 
@@ -267,8 +275,8 @@ def _library() -> ctypes.CDLL:
 
 
 def slab_width(weights: CombinedWeights) -> int:
-    """The x-slab width the CUDA kernel launches with for these weights
-    (builds the kernel if needed)."""
+    """The x-slab width the CUDA kernel launches whole scans with for these
+    weights, under its class groups (builds the kernel if needed)."""
     X, Y, Z, _ = weights.dims
     has = [int(q is not None) for q in (weights.q_xz, weights.q_yz, weights.q_xy)]
     return _library().i8_score_slab_width(X, Y, Z, weights.c2, *has)

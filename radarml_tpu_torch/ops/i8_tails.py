@@ -194,9 +194,11 @@ def lookup_plan(B: int, X: int, resident: int, slab_width: int) -> Tuple[int, in
     each scan in P parts of contiguous x-slabs XS wide (`part_slabs`).
 
     `resident` is the number of its blocks the card holds at once with
-    whole scans and `slab_width` that plan's slab width (the combo
-    kernel's). From B = resident on, P = 1: whole scans, one persistent
-    block per SM, as the combo kernel walks them. Below that, idle blocks
+    whole scans, over the class groups (one block a group of a scan takes
+    a slot: the resident blocks divided by the groups), and `slab_width`
+    that plan's slab width (the combo kernel's). From B = resident on,
+    P = 1: whole scans, one persistent block per SM and group, as the
+    combo kernel walks them. Below that, idle blocks
     can take parts: resident / B of them a scan, rounded down or up, with a
     narrower slab where that gives more slabs and never more parts than
     slabs, so each part is at least one slab. The kernel runs min(B,
@@ -237,15 +239,17 @@ def part_slabs(X: int, XS: int, P: int) -> List[Tuple[int, int]]:
 @functools.lru_cache(maxsize=None)
 def _plan_shape(device: int, kernel: str, dims: Tuple[int, int, int], c2: int,
                 planes: Tuple[bool, bool, bool]) -> Tuple[int, int]:
-    """(resident blocks, slab width) of the lookup or glookup kernel's
-    whole-scan plan on CUDA card `device`; raises on a CUDA error."""
+    """(resident blocks over the class groups, slab width) of the lookup or
+    glookup kernel's whole-scan plan on CUDA card `device`; raises on a
+    CUDA error."""
     lib = i8_score._library()
     fn = f"i8_score_{kernel}_resident"
     with torch.cuda.device(device):
         resident = getattr(lib, fn)(*dims, c2, *planes)
     if resident <= 0:
         raise RuntimeError(f"{fn} failed: CUDA error {-resident} (dims={dims}, C2={c2})")
-    return resident, lib.i8_score_slab_width(*dims, c2, *planes)
+    groups = -(-c2 // lib.i8_score_group_rows(*dims, c2, *planes))
+    return max(1, resident // groups), lib.i8_score_slab_width(*dims, c2, *planes)
 
 
 def lookup_plan_on_card(B: int, weights: CombinedWeights,
@@ -253,7 +257,8 @@ def lookup_plan_on_card(B: int, weights: CombinedWeights,
     """`lookup_plan` for B scans with these weights on their CUDA card:
     (P, XS), as onepass_tables_i8 (kernel "lookup") or
     onepass_tables_grouped_i8 ("grouped") launches it, from that kernel's
-    own resident-block count (builds the kernels if needed)."""
+    own resident-block count over its class groups (builds the kernels if
+    needed)."""
     if kernel not in ("lookup", "grouped"):
         raise ValueError(f"kernel must be 'lookup' or 'grouped', got {kernel!r}")
     planes = tuple(q is not None for q in (weights.q_xz, weights.q_yz, weights.q_xy))

@@ -25,10 +25,15 @@ error.
 On a CUDA tensor `native_tables` launches the hand-written Hopper kernel
 `csrc/native_score.cu` (its header says what bounds it and how it is
 laid out) or raises; on a CPU tensor it runs the plain version
-`native_tables_ref`. Nothing falls back from one to the other. The
-templates must fit the kernel's shared memory on every device
-(`shared_memory_bytes`; 7 classes at the default arena), so a
-model that scores on the CPU also scores on the card. None of the TPU
+`native_tables_ref`, which takes every shape. Nothing falls back from one
+to the other. One launch takes at most 8 classes and 256 z values whose
+templates fit a block's shared memory (`shared_memory_bytes`; 7 classes
+at the default arena); the kernel's work plan cuts the classes into
+groups and Z into chunks so that every class count and every arena up to
+a txy template near 227 KB is served. The CUDA implementation asks the
+built kernel for that plan and refuses, naming the limit, where it has
+none; `native_plan` is its host mirror, which the CPU tests hold to the
+listed shapes and the card holds to the kernel's. None of the TPU
 kernel's tiling (scans padded to a multiple of 8, Y padded to 16) is
 carried over. The per-target reads are three gathers in PyTorch.
 """
@@ -37,7 +42,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,19 +55,21 @@ __all__ = [
     "fused_native_score",
     "fused_native_score_ref",
     "native_tables",
+    "native_plan",
     "native_tables_ref",
     "native_templates",
     "shared_memory_bytes",
 ]
 
-#: Launches of the CUDA kernel in this process. Only the wrapper adds to
-#: it, once per launch; callers reset it to 0 to count a run.
+#: Calls that launched the CUDA kernel in this process. Only the wrapper
+#: adds to it, once a call however many launches its plan makes; callers
+#: reset it to 0 to count a run.
 KERNEL_LAUNCHES = 0
 
-# The kernel's limits and layout constants (csrc/native_score.cu: kMaxC,
-# kMaxPairs, kSmemMax, kMaxStages, kStageBytes, kMaxWarps, kWideMaxC).
-MAX_C = 8
-MAX_Z = 2 * 32 * 4
+# The limits of one launch and the layout constants (csrc/native_score.cu:
+# kMaxC, kMaxPairs, kSmemMax, kMaxStages, kStageBytes, kMaxWarps, kWideMaxC).
+MAX_C = 8  # classes a launch takes
+MAX_Z = 2 * 32 * 4  # z values a launch takes
 SMEM_MAX = 232448
 _MAX_STAGES = 8
 _STAGE_BYTES = 32768
@@ -108,6 +116,30 @@ def shared_memory_bytes(X: int, Y: int, Z: int, C: int) -> int:
     return 4 * (fixed + stages * stage)
 
 
+@functools.lru_cache(maxsize=None)
+def native_plan(X: int, Y: int, Z: int, C: int) -> Optional[Tuple[int, int]]:
+    """The kernel's work plan for C classes at arena (X, Y, Z): (ZC, CG),
+    one launch for each z-chunk of ZC values (the last may be shorter) and
+    each group of CG classes (the last may have fewer), as make_plan in
+    csrc/native_score.cu makes it. The fewest chunks of at most MAX_Z,
+    then the fewest groups of at most MAX_C whose block fits SMEM_MAX, then
+    more chunks (a multiple of 8 wide) until one class fits; None when
+    not even 8 z of one class fit. At the default arena with up to 7
+    classes it is (Z, C): one launch. A mirror for the tests: the CUDA
+    implementation asks the built kernel (native_score_plan_zchunk /
+    _group)."""
+    nz = -(-Z // MAX_Z)
+    while True:
+        zc = Z if nz == 1 else (-(-Z // nz) + 7) // 8 * 8
+        for ng in range(-(-C // MAX_C), C + 1):
+            cg = -(-C // ng)
+            if shared_memory_bytes(X, Y, zc, cg) <= SMEM_MAX:
+                return zc, cg
+        if zc <= 8:
+            return None
+        nz += 1
+
+
 @dataclasses.dataclass(frozen=True)
 class NativeTemplates:
     """The three folded float32 templates, as the kernel takes them:
@@ -139,6 +171,8 @@ def native_templates(tmpl_xz, tmpl_yz, tmpl_xy, device=None) -> NativeTemplates:
     if any(t.dim() != 3 for t in ts):
         raise ValueError("templates must be (C, X, Z), (C, Y, Z), (C, X, Y)")
     (C, X, Z), (C2, Y, Z2), (C3, X3, Y3) = (t.shape for t in ts)
+    if C < 1:
+        raise ValueError("templates need at least one class")
     if not (C == C2 == C3 and Z == Z2 and X == X3 and Y == Y3):
         raise ValueError(
             "templates disagree: "
@@ -165,7 +199,7 @@ def native_tables_ref(
 
 
 def _check(cubes: torch.Tensor, templates: NativeTemplates) -> None:
-    X, Y, Z, C = templates.dims
+    X, Y, Z, _ = templates.dims
     if cubes.dtype != torch.bfloat16 or cubes.dim() != 4:
         raise ValueError(
             f"cubes must be (B, X, Y, Z) bfloat16, got {cubes.dtype} "
@@ -178,18 +212,6 @@ def _check(cubes: torch.Tensor, templates: NativeTemplates) -> None:
         )
     if templates.device != cubes.device:
         raise ValueError(f"cubes on {cubes.device}, templates on {templates.device}")
-    if C > MAX_C or Z > MAX_Z:
-        raise ValueError(
-            f"the kernel takes at most {MAX_C} classes and Z <= {MAX_Z}, "
-            f"got C={C}, Z={Z}"
-        )
-    need = shared_memory_bytes(X, Y, Z, C)
-    if need > SMEM_MAX:
-        raise ValueError(
-            f"templates of {C} classes at dims {(X, Y, Z)} need {need} bytes "
-            f"of shared memory, over the kernel's limit of {SMEM_MAX} bytes "
-            f"(227 KB a block on an H100)"
-        )
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -198,6 +220,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.native_score_tables.restype = i
     lib.native_score_smem_bytes.argtypes = [i] * 4
     lib.native_score_smem_bytes.restype = ctypes.c_long
+    for fn in ("native_score_plan_zchunk", "native_score_plan_group"):
+        if hasattr(lib, fn):  # absent from an earlier source's build (kernel_probe --earlier)
+            getattr(lib, fn).argtypes = [i] * 4
+            getattr(lib, fn).restype = i
     return lib
 
 
@@ -213,10 +239,12 @@ def native_tables(
     """The three float32 tables of a (B, X, Y, Z) bfloat16 cube batch:
     M1 (B, C, Y), M2 (B, C, X), M3 (B, C, Z).
 
-    On a CUDA tensor the kernel writes them on the current stream, each
-    element once, summed in a fixed order (the same bits on every run);
-    it takes a contiguous cube and raises on any other. On a CPU tensor
-    this is `native_tables_ref`. Both go through the torch op
+    On a CUDA tensor the kernel writes them on the current stream under
+    `native_plan` (one launch at the default arena with up to 7 classes,
+    one a z-chunk and class group otherwise; one counted call either way),
+    summed in a fixed order (the same bits on every run); it takes a
+    contiguous cube and raises on any other. On a CPU tensor this is
+    `native_tables_ref`, at every shape. Both go through the torch op
     `radarml_torch::native_tables` (ops/library.py).
     """
     _check(cubes, templates)
@@ -232,7 +260,7 @@ def native_tables_cuda(
     """Launch the kernel on CUDA operands, checked here: an exported
     program calls the op directly, so these checks run on every call. The
     CUDA implementation of `radarml_torch::native_tables`; counts the
-    launch."""
+    call once, however many launches its plan makes."""
     _check(cubes, templates)
     X, Y, Z, C = templates.dims
     for t, shape in zip((templates.t_xz, templates.t_yz, templates.t_xy),
@@ -245,6 +273,12 @@ def native_tables_cuda(
         raise ValueError("the kernel takes a contiguous (B, X, Y, Z) cube")
     if cubes.device.type != "cuda":
         raise ValueError(f"no native_score kernel for device {cubes.device}")
+    lib = _library()
+    if lib.native_score_plan_zchunk(X, Y, Z, C) == 0:
+        raise ValueError(
+            f"no B7 work plan fits dims {(X, Y, Z)}: one class at 8 z values a launch needs "
+            f"{lib.native_score_smem_bytes(X, Y, min(Z, 8), 1)} bytes of shared memory, over "
+            f"the kernel's limit of {SMEM_MAX} bytes (227 KB a block on an H100)")
     B = cubes.shape[0]
     dev = cubes.device
     m1 = torch.empty((B, C, Y), dtype=torch.float32, device=dev)
@@ -252,7 +286,6 @@ def native_tables_cuda(
     m3 = torch.empty((B, C, Z), dtype=torch.float32, device=dev)
     if B == 0:
         return m1, m2, m3
-    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.native_score_tables(

@@ -19,7 +19,7 @@ from typing import Dict, Iterator, Optional
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StageTimer", "RateMeter", "device_trace", "kernel_device_ms"]
+__all__ = ["StageTimer", "RateMeter", "device_trace", "kernel_device_calls", "kernel_device_ms"]
 
 
 @dataclasses.dataclass
@@ -162,17 +162,21 @@ def trace_device_us(fns: dict, symbols: dict, reps: int) -> dict:
     return out
 
 
-def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
-    """Mean device time of one launch of each kernel, from a torch.profiler
-    (CUPTI) trace of `reps` rounds of the calls in `fns`: name -> ms, for
-    every name -> kernel function name (a substring of what the trace
-    shows) in `symbols`. Needs a CUDA card.
+def kernel_device_calls(fns: dict, symbols: dict, reps: int, log=None) -> dict:
+    """Device time of one call of each fn in `fns`, from a torch.profiler
+    (CUPTI) trace of `reps` rounds of the calls: name -> (ms a call,
+    launches a call) of the kernel whose function name contains
+    symbols[name] (a substring of what the trace shows). A call's time is
+    its launches' mean time times the launches it makes (the trace's
+    launch count over `reps`, rounded), so it stands beside the call's
+    bound however many launches its work plan makes. Needs a CUDA card.
 
-    A trace now and then came back without a kernel's records in earlier
-    runs (cause not established; `utils/kernel_probe.py traces` looks for
-    it), so a trace that lacks a symbol is counted in TRACES, reported
-    through `log` and taken again, twice at most; a symbol that is still
-    missing raises: no time is ever reported as 0."""
+    A trace now and then came back without some or all of a kernel's
+    records in earlier runs (cause not established; `utils/kernel_probe.py
+    traces` looks for it). A count that is not a whole number of launches a
+    call is reported through `log`; a trace that lacks a symbol is counted
+    in TRACES, reported and taken again, twice at most; a symbol that is
+    still missing raises: no time is ever reported as 0."""
     import torch
 
     for fn in fns.values():  # warm-up
@@ -181,7 +185,14 @@ def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
     for attempt in range(3):
         got = trace_device_us(fns, symbols, reps)
         TRACES["taken"] += 1
-        out = {name: us / n / 1e3 for name, (us, n) in got.items() if n > 0 and us > 0}
+        out = {}
+        for name, (us, n) in got.items():
+            per_call = round(n / reps)
+            if per_call > 0 and us > 0:
+                out[name] = (us / n * per_call / 1e3, per_call)
+                if n != per_call * reps and log is not None:
+                    log(f"{symbols[name]}: {n} launch records for {reps} calls, taken as "
+                        f"{per_call} a call")
         missing = [symbols[name] for name in symbols if name not in out]
         if not missing:
             return out
@@ -189,3 +200,9 @@ def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
         if log is not None:
             log(f"trace {attempt + 1} shows no device time for {missing}")
     raise RuntimeError(f"the trace shows no device time for kernels {missing}")
+
+
+def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
+    """`kernel_device_calls` without the launch counts: name -> device ms
+    of one call of fns[name]."""
+    return {name: ms for name, (ms, _) in kernel_device_calls(fns, symbols, reps, log).items()}

@@ -196,8 +196,11 @@ def test_probe_patches_fit_the_source(variant):
 def test_kernel_on_the_card():
     """On a card: the wrapper launches the kernel (counted) and every table
     equals the plain version bit for bit, at B = 1, 7 and 300, an odd and a
-    small arena, each plane masked, levels 1 and 2, 1 to 8 class rows, and
-    a cube view that starts one byte into its buffer (byte-copy path)."""
+    small arena, each plane masked, levels 1 and 2, 1 to 8 class rows and
+    past them (class groups: 9, 10, 16, 18, 32 rows), the finer scan
+    arenas (Z = 351), and a cube view that starts one byte into its buffer
+    (byte-copy path); a shape no plan takes is refused before any launch,
+    naming the limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -226,18 +229,26 @@ def test_kernel_on_the_card():
     ):
         held(dims, B, tk.build_combined_weights(
             _quant(rng, dims, levels, masked=masked), dims, levels=levels, device=dev))
-    for dims in (default, (9, 13, 180), (5, 7, 9)):
+    for dims, rows in ((default, (*range(1, 9), 9, 10, 16, 18, 32)),
+                       ((9, 13, 180), (*range(1, 9), 10, 18)), ((5, 7, 9), (*range(1, 9), 9, 16)),
+                       ((43, 31, 351), (3, 6, 9, 10)), ((22, 31, 351), (6, 10)),
+                       ((43, 61, 351), (6, 10))):
         X, Y, Z = dims
-        for c2 in range(1, 9):
+        for c2 in rows:
             q = [torch.from_numpy(rng.integers(-127, 128, (c2,) + s).astype(np.int8)).to(dev)
                  for s in ((X, Z), (Y, Z), (X, Y))]
             held(dims, 9, tk.CombinedWeights(*q, dims=dims + (c2,), levels=1))
     held(default, 7, tk.build_combined_weights(_quant(rng, default, 2), default, device=dev),
          offset=1)
-    w9 = tk.CombinedWeights(*[torch.zeros((9,) + s, dtype=torch.int8, device=dev)
-                              for s in ((5, 9), (7, 9), (5, 7))], dims=(5, 7, 9, 9), levels=1)
-    with pytest.raises(ValueError, match="class rows"):
-        tk.onepass_tables_combined_i8(torch.zeros((1, 5, 7, 9), dtype=torch.int8, device=dev), w9)
+    huge = (43, 200, 400)  # one class row's whole-scan block needs ~320 KB
+    w_huge = tk.CombinedWeights(*[torch.zeros((1,) + s, dtype=torch.int8, device=dev)
+                                  for s in ((43, 400), (200, 400), (43, 200))],
+                                dims=huge + (1,), levels=1)
+    before = tk.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="232448 bytes"):
+        tk.onepass_tables_combined_i8(torch.zeros((1,) + huge, dtype=torch.int8, device=dev),
+                                      w_huge)
+    assert tk.KERNEL_LAUNCHES == before
 
 
 def test_count_launch_is_exact_under_threads():

@@ -119,19 +119,34 @@ def test_float32_stream_is_cast_to_bf16_first(rng):
 
 
 def test_shared_memory_check_raises_before_launch(rng):
-    """Up to seven classes fit a block's 227 KB at the default arena, eight
-    do not; the wrapper refuses on every device, before any launch."""
+    """Up to seven classes fit one launch's 227 KB at the default arena,
+    eight do not and go as two class groups of four; on the CPU every
+    shape scores (the plain version). Only a shape that no plan takes,
+    one class at 8 z values over the limit, has no plan; the CUDA entry
+    refuses a CPU tensor before any launch (on the card it refuses that
+    shape, naming the limit: test_kernel_on_the_card)."""
     dims = (22, 31, 176)
     assert score.shared_memory_bytes(*dims, 5) <= score.SMEM_MAX
     assert score.shared_memory_bytes(*dims, 7) <= score.SMEM_MAX
     assert score.shared_memory_bytes(*dims, 8) > score.SMEM_MAX
+    assert score.native_plan(*dims, 7) == (176, 7)
+    assert score.native_plan(*dims, 8) == (176, 4)
     cube = torch.zeros((1,) + dims, dtype=torch.bfloat16)
-    score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=7)))
-    with pytest.raises(ValueError, match="232448 bytes"):
-        score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=8)))
-    with pytest.raises(ValueError, match="232448 bytes"):
-        score.fused_native_score(cube, np.zeros((1, 1, 3), np.int32),
-                                 *_templates(rng, dims, C=8), np.zeros(8, np.float32))
+    tm8 = score.native_templates(*_templates(rng, dims, C=8))
+    for g, r in zip(score.native_tables(cube, tm8), score.native_tables_ref(cube, tm8)):
+        assert torch.equal(g, r)
+    got = score.fused_native_score(cube, np.zeros((1, 1, 3), np.int32),
+                                   *_templates(rng, dims, C=8), np.zeros(8, np.float32))
+    assert tuple(got.shape) == (1, 1, 8)
+    huge = (250, 250, 9)  # txy alone, 250 x 250 floats, is 250 KB
+    assert score.native_plan(*huge, 1) is None
+    tm = score.native_templates(*_templates(rng, huge, C=1))
+    cube = torch.zeros((1,) + huge, dtype=torch.bfloat16)
+    assert tuple(score.native_tables(cube, tm)[0].shape) == (1, 1, 250)
+    before = score.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="no native_score kernel for device cpu"):
+        score.native_tables_cuda(cube, tm)
+    assert score.KERNEL_LAUNCHES == before
 
 
 def _earlier_smem_bytes(X, Y, Z, C):
@@ -143,18 +158,27 @@ def _earlier_smem_bytes(X, Y, Z, C):
                 + r(8 * C) + r(C * zs))
 
 
-@pytest.mark.parametrize("Z", [1, 9, 64, 176, 180, 256])
+@pytest.mark.parametrize("Z", [1, 9, 64, 176, 180, 256, 351, 512])
 def test_no_model_that_fitted_stops_fitting(Z):
-    """Every (dims, C) that fitted the earlier layout fits this one, and
-    the ring holds 2 to 8 stages of which at least 3 at the default
-    arena's Y and Z for every C that fits there."""
+    """Every (dims, C) up to 16 classes has a work plan, each of its
+    launches fits, and every (dims, C) that fitted the earlier layout in
+    one launch keeps one launch (plan (Z, C)); the ring holds 2 to 8
+    stages, of which at least 3 at the default arena's Y and Z for every C
+    that fits one launch there."""
     for X in range(1, 48, 3):
         for Y in (1, 7, 13, 31, 61, 120, 200):
-            for C in range(1, score.MAX_C + 1):
-                need = score.shared_memory_bytes(X, Y, Z, C)
-                if _earlier_smem_bytes(X, Y, Z, C) <= score.SMEM_MAX:
-                    assert need <= score.SMEM_MAX, (X, Y, Z, C)
-                assert 2 <= score._layout(X, Y, Z, C)[3] <= 8
+            for C in range(1, 17):
+                zc, cg = score.native_plan(X, Y, Z, C)
+                assert zc <= score.MAX_Z and cg <= score.MAX_C, (X, Y, Z, C)
+                assert score.shared_memory_bytes(X, Y, zc, cg) <= score.SMEM_MAX
+                last = Z - (-(-Z // zc) - 1) * zc  # the last chunk's width
+                assert 0 < last <= zc and score.shared_memory_bytes(X, Y, last, cg) \
+                    <= score.SMEM_MAX
+                if (C <= score.MAX_C and Z <= score.MAX_Z
+                        and _earlier_smem_bytes(X, Y, Z, C) <= score.SMEM_MAX):
+                    assert (zc, cg) == (Z, C), (X, Y, Z, C)
+                if C <= score.MAX_C:
+                    assert 2 <= score._layout(X, Y, Z, C)[3] <= 8
     if Z == 176:
         for C in range(1, 8):
             assert score._layout(22, 31, Z, C)[3] >= 3, C
@@ -172,7 +196,7 @@ def test_probe_patches_fit_the_source():
 @pytest.mark.parametrize(
     "case,err",
     [("cube_dtype", "bfloat16"), ("cube_shape", "does not match"),
-     ("templates", "disagree"), ("classes", "at most 8 classes")],
+     ("templates", "disagree"), ("classes", "at least one class")],
 )
 def test_wrapper_checks_operands(rng, case, err):
     dims = (5, 7, 9)
@@ -186,18 +210,25 @@ def test_wrapper_checks_operands(rng, case, err):
         elif case == "templates":
             score.native_templates(t[0], t[1][:, :6], t[2])
         else:
-            score.native_tables(cube, score.native_templates(*_templates(rng, dims, C=9)))
+            score.native_templates(*_templates(rng, dims, C=0))
 
 
 # (dims, B, C, misaligned): several scans a block so that the ring wraps
-# (B = 300 on 132 SMs), one class, the most that fit at the default arena,
-# all eight at a tiny arena, Z = 180 (not a multiple of 8) and a cube 2
-# bytes off 16-byte alignment (both the copy route).
+# (B = 300 on 132 SMs), one class, the most that fit one launch at the
+# default arena, all eight at a tiny arena, Z = 180 (not a multiple of 8)
+# and a cube 2 bytes off 16-byte alignment (both the copy route); 8, 9 and
+# 16 classes at the default arena (class groups of 4, 5 and 6) and 9 at a
+# tiny one; the finer scan arenas (Z = 351: two z-chunks a scan, the copy
+# route; 43 x 61 also class groups at 5 classes).
 CARD_CASES = [((22, 31, 176), 37, 3, False), ((22, 31, 176), 300, 3, False),
               ((22, 31, 176), 9, 1, False), ((22, 31, 176), 9, 5, False),
               ((22, 31, 176), 9, 7, False), ((5, 7, 9), 3, 8, False),
               ((9, 13, 180), 5, 2, False), ((22, 31, 180), 7, 3, False),
-              ((5, 7, 9), 3, 5, False), ((22, 31, 176), 7, 3, True)]
+              ((5, 7, 9), 3, 5, False), ((22, 31, 176), 7, 3, True),
+              ((22, 31, 176), 9, 8, False), ((22, 31, 176), 300, 9, False),
+              ((22, 31, 176), 7, 16, False), ((5, 7, 9), 3, 9, False),
+              ((43, 31, 351), 7, 3, False), ((22, 31, 351), 7, 5, False),
+              ((43, 61, 351), 7, 5, False)]
 
 
 @pytest.mark.cuda
@@ -205,8 +236,9 @@ def test_kernel_on_the_card():
     """On a card: the wrapper launches the kernel (counted), its tables
     err against float64 at most 2x as much as the plain float32 version's
     (+1e-6 x max|oracle|), are the same bits on a second call, and agree
-    with the library's own shared-memory count; a non-contiguous cube
-    raises."""
+    with the library's own shared-memory count and work plan; a
+    non-contiguous cube raises, and a shape no plan takes is refused
+    before any launch, naming the limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -215,6 +247,8 @@ def test_kernel_on_the_card():
         tm = score.native_templates(*_templates(rng, dims, C), device=dev)
         assert score._library().native_score_smem_bytes(*dims, C) == \
             score.shared_memory_bytes(*dims, C)
+        assert (score._library().native_score_plan_zchunk(*dims, C),
+                score._library().native_score_plan_group(*dims, C)) == score.native_plan(*dims, C)
         values = torch.from_numpy(_cubes(rng, B, dims, "float")).to(dev).to(torch.bfloat16)
         flat = torch.zeros(values.numel() + 1, dtype=torch.bfloat16, device=dev)
         cube = flat[int(misaligned):values.numel() + int(misaligned)].view(values.shape)
@@ -236,3 +270,9 @@ def test_kernel_on_the_card():
             assert err_kernel <= 2.0 * err_plain + 1e-6 * float(o.abs().max())
         with pytest.raises(ValueError, match="contiguous"):
             score.native_tables(cube.transpose(1, 2).contiguous().transpose(1, 2), tm)
+    huge = (250, 250, 9)  # the xy template alone, 250 x 250 floats, is 250 KB
+    tm = score.native_templates(*_templates(rng, huge, C=1), device=dev)
+    before = score.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="232448 bytes"):
+        score.native_tables(torch.zeros((1,) + huge, dtype=torch.bfloat16, device=dev), tm)
+    assert score.KERNEL_LAUNCHES == before

@@ -37,14 +37,18 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              cubes; each table's error against float64 is at most 2x the
              plain version's + 1e-6 x max|oracle|, a second call gives the
              same bits. Past the earlier limits (one class group of 8 rows
-             in B1-B5; 7 classes and Z <= 256 in B7): B1-B5 at C2 10 / 16
-             / 18 / 32 (levels 2) and 9 / 16 (levels 1), B 1 / 7 / 64 /
-             133 at the default arena and B 7 / 64 at the finer scan
-             arenas 43x31x351, 22x31x351 and 43x61x351 (Z = 351: the
-             byte-copy path), each plane masked at one of them, equal to
-             their plain versions; B7 within its bars at C 8 / 9 / 16 and
-             at the finer arenas, B7's work plan (class groups, z-chunks)
-             equal to the host's mirror of it.
+             in B1-B5; 7 classes and Z <= 256 in B7): B1-B5 at C2 6
+             (the finer arenas), 10 / 16 / 18 / 32 (levels 2) and 9 / 16
+             (levels 1), B 1 / 7 / 64 / 133 at the default arena and B
+             7 / 64 at the finer scan arenas 43x31x351, 22x31x351 and
+             43x61x351 (Z = 351: the staged route), B 1024 at 43x31x351,
+             each plane masked there and a cube 1 byte off alignment,
+             equal to their plain versions, each plan (class rows a
+             group, slab width) the host mirror's; B7 within its bars at
+             C 8 / 9 / 16 and at the finer arenas (C 1 / 2 / 3 / 5 / 9,
+             the long-row instance; B 1024 and a cube 2 bytes off
+             alignment at 43x31x351), B7's work plan (class groups,
+             z-chunks) equal to the host's mirror of it.
 4. slice   — the demo linear model (radarml_tpu_torch/assets/
              demo_linear.npz) scores 512 synthetic scans (4 target slots
              each) through RadarPredictor in exact, fast f32, fast int8,
@@ -70,7 +74,8 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              and B=64, with the kernel's own device time from a
              torch.profiler trace beside it (at B=64 the wrapper's host
              dispatch can outlast the kernel), and B7 beside the fast f32
-             path's three float32 einsums on the same cube; the lookup and
+             path's float32 tables (folded_tables) on the same cube; the
+             lookup and
              glookup kernels' at B 1 / 7 / 64 / 131 / 132 / 133 with their
              plans (and the glookup plan at y-groups 5 / 16 / 31, which is
              one plan); fused
@@ -79,10 +84,21 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              resident on the card; each table kernel's device time a call
              (its CUDA launches summed, their count printed) and bound at
              B=4096 and 64 at 9 classes (int8 C2 = 18: three class groups
-             in one launch; B7 two launches) and at 43x31x351 with 3
-             classes (B7 two z-chunks, two launches); with --parent, the parent's kernel sources beside
-             this tree's at B=4096 (the same bits, profiler device times in
-             the order parent, this, this, parent, twice).
+             in one launch; B7 three launches) and at 43x31x351 with 3
+             classes (B1-B5 on the staged route, B7 one long-row launch),
+             and there by CUDA events the fast path's float32 tables (B7's
+             comparator) and the demo model's exact, fast f32 and fast
+             int8 steps at B=4096 and 64; the profiler traces' launch
+             records against the launches their calls made. With
+             --parent, the parent's kernel sources beside this tree's at
+             B=4096 at the default arena (the same bits, profiler device
+             times in the order parent, this, this, parent, twice) and at
+             43x31x351 at B=4096 and 64 (the int8 kernels' same bits, B7
+             each within its float64 bar; P N N P), the fast float32
+             tables there, and the demo model's exact, fast f32 and fast
+             int8 steps through the parent's pipeline module and this
+             tree's (default arena B=4096, 43x31x351 B=4096 and 64; exact
+             and fast int8 the same bits).
 7. rbf     — the RBF Gram kernel against its plain version and a float64
              oracle, on scaled features of the SVC dataset (process_samples
              (scale=True) of make_dataset(1824, hardness=1.0)) and on
@@ -297,8 +313,11 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              counter up by exactly its calls; the predict app in a process
              of its own, --mode fused with split and single quantization
              and --scan_arena 10,360,1,-42,42,2,-30,30,2 (the app has no
-             pallas mode), equal to direct calls. Its record is printed as
-             a {"shapes": ...} JSON line.
+             pallas mode), equal to direct calls; the demo model at
+             43x31x351, B=4096, each mode's step by CUDA events and each
+             table kernel's device time a call, the traces' launch
+             records against the launches. Its record is printed as a
+             {"shapes": ...} JSON line.
 
 Every phase's seconds are printed as it ends ([time] lines).
 
@@ -331,7 +350,8 @@ this run; the times of the seven earlier designs that were replaced
 B1's walk; PERF.md section 6) appear only in the progress lines, labelled
 as earlier. No single PyTorch call
 computes any of these functions, so library_ms is null (B7's record
-carries the fast path's three einsums as fast_f32_ms instead). The line
+carries the fast path's float32 tables as fast_f32_ms instead, and at
+43x31x351 as fast_f32_ms_43x31x351). The line
 before last is the kernel record as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -378,7 +398,11 @@ from radarml_tpu_torch.data.synthetic import (  # noqa: E402
 )
 from radarml_tpu_torch.models import linear, svc  # noqa: E402
 from radarml_tpu_torch.models.linear import from_numpy  # noqa: E402
-from radarml_tpu_torch.models.pipeline import RadarPredictor, pad_targets  # noqa: E402
+from radarml_tpu_torch.models.pipeline import (  # noqa: E402
+    RadarPredictor,
+    folded_tables,
+    pad_targets,
+)
 from radarml_tpu_torch.ops import _cuda_build  # noqa: E402
 from radarml_tpu_torch.ops import i8_score, i8_tails, rbf, score  # noqa: E402
 from radarml_tpu_torch.ops.features import FeatureSpec, process_samples  # noqa: E402
@@ -2819,6 +2843,9 @@ FINE_ARENAS = {"43x31x351": dict(r_res=1.0, theta_res=2.0), "22x31x351": dict(r_
 FINE_SPEC = "10,360,1,-42,42,2,-30,30,2"  # FINE_ARENAS["43x31x351"] as the apps take it
 # (class rows C2, levels) of phase 3's cases past one class group of 8 rows
 SHAPE_ROWS = ((10, 2), (16, 2), (18, 2), (32, 2), (9, 1), (16, 1))
+# phase 3's batch of many waves at 43x31x351 (the plain versions' float64
+# einsums of 4096 such scans would hold ~45 GB)
+FINE_B = 1024
 # The predict app twice in one process of its own, --mode fused with split
 # and with single quantization (the app has no pallas mode, in the JAX
 # package or the port): both results as one JSON line.
@@ -2829,31 +2856,53 @@ print(json.dumps({q: predict.main(argv + [q]) for q in ("split", "single")}))
 """
 
 
+def offset_view(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `nbytes` into its buffer (so
+    off 16-byte alignment)."""
+    k = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    v = buf[k:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
 def shape_parity(dev, rng) -> str:
     """Phase 3's cases past the earlier limits. B1-B5 equal their plain
-    versions (torch.equal) at C2 10 / 16 / 18 / 32 (levels 2) and 9 / 16
-    (levels 1): B 1 / 7 / 64 / 133 at the default arena, B 7 / 64 at the
-    three finer arenas (Z = 351: the byte-copy path), each plane masked
-    in turn at 43 x 31 x 351 with C2 = 10; each shape has a plan (class
-    rows a group, slab width). B7 within its bars at C 8 / 9 / 16 (class
-    groups) and at the finer arenas (two z-chunks a scan), its plan the
-    host mirror's (ops/score.native_plan). Returns the progress line."""
+    versions (torch.equal) at C2 6 (levels 2, the finer arenas only), 10 /
+    16 / 18 / 32 (levels 2) and 9 / 16 (levels 1): B 1 / 7 / 64 / 133 at
+    the default arena, B 7 / 64 at the three finer arenas (Z = 351: the
+    staged route) and B 1024 at 43 x 31 x 351 with C2 = 6, each plane
+    masked in turn at 43 x 31 x 351 with C2 = 10, and a cube that starts
+    one byte into its buffer there; each shape's plan (class rows a group,
+    slab width) equal to the host mirror's (ops/i8_score.whole_scan_plan).
+    B7 within its bars at C 8 / 9 / 16 (class groups) and at the finer
+    arenas (C 1 / 2 / 3 / 5 and 9: the long-row instance; 43 x 61 x 351
+    at C 3 / 5 in two z-chunks), at B 1024 at 43 x 31 x 351 with C 3 and
+    with a cube 2 bytes off 16-byte alignment there, its plan the host
+    mirror's (ops/score.native_plan). Returns the progress line."""
     dims = DEFAULT_ARENA.grid_shape
     fine = {k: Arena(**v).grid_shape for k, v in FINE_ARENAS.items()}
     cases = [(dims, B, c2, lv, None) for c2, lv in SHAPE_ROWS for B in (1, 7, SMALL_B, 133)]
-    cases += [(fd, B, c2, lv, None) for fd in fine.values() for c2, lv in SHAPE_ROWS
-              for B in (7, SMALL_B)]
+    cases += [(fd, B, c2, lv, None) for fd in fine.values()
+              for c2, lv in ((6, 2),) + SHAPE_ROWS for B in (7, SMALL_B)]
     cases += [(fine["43x31x351"], 7, 10, 2, m) for m in (0, 1, 2)]
+    cases += [(fine["43x31x351"], FINE_B, 6, 2, None), (fine["43x31x351"], 7, 6, 2, "offset")]
     lib = i8_score._library()
     n_runs, err = 0, 0
     for cdims, B, c2, levels, masked in cases:
+        offset = masked == "offset"
+        masked = None if offset else masked
         w = i8_tails.build_grouped_weights(random_quant(rng, cdims, levels, masked, C=c2 // levels),
                                            cdims, min(16, cdims[1]), levels=levels, device=dev)
         planes = tuple(q is not None for q in (w.q_xz, w.q_yz, w.q_xy))
         rows = lib.i8_score_group_rows(*cdims, c2, *planes)
-        check(1 <= rows <= 8 and lib.i8_score_slab_width(*cdims, c2, *planes) >= 1,
-              f"no int8 plan at dims={cdims} C2={c2}")
+        plan = (rows, lib.i8_score_slab_width(*cdims, c2, *planes))
+        check(1 <= rows <= 8 and plan[1] >= 1, f"no int8 plan at dims={cdims} C2={c2}")
+        check(plan == i8_score.whole_scan_plan(*cdims, c2, planes),
+              f"int8 plan {plan} != the host mirror's at dims={cdims} C2={c2} planes={planes}")
         cube = torch.from_numpy(rng.integers(-128, 128, (B,) + cdims, dtype=np.int8)).to(dev)
+        if offset:
+            cube = offset_view(cube, 1)
         ijk = slots(rng, cdims, B, 4, dev)
         valid = torch.from_numpy(rng.random((B, 4)) < 0.75).to(dev)
         runs = [("onepass_tables_combined_i8",
@@ -2875,11 +2924,14 @@ def shape_parity(dev, rng) -> str:
             n_runs += 1
     native_cases = ([(dims, B, C) for C in (8, 9, 16) for B in (7, 300)]
                     + [(fd, B, C) for fd in fine.values() for C in (3, 5) for B in (7, SMALL_B)]
-                    + [(fine["43x31x351"], 7, 9)])
+                    + [(fine["43x31x351"], 7, C) for C in (1, 2, 9)]
+                    + [(fine["43x31x351"], FINE_B, 3), (fine["43x31x351"], 7, "offset")])
     nlib = score._library()
     cgen = torch.Generator(device=dev).manual_seed(17)
     worst = 0.0
     for ndims, B, C in native_cases:
+        offset = C == "offset"
+        C = 3 if offset else C
         plan = (nlib.native_score_plan_zchunk(*ndims, C), nlib.native_score_plan_group(*ndims, C))
         check(plan == score.native_plan(*ndims, C),
               f"B7 plan {plan} != the host mirror's at dims={ndims} C={C}")
@@ -2887,8 +2939,10 @@ def shape_parity(dev, rng) -> str:
         tm = score.native_templates(*[rng.normal(size=(C,) + sh).astype(np.float32) * 0.01
                                       for sh in ((X, Z), (Y, Z), (X, Y))], device=dev)
         cube = (torch.rand((B,) + ndims, generator=cgen, device=dev) * 255).to(torch.bfloat16)
+        if offset:
+            cube = offset_view(cube, 2)
         for t, (ek, er, omax, _, same) in zip(("m1", "m2", "m3"), native_errors(cube, tm)):
-            where = f"B7 {t} at dims={ndims} B={B} C={C}"
+            where = f"B7 {t} at dims={ndims} B={B} C={C}{' off 16 bytes' if offset else ''}"
             check(same, f"{where}: a second call gave other bits")
             check(ek <= 2.0 * er + 1e-6 * omax,
                   f"{where}: error vs float64 {ek:.3e} > 2x plain {er:.3e} + 1e-6 x {omax:.3e}")
@@ -2896,25 +2950,64 @@ def shape_parity(dev, rng) -> str:
     plans = {f"{k} C2={c2}": (lib.i8_score_group_rows(*fd, c2, 1, 1, 1),
                               lib.i8_score_slab_width(*fd, c2, 1, 1, 1))
              for k, fd in fine.items() for c2 in (6, 10)}
+    nplans = {f"{k} C={C}": score.native_plan(*fd, C) for k, fd in fine.items() for C in (3, 9)}
     return (f"past the earlier limits: B1-B5 equal their plain versions in {n_runs} runs "
-            f"({len(cases)} cases: C2 10/16/18/32 at levels 2 and 9/16 at levels 1, B "
-            f"1/7/64/133 at {dims} and B 7/64 at {', '.join(fine)}, each plane masked at "
-            f"43x31x351 C2=10; max_abs_err {err}); plans (rows a class group, slab width) "
-            f"{plans}; B7 within its bars in {len(native_cases)} cases (C 8/9/16 at {dims}, "
-            f"C 3/5 at the finer arenas, C 9 at 43x31x351; worst error at "
-            f"{worst:.2f} of its bar), each B7 plan the host mirror's")
+            f"({len(cases)} cases: C2 6 at the finer arenas, 10/16/18/32 at levels 2 and "
+            f"9/16 at levels 1, B 1/7/64/133 at {dims} and B 7/64 at {', '.join(fine)}, B "
+            f"{FINE_B} at 43x31x351 C2=6, each plane masked at 43x31x351 C2=10, a cube 1 byte "
+            f"off alignment there; max_abs_err {err}); plans (rows a class group, slab width) "
+            f"{plans}, each the host mirror's; B7 within its bars in {len(native_cases)} cases "
+            f"(C 8/9/16 at {dims}, C 3/5 at the finer arenas, C 1/2/9 and B {FINE_B} at 43x31x351, "
+            f"a cube 2 bytes off alignment there; worst error at {worst:.2f} of its bar), "
+            f"each B7 plan (z-chunk, class group) the host mirror's: {nplans}")
+
+
+def native_launches(dims, C: int) -> int:
+    """B7's launches a call at these dims and classes: one a z-chunk and
+    class group of its plan (ops/score.native_plan)."""
+    zc, cg = score.native_plan(*dims, C)
+    return -(-dims[2] // zc) * -(-C // cg)
+
+
+def demo_steps(dev, B: int, fine: bool, module=None) -> dict:
+    """The demo model at the default or the 43 x 31 x 351 scan arena:
+    name -> (predictor, inputs) of exact, fast f32 and fast int8 over B
+    synthetic scans (64 tiled), 4 slots, inputs on the card. `module`: the
+    pipeline module whose RadarPredictor serves (a parent tree's, loaded
+    by parent_pipeline), this tree's by default."""
+    g = dict(np.load(ASSET))
+    arena = Arena(**FINE_ARENAS["43x31x351"]) if fine else DEFAULT_ARENA
+    model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"], device=dev)
+    kw = dict(train_arena=DEFAULT_ARENA, scan_arena=arena, model=model, calibration=calib,
+              min_proba=float(g["min_proba"]), device=dev)
+    cubes, targets = make_scan_batch(SMALL_B, arena=arena, seed=int(g["scan_seed"]))
+    xyz, valid = pad_targets([[(t.x, t.y, t.z)] for t in targets], max_targets=4)
+    reps = -(-B // SMALL_B)
+    f32 = torch.from_numpy(np.rint(cubes).astype(np.float32)).to(dev).repeat(reps, 1, 1, 1)[:B]
+    xyz = torch.from_numpy(xyz).to(dev).repeat(reps, 1, 1)[:B]
+    valid = torch.from_numpy(valid).to(dev).repeat(reps, 1)[:B]
+    cls = RadarPredictor if module is None else module.RadarPredictor
+    preds = {"exact": cls(mode="exact", **kw), "fast": cls(mode="fast", **kw),
+             "fast_i8": cls(mode="fast", cube_dtype="int8", **kw)}
+    i8 = i8_score.encode_int8_cubes(f32)
+    return {k: (p, (i8 if k == "fast_i8" else f32, xyz, valid)) for k, p in preds.items()}
 
 
 def shape_timing(dev) -> dict:
     """Phase 6 at the new shapes: each table kernel's device time at
     B=4096 and B=64 with its bound, at 9 classes on the default arena (the
-    int8 kernels at C2 = 18, three class groups of 6 rows; B7 at C = 9, two
-    groups) and at 43 x 31 x 351 with 3 classes (C2 = 6; B7 two z-chunks).
-    "device" is the device time of one op call, summed over the CUDA
-    launches its plan makes ("launches": one for B1-B5, two for B7 at
-    both shapes), so that it stands beside the call's bound. Random int8 /
-    bf16 cubes and templates, 4 slots a scan. Returns {shape: {name: {B:
-    {"device": ms, "launches": n, "bound": ms, "bound_by": ...}}}}."""
+    int8 kernels at C2 = 18, three class groups of 6 rows; B7 at C = 9, 3
+    groups of 3 on the long-row instance) and at 43 x 31 x 351 with 3
+    classes (C2 = 6, the staged route, slabs 5 x rows wide; B7 one launch
+    of the long-row instance). "device" is the device time of one op call,
+    summed over the CUDA launches its plan makes ("launches"), so that it
+    stands beside the call's bound. Random int8 / bf16 cubes and
+    templates, 4 slots a scan. At 43 x 31 x 351 also, by CUDA events: the
+    fast path's float32 tables (pipeline.folded_tables, B7's comparator
+    "fast_f32") on the float32 cube with B7's templates, and the demo
+    model's exact, fast f32 and fast int8 steps ("steps"). Returns {shape:
+    {name: {B: {"device": ms, "launches": n, "bound": ms, "bound_by": ...}}}}
+    with "fast_f32" {B: ms} and "steps" {B: {mode: ms}} at 43 x 31 x 351."""
     gen = torch.Generator(device=dev).manual_seed(6)
     rng = np.random.default_rng(6)
     out = {}
@@ -2937,15 +3030,30 @@ def shape_timing(dev) -> dict:
             for name in TAIL_KERNELS:
                 fns[name] = tail_fns(name, w, c, k, None)[0]
             fns["native_tables"] = lambda b=bf[:B]: score.native_tables(b, tm)
+            per_call = {n: native_launches(dims, C) if n == "native_tables" else 1 for n in fns}
             got = kernel_device_calls(fns, {n: KERNEL_SYMBOLS[n] for n in fns}, reps=5,
-                                      log=retrace)
+                                      log=retrace, launches=per_call)
             for name, (v, n) in got.items():
                 b_ms, b_by = (native_bound(B, dims, C) if name == "native_tables"
                               else int8_bound(name, B, dims, 2 * C, 4))
                 res.setdefault(name, {})[B] = {"device": v, "launches": n, "bound": b_ms,
                                                "bound_by": b_by}
+        if shape == "43x31x351":
+            del cube
+            f32 = bf.float()
+            fast_t = (tm.t_xz, tm.t_yz, tm.t_xy)
+            res["fast_f32"] = {B: interleaved({"f": lambda c=f32[:B]: folded_tables(c, fast_t)},
+                                              inner=3 if B == BIG else 20, rounds=3)["f"]
+                               for B in (BIG, SMALL_B)}
+            del f32, bf
+            res["steps"] = {}
+            for B in (BIG, SMALL_B):
+                steps = demo_steps(dev, B, fine=True)
+                res["steps"][B] = interleaved(
+                    {k: (lambda p=p, a=a: p(*a)) for k, (p, a) in steps.items()},
+                    inner=2 if B == BIG else 10, rounds=3)
+                del steps
         out[shape] = res
-        del cube, bf
     return out
 
 
@@ -2964,82 +3072,214 @@ def build_parent(parent: str, tmp: str) -> dict:
     return libs
 
 
+def parent_pipeline(parent: str):
+    """The parent tree's models/pipeline.py as a module of its own (its
+    imports resolve to this tree's package): its RadarPredictor runs the
+    parent's fast paths beside this tree's in one process."""
+    path = os.path.join(parent, "radarml_tpu_torch", "models", "pipeline.py")
+    spec = importlib.util.spec_from_file_location("parent_pipeline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def c_calls(lib, nlib, dev, cube, w, ijk, bf16, tm) -> dict:
+    """The five int8 kernels and B7 through a built library's C entries
+    (this tree's or a parent's) on these operands: name -> call."""
+    B = cube.shape[0]
+    X, Y, Z, _ = w.dims
+    C2, T = w.c2, ijk.shape[1]
+    kidx = ijk[..., 2].contiguous()
+    qp = [q.data_ptr() for q in (w.q_xz, w.q_yz, w.q_xy)]
+    # the lookup kernels' plan from this library's own resident blocks and
+    # slab width (a parent's may differ)
+    resident = lib.i8_score_lookup_resident(X, Y, Z, C2, 1, 1, 1)
+    check(resident > 0, f"i8_score_lookup_resident failed: CUDA error {-resident}")
+    groups = -(-C2 // lib.i8_score_group_rows(X, Y, Z, C2, 1, 1, 1))
+    P, XS = i8_tails.lookup_plan(B, X, max(1, resident // groups),
+                                 lib.i8_score_slab_width(X, Y, Z, C2, 1, 1, 1))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def outs(*shapes):
+        return [torch.empty(sh, dtype=torch.int32, device=dev) for sh in shapes]
+
+    def run(fn, extra, o, *ints):
+        err = getattr(lib, fn)(cube.data_ptr(), *qp, *extra, *[t.data_ptr() for t in o],
+                               B, X, Y, Z, C2, *ints, stream)
+        check(err == 0, f"{fn} failed: CUDA error {err}")
+        return o
+
+    tabs = ((B, C2, Y), (B, C2, X), (B, Z, C2))
+
+    def native():
+        m = [torch.empty((B, tm.dims[3], n), dtype=torch.float32, device=dev) for n in (Y, X, Z)]
+        err = nlib.native_score_tables(bf16.data_ptr(), tm.t_xz.data_ptr(), tm.t_yz.data_ptr(),
+                                       tm.t_xy.data_ptr(), *[t.data_ptr() for t in m], B, X, Y,
+                                       Z, tm.dims[3], stream)
+        check(err == 0, f"native_score_tables failed: CUDA error {err}")
+        return m
+
+    return {
+        "onepass_tables_combined_i8": lambda: run("i8_score_onepass_tables", (), outs(*tabs)),
+        "onepass_tables_i8": lambda: run("i8_score_lookup_tables", (), outs(*tabs), XS, P),
+        "onepass_tables_grouped_i8": lambda: run("i8_score_grouped_tables", (), outs(*tabs),
+                                                 XS, P),
+        "onepass_tables_sel_i8": lambda: run("i8_score_sel_tables", (kidx.data_ptr(),),
+                                             outs(tabs[0], tabs[1], (B, T, C2)), T),
+        "onepass_scores_i8": lambda: run("i8_score_sel3_scores", (ijk.data_ptr(), None),
+                                         outs(*[(B, T, C2)] * 3), T),
+        "native_tables": native,
+    }
+
+
 def parent_compare(dev, smi, parent: str, cube, w, ijk, bf16, tm) -> dict:
-    """The parent's kernel sources beside this tree's in one process, at
-    B=4096 on phase 6's inputs (the demo model's templates, the tiled demo
-    scans): the five int8 kernels and B7 through their C entries, the
-    same bits from both, then device times from profiler traces taken in
-    the order parent, this tree, this tree, parent, twice over."""
+    """The parent's kernel sources and fast paths beside this tree's in
+    one process. The kernels at B=4096 on phase 6's inputs (the demo
+    model's templates, the tiled demo scans) and at 43 x 31 x 351 with 3
+    classes (random cubes and templates as shape_timing makes them) at
+    B=4096 and 64, through their C entries: the same bits from both at
+    the default arena, and from the int8 kernels at 43 x 31 x 351, where
+    B7's plans differ (two z-chunk launches against one long-row launch)
+    and each is held to a float64 oracle; device times from profiler
+    traces in the order parent, this tree, this tree, parent (twice over
+    at the default arena). Then the demo model's exact, fast f32 and fast
+    int8 steps (CUDA events, the same order) through the parent's
+    pipeline module and this tree's at the default arena (B=4096) and at
+    43 x 31 x 351 (B=4096 and 64), fast int8 the same bits from both, and
+    at 43 x 31 x 351 the fast path's float32 tables (B7's comparator) on
+    the float32 cube. Returns {"default": {tag: {name: [ms]}}, "43x31x351":
+    {B: ...}, "steps": {arena: {B: {tag: {mode: ms}}}}}."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="parent_kernels_") as tmp:
         parent_libs = build_parent(parent, tmp)
     build_s = time.perf_counter() - t0
     libs = {"parent": parent_libs, "this tree": {"i8_score": i8_score._library(),
                                                  "native_score": score._library()}}
-    B = cube.shape[0]
     X, Y, Z, _ = w.dims
-    C2, T = w.c2, ijk.shape[1]
-    kidx = ijk[..., 2].contiguous()
-    qp = [q.data_ptr() for q in (w.q_xz, w.q_yz, w.q_xy)]
-    P, XS = i8_tails.lookup_plan_on_card(B, w, "lookup")
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    C2 = w.c2
     check(parent_libs["i8_score"].i8_score_slab_width(X, Y, Z, C2, 1, 1, 1)
           == libs["this tree"]["i8_score"].i8_score_slab_width(X, Y, Z, C2, 1, 1, 1),
           "the parent's whole-scan slab width differs at the default arena")
+    symbols = {n: KERNEL_SYMBOLS[n] for n in KERNEL_SYMBOLS}
 
-    def calls(lib, nlib):
-        def outs(*shapes):
-            return [torch.empty(sh, dtype=torch.int32, device=dev) for sh in shapes]
+    def timed(fns, launches, rounds, reps):
+        times = {tag: {name: [] for name in fns[tag]} for tag in fns}
+        for tag in ("parent", "this tree", "this tree", "parent") * rounds:
+            ms = kernel_device_ms(fns[tag], {n: symbols[n] for n in fns[tag]}, reps=reps,
+                                  log=retrace, launches=launches[tag])
+            for name, v in ms.items():
+                times[tag][name].append(v)
+        return times
 
-        def run(fn, extra, o, *ints):
-            err = getattr(lib, fn)(cube.data_ptr(), *qp, *extra, *[t.data_ptr() for t in o],
-                                   B, X, Y, Z, C2, *ints, stream)
-            check(err == 0, f"{fn} failed: CUDA error {err}")
-            return o
+    def line(times):
+        return "; ".join(
+            f"{name} parent {'/'.join(f'{v:.4f}' for v in times['parent'][name])}, this tree "
+            f"{'/'.join(f'{v:.4f}' for v in times['this tree'][name])}"
+            for name in times["parent"])
 
-        tabs = ((B, C2, Y), (B, C2, X), (B, Z, C2))
-
-        def native():
-            m = [torch.empty((B, tm.dims[3], n), dtype=torch.float32, device=dev)
-                 for n in (Y, X, Z)]
-            err = nlib.native_score_tables(bf16.data_ptr(), tm.t_xz.data_ptr(),
-                                           tm.t_yz.data_ptr(), tm.t_xy.data_ptr(),
-                                           *[t.data_ptr() for t in m], B, X, Y, Z, tm.dims[3],
-                                           stream)
-            check(err == 0, f"native_score_tables failed: CUDA error {err}")
-            return m
-
-        return {
-            "onepass_tables_combined_i8": lambda: run("i8_score_onepass_tables", (), outs(*tabs)),
-            "onepass_tables_i8": lambda: run("i8_score_lookup_tables", (), outs(*tabs), XS, P),
-            "onepass_tables_grouped_i8": lambda: run("i8_score_grouped_tables", (), outs(*tabs),
-                                                     XS, P),
-            "onepass_tables_sel_i8": lambda: run("i8_score_sel_tables", (kidx.data_ptr(),),
-                                                 outs(tabs[0], tabs[1], (B, T, C2)), T),
-            "onepass_scores_i8": lambda: run("i8_score_sel3_scores", (ijk.data_ptr(), None),
-                                             outs(*[(B, T, C2)] * 3), T),
-            "native_tables": native,
-        }
-
-    fns = {tag: calls(v["i8_score"], v["native_score"]) for tag, v in libs.items()}
+    fns = {tag: c_calls(v["i8_score"], v["native_score"], dev, cube, w, ijk, bf16, tm)
+           for tag, v in libs.items()}
     for name in fns["parent"]:
         a, b = fns["parent"][name](), fns["this tree"][name]()
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip(a, b)),
               f"{name}: the parent's sources and this tree's give other bits at the default")
-    times = {tag: {name: [] for name in fns[tag]} for tag in fns}
-    for tag in ("parent", "this tree", "this tree", "parent") * 2:
-        ms = kernel_device_ms(fns[tag], {n: KERNEL_SYMBOLS[n] for n in fns[tag]}, reps=20,
-                              log=retrace)
-        for name, v in ms.items():
-            times[tag][name].append(v)
-    say("timing", f"B={B} on {smi}, the parent's kernel sources ({parent}, built in "
-        f"{build_s:.1f} s) beside this tree's, same bits, device ms in the order P N N P "
-        "twice: " + "; ".join(
-            f"{name} parent {'/'.join(f'{v:.4f}' for v in times['parent'][name])}, this tree "
-            f"{'/'.join(f'{v:.4f}' for v in times['this tree'][name])}"
-            for name in times["parent"]))
-    return times
+    one = {tag: dict.fromkeys(fns[tag], 1) for tag in fns}
+    out = {"default": timed(fns, one, 2, 20)}
+    say("timing", f"B={cube.shape[0]} on {smi}, the parent's kernel sources ({parent}, built "
+        f"in {build_s:.1f} s) beside this tree's, same bits, device ms in the order P N N P "
+        "twice: " + line(out["default"]))
+
+    # 43 x 31 x 351, 3 classes (C2 = 6): the staged route and the long-row B7
+    fdims = Arena(**FINE_ARENAS["43x31x351"]).grid_shape
+    FX, FY, FZ = fdims
+    gen = torch.Generator(device=dev).manual_seed(18)
+    fw = i8_tails.build_grouped_weights(random_quant(np.random.default_rng(18), fdims, 2, C=3),
+                                        fdims, 16, device=dev)
+    ftm = score.native_templates(*[torch.randn((3,) + sh, generator=gen, device=dev) * 0.01
+                                   for sh in ((FX, FZ), (FY, FZ), (FX, FY))])
+    fcube = torch.randint(-128, 128, (BIG,) + fdims, generator=gen, device=dev, dtype=torch.int8)
+    fbf = (torch.rand((BIG,) + fdims, generator=gen, device=dev) * 255).to(torch.bfloat16)
+    fijk = torch.stack([torch.randint(0, n, (BIG, 4), generator=gen, device=dev)
+                        for n in fdims], -1).to(torch.int32)
+    nl = {"parent": -(-FZ // parent_libs["native_score"].native_score_plan_zchunk(*fdims, 3))
+          * -(-3 // parent_libs["native_score"].native_score_plan_group(*fdims, 3)),
+          "this tree": native_launches(fdims, 3)}
+    out["43x31x351"] = {}
+    for B in (BIG, SMALL_B):
+        ffns = {tag: c_calls(v["i8_score"], v["native_score"], dev, fcube[:B], fw, fijk[:B],
+                             fbf[:B], ftm) for tag, v in libs.items()}
+        for name in ffns["parent"]:
+            a, b = ffns["parent"][name](), ffns["this tree"][name]()
+            torch.cuda.synchronize()
+            if name != "native_tables":
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"{name}: the parent's and this tree's bits differ at {fdims} B={B}")
+                continue
+            v = fbf[:B].double()
+            for t, x, y, spec in zip((ftm.t_xz, ftm.t_yz, ftm.t_xy), a, b,
+                                     ("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz")):
+                o = torch.einsum(spec, t.double(), v)
+                ea, eb = (float((r.double() - o).abs().max()) for r in (x, y))
+                check(eb <= 2.0 * ea + 1e-6 * float(o.abs().max()),
+                      f"B7 at {fdims} B={B}: this tree's error {eb:.3e} vs the parent's {ea:.3e}")
+            del v
+        launches = {tag: dict.fromkeys(ffns[tag], 1) | {"native_tables": nl[tag]}
+                    for tag in ffns}
+        out["43x31x351"][B] = timed(ffns, launches, 1, 10 if B == BIG else 20)
+        say("timing", f"{fdims} 3 classes B={B} on {smi}, the parent's kernel sources beside "
+            f"this tree's (B7 {nl['parent']} / {nl['this tree']} launches a call; the int8 "
+            "kernels' bits equal, B7 each within its float64 bar), device ms a call, P N N P: "
+            + line(out["43x31x351"][B]))
+    del fcube, fijk
+    f32 = fbf.float()
+    del fbf
+    fast_t = (ftm.t_xz, ftm.t_yz, ftm.t_xy)
+    ppipe = parent_pipeline(parent)
+    tables = {BIG: {}, SMALL_B: {}}
+    for B in (BIG, SMALL_B):
+        c = f32[:B]
+        tables[B] = interleaved(
+            {"parent": lambda c=c: [torch.einsum(sp, t, c) for sp, t in
+                                    zip(("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz"),
+                                        fast_t)],
+             "this tree": lambda c=c: folded_tables(c, fast_t)},
+            inner=2 if B == BIG else 10, rounds=4)
+    del f32, c
+    out["fast_f32_tables"] = tables
+    say("timing", f"{fdims} 3 classes on {smi}: the fast path's float32 tables (B7's "
+        "comparator), ms by CUDA events, parent (three einsums) / this tree (folded_tables): "
+        + ", ".join(f"B={B} {t['parent']:.4f} / {t['this tree']:.4f}" for B, t in tables.items()))
+
+    # the demo model's steps, the parent's pipeline module beside this tree's
+    out["steps"] = {}
+    for arena, fine, batches in (("default", False, (BIG,)), ("43x31x351", True, (BIG, SMALL_B))):
+        out["steps"][arena] = {}
+        for B in batches:
+            this = demo_steps(dev, B, fine)
+            steps = {"parent": {k: (p, this[k][1])  # the same inputs
+                                for k, (p, _) in demo_steps(dev, B, fine, ppipe).items()},
+                     "this tree": this}
+            got = {tag: {k: [r.cpu() for r in p(*a)] for k, (p, a) in st.items()}
+                   for tag, st in steps.items()}
+            for k in ("exact", "fast_i8"):
+                check(all(torch.equal(x, y) for x, y in zip(got["parent"][k], got["this tree"][k])),
+                      f"{k} at {arena} B={B}: the parent's outputs differ from this tree's")
+            d_fast = float((got["parent"]["fast"][2] - got["this tree"]["fast"][2]).abs().max())
+            check(d_fast <= 1e-5, f"fast f32 at {arena} B={B}: parent vs this tree proba {d_fast}")
+            fns = {f"{tag} {k}": (lambda p=p, a=a: p(*a))
+                   for tag, st in steps.items() for k, (p, a) in st.items()}
+            ms = interleaved(fns, inner=2 if B == BIG else 10, rounds=4)
+            res = {tag: {k: ms[f"{tag} {k}"] for k in steps[tag]} for tag in steps}
+            out["steps"][arena][B] = res | {"fast_proba_delta": d_fast}
+            say("timing", f"{arena} B={B} on {smi}: the demo model's steps, ms by CUDA events "
+                "(median of 4 rounds, order alternating), parent / this tree: " + ", ".join(
+                    f"{k} {res['parent'][k]:.4f} / {res['this tree'][k]:.4f}"
+                    for k in res["parent"])
+                + f"; exact and fast int8 the same bits, fast f32 proba within {d_fast:.2e}")
+            del steps, this, got
+    return out
 
 
 def phase_shapes(dev, smi) -> dict:
@@ -3139,9 +3379,32 @@ def shapes_in(d, dev, smi) -> dict:
                 "fused_vs_fast_i8": max(d_fused.values()),
                 "pallas_vs_fast": float(np.abs(out["pallas_f32"][2] - out["fast"][2]).max()),
                 "decided": int(ok.sum())}
+            if B == BIG and arena is fine:  # timed below, once the launches are counted
+                timed = (preds, src, bxyz, bvalid)
         model_s[mname] = time.perf_counter() - t_model
     launched = rise(before)
     check(launched == calls, f"phase 17 launches {launched}, the calls imply {calls}")
+
+    # The demo model at 43x31x351, B=4096: each mode's step by CUDA events
+    # and each table kernel's device time a call from profiler traces, the
+    # traces' launch records held to the launches.
+    preds, src, bxyz, bvalid = timed
+
+    def step(k):
+        p = preds[k]
+        x = src["i8" if p.cube_dtype == "int8" else "bf16" if k == "pallas" else "f32"]
+        return lambda: p(x, bxyz, bvalid)
+
+    modes = ("exact", "fast", "fast_i8", "pallas", "pallas_f32", "fused_combo", "fused_sel3")
+    step_ms = interleaved({k: step(k) for k in modes}, inner=2, rounds=3)
+    kernels = {f"fused_{t}": FUSED_KERNEL[t] for t in
+               ["combo"] + [t for t, _ in TAIL_KERNELS.values()]} | {"pallas": "native_tables"}
+    records_before = (TRACES["records"], TRACES["launches"])
+    kdev = kernel_device_ms({k: step(k) for k in kernels},
+                            {k: KERNEL_SYMBOLS[n] for k, n in kernels.items()}, reps=5,
+                            log=retrace, launches=dict.fromkeys(kernels, 1))
+    records = (TRACES["records"] - records_before[0], TRACES["launches"] - records_before[1])
+    del timed, preds, src
 
     # The predict app's process ends here; its results against direct calls.
     child.wait(timeout=600)
@@ -3168,6 +3431,8 @@ def shapes_in(d, dev, smi) -> dict:
         check(d_app[quant] <= 1e-6, f"the predict app --fused_quant {quant} vs direct "
               f"{d_app[quant]}")
     res = {"rows": rows, "launches": launched, "model_s": model_s, "predict_app_s": app_s,
+           "step_ms_43x31x351": step_ms, "device_ms_43x31x351": kdev,
+           "trace_records": records,
            "predict_app_targets": {m: len(app[m]) for m in app}, "predict_app_delta": d_app,
            "s": time.perf_counter() - t_phase}
     say("shapes", f"on {smi}: a 5-class and a 9-class linear model at the default arena and "
@@ -3177,6 +3442,11 @@ def shapes_in(d, dev, smi) -> dict:
         "fast int8 decisions, pallas == fast f32 decisions where the margin > 1e-4; "
         + "; ".join(f"{k}: fused-fast_i8 proba {v['fused_vs_fast_i8']:.2e}, pallas-fast "
                     f"{v['pallas_vs_fast']:.2e}, {v['decided']} decided" for k, v in rows.items())
+        + "; the demo model at 43x31x351, B=4096, ms a step by CUDA events: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in step_ms.items())
+        + "; device ms a call from profiler traces: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in kdev.items())
+        + f" (launch records {records[0]} of the {records[1]} launches)"
         + "; launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
         + " (each its calls); s a model: " + ", ".join(f"{k} {v:.1f}" for k, v in model_s.items())
         + f"; predict --mode fused --fused_quant split / single --scan_arena "
@@ -3519,7 +3789,7 @@ def main(argv) -> None:
                          inner=inner, rounds=5)
         dev_ms = kernel_device_ms({name: pair[0] for name, pair in fns.items()},
                                   {name: KERNEL_SYMBOLS[name] for name in fns}, reps=20,
-                                  log=retrace)
+                                  log=retrace, launches=dict.fromkeys(fns, 1))
         int8_ms[B] = {name: {kind: ms[name, kind] for kind in ("kernel", "plain")}
                       | {"device": dev_ms[name]}
                       | dict(zip(("bound", "bound_by"), int8_bound(name, B, dims, 6, 4)))
@@ -3529,7 +3799,6 @@ def main(argv) -> None:
     f32_all = torch.from_numpy(tiled.astype(np.float32)).to(dev)
     bf16_all = f32_all.to(torch.bfloat16)
     tm_demo = score.native_templates(*preds["pallas"]._split_templates(), device=dev)
-    specs = ("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz")
     fast_t = (tm_demo.t_xz, tm_demo.t_yz, tm_demo.t_xy)
     native_ms = {}
     for B, inner in ((BIG, 5), (SMALL_B, 50)):
@@ -3537,12 +3806,12 @@ def main(argv) -> None:
         ms = interleaved({
             "kernel": lambda c=cb: score.native_tables(c, tm_demo),
             "plain": lambda c=cb: score.native_tables_ref(c, tm_demo),
-            "fast_f32": lambda c=cf: [torch.einsum(sp, t, c) for sp, t in zip(specs, fast_t)],
+            "fast_f32": lambda c=cf: folded_tables(c, fast_t),
         }, inner=inner, rounds=5)
         ms["device"] = kernel_device_ms(
             {"native_tables": lambda c=cb: score.native_tables(c, tm_demo)},
             {"native_tables": KERNEL_SYMBOLS["native_tables"]}, reps=20,
-            log=retrace)["native_tables"]
+            log=retrace, launches={"native_tables": 1})["native_tables"]
         ms["bound"], ms["bound_by"] = native_bound(B, dims, tm_demo.dims[3])
         native_ms[B] = ms
     # The lookup and glookup kernels on both sides of the batch below which
@@ -3552,7 +3821,8 @@ def main(argv) -> None:
             ("grouped", "onepass_tables_grouped_i8", i8_tails.onepass_tables_grouped_i8)):
         by_batch = {
             B: kernel_device_ms({"k": lambda c=packed[:B], fn=fn: fn(c, w_tails)},
-                                {"k": KERNEL_SYMBOLS[name]}, reps=20, log=retrace)["k"]
+                                {"k": KERNEL_SYMBOLS[name]}, reps=20, log=retrace,
+                                launches={"k": 1})["k"]
             for B in (1, 7, 131, 132, 133)}
         by_batch[SMALL_B] = int8_ms[SMALL_B][name]["device"]
         say("timing", f"{name} device ms by batch, with its plan's parts P and slab width "
@@ -3591,7 +3861,7 @@ def main(argv) -> None:
     for B in (BIG, SMALL_B):
         t = native_ms[B]
         say("timing", f"B={B} on {smi}: B7 native_tables {t['kernel']:.4f} ms (device "
-            f"{t['device']}) vs plain {t['plain']:.4f} ms and the fast f32 einsums "
+            f"{t['device']}) vs plain {t['plain']:.4f} ms and the fast path's float32 tables "
             f"{t['fast_f32']:.4f} ms, bound {t['bound']:.4f} ms ({t['bound_by']}); "
             f"the earlier B7 design: device {EARLIER_B7_DEVICE_MS[B]} ms (PERF.md "
             f"section 6, not measured here)")
@@ -3607,14 +3877,24 @@ def main(argv) -> None:
                 f"{name} {t[BIG]['device']:.4f} / {t[SMALL_B]['device']:.4f} in "
                 f"{t[BIG]['launches']} / {t[SMALL_B]['launches']} launches a call (bound "
                 f"{t[BIG]['bound']:.4f} / {t[SMALL_B]['bound']:.4f}, {t[BIG]['bound_by']})"
-                for name, t in res.items())
+                for name, t in res.items() if name not in ("fast_f32", "steps"))
             for shape, res in shape_ms.items()) + f"; in {time.perf_counter() - t0:.1f} s")
+    fine_ms = shape_ms["43x31x351"]
+    say("timing", f"43x31x351 on {smi}, by CUDA events, B=4096 / B=64: B7's comparator, the "
+        "fast path's float32 tables (folded_tables) on the float32 cube with B7's templates, "
+        f"{fine_ms['fast_f32'][BIG]:.4f} / {fine_ms['fast_f32'][SMALL_B]:.4f} ms; the demo "
+        "model's steps: " + ", ".join(
+            f"{k} {fine_ms['steps'][BIG][k]:.4f} / {fine_ms['steps'][SMALL_B][k]:.4f} ms"
+            for k in fine_ms["steps"][BIG]))
     if parent is None:
         say("timing", "no --parent tree given: the parent's kernel sources are not timed")
     else:
         parent_ms = parent_compare(dev, smi, parent, packed, w_tails, tijk, bf16_all, tm_demo)
         print(json.dumps({"parent": parent_ms}), flush=True)
 
+    say("timing", f"profiler traces so far: {TRACES['taken']} taken, {TRACES['lacking']} "
+        f"without a kernel's records; launch records {TRACES['records']} of the "
+        f"{TRACES['launches']} launches the traced calls made")
     lap("phase 6 (timing)")
     # -- 7. rbf kernel vs plain vs float64 --------------------------------
     gs = dict(np.load(SVC_ASSET))
@@ -3944,6 +4224,7 @@ def main(argv) -> None:
         "launches_reference": ref["launches"]["fused_native_score"],
         "launches_shapes": shapes["launches"]["fused_native_score"],
         "device_ms_shapes": {shape: res["native_tables"] for shape, res in shape_ms.items()},
+        "fast_f32_ms_43x31x351": shape_ms["43x31x351"]["fast_f32"],
     })
     rbf_b, rbf_by = rbf_bound(queries, S)
     records.append({
@@ -3982,7 +4263,8 @@ def main(argv) -> None:
         "launches_shapes": shapes["launches"]["rbf_gram"],
     })
     say("profiler", f"{TRACES['taken']} traces taken for device times, {TRACES['lacking']} "
-        f"of them without a kernel's records (each taken again)")
+        f"of them without a kernel's records (each taken again); the traces that knew their "
+        f"calls' launches held {TRACES['records']} launch records of {TRACES['launches']}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ calibrated linear model, then thresholded. Four modes compute that:
   matrix products, concat, scale, score);
 * ``fast`` — the model folded into per-plane class templates at the
   scan's native resolution, so a target costs three table reads after
-  three whole-cube contractions; with ``cube_dtype="int8"`` the
-  contractions run exactly in integers against error-compensated int8
-  templates;
+  three whole-cube contractions, products on the cube as it lies
+  (`folded_tables`); with ``cube_dtype="int8"`` the contractions run
+  exactly in integers against error-compensated int8 templates
+  (`folded_tables_exact` on the card, int64 einsums on the CPU);
 * ``fused`` — the same int8 tables from ONE read of each cube by a
   hand-written CUDA kernel, then a plain-PyTorch tail that dequantizes,
   looks up, calibrates and thresholds. ``fused_tail`` picks the kernel:
@@ -92,6 +93,8 @@ __all__ = [
     "RadarPredictor",
     "encode_host_cubes",
     "encode_int8_cubes",
+    "folded_tables",
+    "folded_tables_exact",
     "pad_targets",
 ]
 
@@ -115,6 +118,97 @@ def encode_host_cubes(cubes: np.ndarray, cube_dtype: str) -> torch.Tensor:
     if cube_dtype == "bfloat16":
         return torch.from_numpy(np.asarray(cubes, np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(cubes, np.float32))
+
+
+def folded_tables(cubes: torch.Tensor, templates) -> List[Optional[torch.Tensor]]:
+    """The fast path's three float32 tables of a (B, X, Y, Z) float32 cube
+    batch against the class templates t_xz (C, X, Z), t_yz (C, Y, Z), t_xy
+    (C, X, Y) (None for a masked plane): M1 (B, C, Y), M2 (B, C, X), M3
+    (B, C, Z), each None where its template is.
+
+    The cube is contracted as it lies, with no permuted copy: M2 is one
+    product of the (C, Y·Z) template by the (B·X, Y·Z) view, transposed;
+    M3 a batched product over the scans of each scan's (Z, X·Y) view (the
+    (X·Y, Z) rows, transposed) by the (X·Y, C) template; M1 a batched
+    product over the scans of each x's (Y, Z) rows by that x's (Z, C)
+    template, summed over x in order. Full float32 (TF32 off); the sums
+    run in another order than the JAX package's einsums.
+    """
+    full_f32()
+    B, X, Y, Z = cubes.shape
+    t_xz, t_yz, t_xy = templates
+    m1 = m2 = m3 = None
+    if t_yz is not None:
+        C = t_yz.shape[0]
+        m2 = torch.mm(t_yz.reshape(C, Y * Z), cubes.reshape(B * X, Y * Z).T)
+        m2 = m2.view(C, B, X).transpose(0, 1)
+    if t_xy is not None:
+        C = t_xy.shape[0]
+        m3 = torch.matmul(cubes.reshape(B, X * Y, Z).transpose(1, 2), t_xy.reshape(C, X * Y).T)
+        m3 = m3.transpose(1, 2)
+    if t_xz is not None:
+        C = t_xz.shape[0]
+        acc = torch.zeros((B, Y, C), dtype=torch.float32, device=cubes.device)
+        for x in range(X):
+            acc.baddbmm_(cubes[:, x], t_xz[:, x, :].T.expand(B, -1, -1))
+        m1 = acc.transpose(1, 2)
+    return [m1, m2, m3]
+
+
+# float32 holds every integer of magnitude up to 2^24. A product of an
+# int8 template value (|q| <= 127) and an int8 cube value (|v| <= 128) is
+# at most 16,256 in magnitude, so a sum of at most this many of them has
+# every partial sum exact, in whatever order a product kernel adds them.
+EXACT_F32_TERMS = (1 << 24) // (127 * 128)  # 1032
+
+
+def _runs(n: int) -> List[slice]:
+    """[0, n) in consecutive runs of at most EXACT_F32_TERMS."""
+    return [slice(a, min(n, a + EXACT_F32_TERMS)) for a in range(0, n, EXACT_F32_TERMS)]
+
+
+def folded_tables_exact(cubes: torch.Tensor, quant) -> List[Optional[torch.Tensor]]:
+    """The fast int8 path's raw integer tables on any device: a (B, X, Y,
+    Z) int8 cube batch against the int8 templates q_xz (C2, X, Z), q_yz
+    (C2, Y, Z), q_xy (C2, X, Y) (None for a masked plane) gives int64 m1
+    (B, C2, Y), m2 (B, C2, X), m3 (B, C2, Z), exactly: the values of the
+    int64 einsums and of the JAX package's int32 ones.
+
+    The cube is widened to float32 once and contracted as it lies, in runs
+    of at most EXACT_F32_TERMS products (each run's float32 result is an
+    exact integer), the runs summed in float64 (exact below 2^53): m1 over
+    each run of z for each x (a batched product over the scans of its (Y,
+    Z) rows by that x's (Z, C2) template), m2 over each run of z for each
+    y (one batched product over y of the (C2, Z) template by the (Z, B·X)
+    rows), m3 over runs of the flattened (x, y) of each scan's (X·Y, Z)
+    view. On the card this is the fast int8 path; the CPU predictor keeps
+    its int64 einsums, which the tests hold this to.
+    """
+    full_f32()  # a TF32 product would round
+    B, X, Y, Z = cubes.shape
+    v = cubes.to(torch.float32).contiguous()
+    q_xz, q_yz, q_xy = (None if q is None else q.to(torch.float32) for q in quant)
+    f64 = torch.float64
+    m1 = m2 = m3 = None
+    if q_yz is not None:
+        C2 = q_yz.shape[0]
+        rows = v.view(B * X, Y, Z).permute(1, 2, 0)  # (Y, Z, B·X), no copy
+        tq = q_yz.permute(1, 0, 2).contiguous()  # (Y, C2, Z)
+        m2 = sum(torch.bmm(tq[:, :, r], rows[:, r]).sum(0, dtype=f64) for r in _runs(Z))
+        m2 = m2.view(C2, B, X).transpose(0, 1)
+    if q_xy is not None:
+        C2 = q_xy.shape[0]
+        flat, tq = v.view(B, X * Y, Z), q_xy.reshape(C2, X * Y)
+        m3 = sum(torch.matmul(flat[:, r].transpose(1, 2), tq[:, r].T).to(f64)
+                 for r in _runs(X * Y))
+        m3 = m3.transpose(1, 2)
+    if q_xz is not None:
+        # stacked, not written through bmm's out=: torch.export on the card
+        # then specialized the batch
+        part = torch.stack([torch.bmm(v[:, x, :, r], q_xz[:, x, r].T.expand(B, -1, -1))
+                            for x in range(X) for r in _runs(Z)])
+        m1 = part.sum(0, dtype=f64).transpose(1, 2)
+    return [None if m is None else m.to(torch.int64) for m in (m1, m2, m3)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,11 +452,13 @@ class RadarPredictor:
 
         M1[c, y] = Σ_xz A_xz[c, x, z]·cube[x, y, z] turns every target's
         xz contribution into the read M1[c, j] (likewise M2[c, i] for yz
-        and M3[c, k] for xy). With cube_dtype="int8" the contractions
-        run against the quantized templates exactly — int64 on the CPU,
-        float64 on the card (every sum is an integer below 2^53; float32
-        is not exact here and int8 einsum wraps) — and dequantize in
-        float32 as the JAX package does.
+        and M3[c, k] for xy). The contractions read the cube as it lies
+        (`folded_tables`). With cube_dtype="int8" they run against the
+        quantized templates exactly — int64 einsums on the CPU,
+        `folded_tables_exact` on the card (float32 products summed in
+        runs whose every partial sum is an integer below 2^24, the runs
+        added in int64; an int8 einsum wraps) — and dequantize in float32
+        as the JAX package does.
         """
         int8 = self.cube_dtype == "int8"
         if int8:
@@ -372,19 +468,31 @@ class RadarPredictor:
             ]
         templates = [self._tensor(t) for t in self._split_templates()]
         intercept = self.model.intercept
+        specs = ("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz")
 
-        def table(plane_i, cubes, spec):
-            """One plane's (B, C, ·) lookup table."""
-            if not int8:
-                return torch.einsum(spec, templates[plane_i], cubes)
-            q, s1, s2, const = quant[plane_i]
-            raw = torch.einsum(spec, q.to(cubes.dtype), cubes).to(torch.float32)
+        def dequantize(q, raw):
+            """Raw (B, C2, ·) integer table → float32 (B, C, ·)."""
+            _, s1, s2, const = q
+            raw = raw.to(torch.float32)
             C = s1.shape[0]
             return (
                 raw[:, :C] * s1[None, :, None]
                 + raw[:, C:] * s2[None, :, None]
                 + const[None, :, None]
             )
+
+        def tables(cubes):
+            """The three (B, C, ·) float32 tables, None for a masked plane."""
+            if not int8:
+                return folded_tables(cubes.to(torch.float32), templates)
+            qs = [None if q is None else q[0] for q in quant]
+            if cubes.device.type == "cpu":
+                v = cubes.to(torch.int64)
+                raws = [None if q is None else torch.einsum(sp, q.to(torch.int64), v)
+                        for sp, q in zip(specs, qs)]
+            else:
+                raws = folded_tables_exact(cubes, qs)
+            return [None if r is None else dequantize(q, r) for q, r in zip(quant, raws)]
 
         def read(m_bcd, idx):
             """(B, C, D) table, (B, T) indices → (B, T, C)."""
@@ -393,20 +501,13 @@ class RadarPredictor:
                 2, idx[:, None, :].expand(-1, C, -1)
             ).transpose(1, 2)
 
-        specs = ("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz")
-
         def predict_batch(cubes, target_xyz, target_valid):
             B, T = target_xyz.shape[:2]
-            if int8:
-                acc = torch.int64 if cubes.device.type == "cpu" else torch.float64
-                cubes = cubes.to(acc)
-            else:
-                cubes = cubes.to(torch.float32)
             i, j, k = self._indices(target_xyz)
             dec = intercept[None, None, :].expand(B, T, -1)
-            for plane_i, idx in zip(range(3), (j, i, k)):
-                if templates[plane_i] is not None:
-                    dec = dec + read(table(plane_i, cubes, specs[plane_i]), idx)
+            for m, idx in zip(tables(cubes), (j, i, k)):
+                if m is not None:
+                    dec = dec + read(m, idx)
             return self._finish(dec, target_valid)
 
         return predict_batch

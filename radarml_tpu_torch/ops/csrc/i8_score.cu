@@ -68,15 +68,30 @@
 //   (group, part). A part's block holds only its part's qxz rows and packed
 //   qxy words.
 // - The templates are copied into shared memory once per block and stay
-//   there: qxz and qyz one row per (x or y, class), zero-padded in z to
+//   there (but qxz on the staged route): qxz and qyz one row per (x or y,
+//   class), zero-padded in z to
 //   whole 32-byte chunks plus 16 bytes, so the eight class rows of a
 //   fragment lie an odd number of 16-byte units apart (no bank
 //   conflicts); qxy packed four rows to a word.
 // - Slabs are double-buffered. Where rows are whole 16-byte units (Z % 16
 //   == 0 and an aligned cube), one thread brings a slab (contiguous in
 //   device memory) with a single cp.async.bulk that reports to an mbarrier,
-//   two slabs ahead of the one computed; otherwise all threads copy it with
-//   byte loads into rows padded to 16 bytes. The compute is the same.
+//   two slabs ahead of the one computed. Where they are not (Z = 351 at
+//   the finer scan arenas), the staged route (staged_route): thread 0 asks
+//   the copy engine for the 16-byte aligned run of device memory around the
+//   next slab, and around each of its x rows' qxz class rows, into one
+//   staging area; when the current slab's steps are done every thread
+//   realigns those runs, 16 bytes a lane (two aligned 16-byte loads and
+//   funnel shifts), into the buffer's rows padded to 16 bytes and its
+//   [x][c] qxz rows, and after a block barrier asks for the next slab's
+//   runs, whose copy overlaps this slab's steps. qxz thus travels with the
+//   slabs instead of staying (about 95 KB at 43 x 31 x 351 with 6 class
+//   rows), so slabs are 5 x rows wide there, not 1, and t2's 16-row tiles
+//   hold 5 useful rows.
+//   Past the staged route's fit (its staging area costs a slab: at X = 43,
+//   Z = 351 above about 120 y values), and for an unaligned cube of whole
+//   units, all threads copy a slab with byte loads. The compute is the
+//   same on every route.
 // - t1 and t2 take cube rows as the A operand, K-major as they lie,
 //   fragments by ldmatrix:
 //     t1: A = 16 values of y at one x, B = qxz[., x, z-chunk]; D[y, c]
@@ -138,7 +153,11 @@
 // combo kernel's time at B=4096 and 0.013 ms at B=64 (two parts a scan;
 // 0.016 with three), and the glookup kernel the lookup kernel's; the sel3
 // kernel 0.274 and 0.019, the sel kernel 0.268 and 0.019 (0.296 and 0.019
-// with a barrier in its epilogue).
+// with a barrier in its epilogue). At 43 x 31 x 351 with 6 class rows the
+// staged route takes 2.20-2.23 ms at B=4096 (a 0.5846 ms bytes bound),
+// against 9.45-9.54 ms for the byte-copy route with one-row slabs it
+// replaces; the realignment takes ~4,500 clocks of a ~14,600-clock slab
+// (utils/kernel_probe.py i8).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (radarml_tpu_torch/ops/_cuda_build.py)
@@ -162,11 +181,15 @@ __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m *
 struct Layout {
   int XS, nslab, nsp, XP, NR, SW, ZW, nk, TW, KQ;
   int qxz, qyz, zero, qxy, cube, slab, m1, m2, m3, tabs;
+  int sq, stage, stc, stq, sts;  // staged route: the buffer's qxz rows; the staging areas
   size_t total;  // bytes
 };
 
+// `staged`: the staged route (staged_route), where a slab and its qxz rows
+// reach shared memory by bulk copies of the 16-byte aligned runs of device
+// memory that hold them and are realigned there.
 __host__ __device__ inline Layout make_layout(int XS, int P, int X, int Y, int Z, int C2,
-                                              bool h1, bool h2, bool h3) {
+                                              bool h1, bool h2, bool h3, bool staged = false) {
   Layout L;
   L.XS = XS;
   L.nslab = (X + XS - 1) / XS;
@@ -178,14 +201,24 @@ __host__ __device__ inline Layout make_layout(int XS, int P, int X, int Y, int Z
   L.nk = (L.SW * 4 + 31) / 32;       // 32-byte z-chunks per row
   L.TW = L.nk * 8 + 4;               // template row pitch in words
   int off = 0;
-  L.qxz = off;  off += h1 ? C2 * L.XP * L.TW : 0;
+  L.qxz = off;  off += h1 && !staged ? C2 * L.XP * L.TW : 0;  // staged: travels with the slabs
   L.qyz = off;  off += h2 ? C2 * Y * L.TW : 0;
   L.zero = off; off += L.TW;
   L.KQ = (XS * Y + 31) / 32 * 8;     // row quads of a slab, in whole 32-row chunks
   L.qxy = off;  off += h3 ? L.nsp * kMaxC2 * L.KQ : 0;
   // a buffer ends with 16 spare bytes: a row's last chunk may read that far
   L.slab = round_up(L.NR * L.SW + 4, 4);
-  L.cube = off; off += 2 * L.slab;
+  // staged: one buffer, which also holds its slab's qxz rows [x][c], and
+  // one staging area, holding a unit's runs as copied: the slab's (a run
+  // starts up to 15 bytes early and ends up to 15 late; the realignment
+  // reads up to 32 bytes past), then each class row's qxz run
+  L.sq = L.slab;
+  if (staged && h1) L.slab += XS * C2 * L.TW;
+  L.stc = staged ? round_up((XS * Y * Z + 30) / 4 + 8, 4) : 0;
+  L.stq = staged && h1 ? round_up((XS * Z + 30) / 4 + 8, 4) : 0;
+  L.sts = L.stc + C2 * L.stq;
+  L.cube = off; off += (staged ? 1 : 2) * L.slab;
+  L.stage = off; off += L.sts;
   // the scan's tables, twice: scans alternate, so one set is written out
   // and cleared while the next scan already sums into the other
   L.m1 = off;
@@ -226,6 +259,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
+// mbar_wait for the staged route: a wait of more than 10 s traps, so a
+// fault there ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 10000000000ull) __trap();
+  }
+}
 // One thread copies `bytes` contiguous bytes (16-byte aligned, a multiple
 // of 16) from device memory to shared memory; completion counts on `bar`.
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
@@ -234,6 +290,65 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The 16-byte aligned run of device memory that holds the n bytes at p: its
+// start, and its length (a multiple of 16) as the result.
+__device__ __forceinline__ uint32_t superset(const void* p, uint32_t n, const void*& start) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p), a0 = a & ~uintptr_t(15);
+  start = reinterpret_cast<const void*>(a0);
+  return (uint32_t)(((a + n + 15) & ~uintptr_t(15)) - a0);
+}
+
+// The n bytes (at most 4; 0 past a row's end) at byte p of the words w,
+// in a word's low bytes, zero above: two aligned word loads and a funnel
+// shift. Reads the word after p's only where the bytes reach into it.
+__device__ __forceinline__ uint32_t bytes_at(const uint32_t* w, int p, int n) {
+  if (n <= 0) return 0u;
+  const int k = p >> 2, sh = 8 * (p & 3);
+  const uint32_t lo = w[k], hi = (p & 3) + min(n, 4) > 4 ? w[k + 1] : 0u;
+  const uint32_t v = __funnelshift_r(lo, hi, sh);
+  return n >= 4 ? v : v & ((1u << (8 * n)) - 1u);
+}
+
+// The 16 bytes at byte p of the 16-byte aligned shared-memory run at
+// address w, the n < 16 past a row's end zero, stored at shared address
+// dst: two aligned 16-byte loads, the five words from p's word offset on
+// picked by selects (neighbouring lanes may be on other rows) and
+// funnel-shifted by its byte offset.
+__device__ __forceinline__ void move_chunk(uint32_t dst, uint32_t w, int p, int n) {
+  uint32_t o[4] = {0u, 0u, 0u, 0u};
+  if (n > 0) {
+    const uint32_t a = w + (uint32_t)(p >> 4) * 16;
+    uint32_t v[8];
+    asm("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(a));
+    asm("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v[4]), "=r"(v[5]), "=r"(v[6]), "=r"(v[7]) : "r"(a + 16));
+    const int ws = (p >> 2) & 3;
+    const uint32_t sh = 8 * (p & 3);
+    uint32_t x[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      x[k] = ws == 0 ? v[k] : ws == 1 ? v[k + 1] : ws == 2 ? v[k + 2] : v[k + 3];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      o[k] = __funnelshift_r(x[k], x[k + 1], sh);
+      const int keep = n - 4 * k;  // bytes of word k inside the row
+      if (keep < 4) o[k] = keep <= 0 ? 0u : o[k] & ((1u << (8 * keep)) - 1u);
+    }
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};"
+               :: "r"(dst), "r"(o[0]), "r"(o[1]), "r"(o[2]), "r"(o[3]));
+}
+
+// i / d for the small i of a block's work items, d = 1 or m = 2^32 / d
+// rounded up (exact for i < 2^32 / d).
+__device__ __forceinline__ int div_by(int i, int d, uint32_t m) {
+  return d == 1 ? i : (int)__umulhi((uint32_t)i, m);
+}
+__host__ __device__ inline uint32_t div_magic(int d) {
+  return d <= 1 ? 0u : 0xffffffffu / (uint32_t)d + 1u;
 }
 
 // Four 8 x 16-byte matrices: lane l gives the address of row l % 8 of matrix
@@ -293,6 +408,7 @@ __device__ void copy_rows(int* dst, const int8_t* src, int nrows, int Z, int SW)
 // Rows r0 .. r0 + n - 1 of a plane's templates (C2, R, Z) into rows [r][c]
 // of TW words, z zero-padded: 16 bytes at a time where rows are whole
 // aligned 16-byte units, by bytes otherwise.
+template <bool kGeneral>
 __device__ void copy_templates(int* dst, const int8_t* src, int C2, int R, int r0, int n,
                                int Z, int TW) {
   if (Z % 16 == 0 && ((uintptr_t)src & 15) == 0) {
@@ -303,6 +419,15 @@ __device__ void copy_templates(int* dst, const int8_t* src, int C2, int R, int r
     for (int i = threadIdx.x; i < n * C2 * TV; i += blockDim.x) {
       const int v = i % TV, c = (i / TV) % C2, r = i / (TV * C2);
       d16[i] = v < ZV ? __ldg(s16 + ((size_t)c * R + r0 + r) * ZV + v) : make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+  if (kGeneral) {  // a word at a time: aligned word loads and a funnel shift
+    const uint32_t* s4 = reinterpret_cast<const uint32_t*>((uintptr_t)src & ~uintptr_t(3));
+    const int lead = (int)((uintptr_t)src & 3);
+    for (int i = threadIdx.x; i < n * C2 * TW; i += blockDim.x) {
+      const int j = i % TW, c = (i / TW) % C2, r = i / (TW * C2);
+      dst[i] = (int)bytes_at(s4, lead + (int)(((size_t)c * R + r0 + r) * Z) + 4 * j, Z - 4 * j);
     }
     return;
   }
@@ -324,7 +449,7 @@ struct Walk {
   const int8_t* qxz;
   const int8_t* qyz;
   const int8_t* qxy;
-  int B, X, Y, Z, C2, XS, P, vec;
+  int B, X, Y, Z, C2, XS, P, vec, staged;
   int CT, NG, c0;
 };
 
@@ -385,7 +510,8 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   const int8_t* __restrict__ qxy = wg.qxy;
   const int B = w.B, X = w.X, Y = w.Y, Z = w.Z, C2 = wg.C2, XS = w.XS, vec = w.vec;
   const bool h1 = qxz != nullptr, h2 = qyz != nullptr, h3 = qxy != nullptr;
-  const Layout L = make_layout(XS, w.P, X, Y, Z, w.C2, h1, h2, h3);
+  const bool staged = kGeneral && w.staged;
+  const Layout L = make_layout(XS, w.P, X, Y, Z, w.C2, h1, h2, h3, staged);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   int* qxy_s = smem + L.qxy;  // [slab of the part][8 classes][KQ] words: 4 rows' bytes each, zeros past C2 and the slab
 
@@ -400,14 +526,33 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   // Unit u goes to buffer u % 2. With whole 16-byte rows thread 0 asks for
   // it in one bulk copy that reports to full_bar[u % 2]; otherwise every
   // thread copies bytes and the block's next barrier publishes them.
+  // Staged, thread 0 asks for unit u's runs in the staging area (free: the
+  // block barrier after realign(u - 1) has passed), reporting to
+  // full_bar[u % 2]; realign(u) then lays them out in the buffer.
   auto load_unit = [&](int u) {
-    if (vec && tid != 0) return;
+    if ((vec || staged) && tid != 0) return;
     const int b = b0 + (u / ns) * G;
     const int x0 = (s0 + u % ns) * XS;
     const int xs = min(XS, X - x0);
     int* buf = smem + L.cube + (u & 1) * L.slab;
     const int8_t* src = cube + ((size_t)b * X + x0) * Y * Z;
-    if (vec) {
+    if (staged) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const void *from, *qfrom;
+      const uint32_t n = superset(src, (uint32_t)(xs * Y * Z), from);
+      uint32_t total = n;
+      if (h1)
+        for (int c = 0; c < C2; ++c)
+          total += superset(qxz + ((size_t)c * X + x0) * Z, (uint32_t)(xs * Z), qfrom);
+      int* area = smem + L.stage;
+      mbar_expect_tx(&full_bar[u & 1], total);
+      bulk_copy(area, from, n, &full_bar[u & 1]);
+      if (h1)
+        for (int c = 0; c < C2; ++c) {
+          const uint32_t nq = superset(qxz + ((size_t)c * X + x0) * Z, (uint32_t)(xs * Z), qfrom);
+          bulk_copy(area + L.stc + c * L.stq, qfrom, nq, &full_bar[u & 1]);
+        }
+    } else if (vec) {
       {
         // the buffer's readers are past the block barrier; order their reads
         // before the copy engine's writes
@@ -421,6 +566,33 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
     }
   };
 
+  // Staged: unit u's runs (in the staging area, landed) into the buffer:
+  // its nr slab rows of Z bytes into rows of SW words and its qxz rows into
+  // [x][c] rows of TW words, zero past Z; a warp a row, a lane 16 bytes.
+  const uint32_t buf_s = smem_u32(smem + L.cube), run_s = smem_u32(smem + L.stage);
+  const int SW = L.SW, TW = L.TW, sq = L.sq, stc = L.stc, stq = L.stq;
+  const int cpr = SW / 4, cqr = TW / 4;  // 16-byte chunks of a slab row and of a qxz row
+  const uint32_t m_cpr = div_magic(cpr), m_cqr = div_magic(cqr), m_c2 = div_magic(C2);
+  auto realign = [=](int u) {
+    const int b = b0 + (u / ns) * G;
+    const int x0 = (s0 + u % ns) * XS;
+    const int xs = min(XS, X - x0), kc = xs * Y * cpr, kq = h1 ? xs * C2 * cqr : 0;
+    const int lead = (int)((uintptr_t)(cube + ((size_t)b * X + x0) * Y * Z) & 15);
+#pragma unroll 2
+    for (int i = tid; i < kc + kq; i += kThreads) {  // a thread a chunk, all rows at once
+      if (i < kc) {
+        const int r = div_by(i, cpr, m_cpr), j = i - r * cpr;
+        move_chunk(buf_s + 4 * r * SW + 16 * j, run_s, lead + r * Z + 16 * j, Z - 16 * j);
+      } else {  // chunk j of qxz row q = (x, c) of the slab
+        const int i2 = i - kc, q = div_by(i2, cqr, m_cqr), j = i2 - q * cqr;
+        const int x = div_by(q, C2, m_c2), c = q - x * C2;
+        const int ql = (int)((uintptr_t)(qxz + ((size_t)c * X + x0) * Z) & 15);
+        move_chunk(buf_s + 4 * (sq + q * TW) + 16 * j, run_s + 4 * (stc + c * stq),
+                   ql + x * Z + 16 * j, Z - 16 * j);
+      }
+    }
+  };
+
   if (tid == 0) {
     mbar_init(&full_bar[0], 1);
     mbar_init(&full_bar[1], 1);
@@ -428,11 +600,11 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   }
   __syncthreads();
   if (U > 0) load_unit(0);
-  if (U > 1) load_unit(1);
+  if (U > 1 && !staged) load_unit(1);
   // The part's templates, once per block (plain loads, overlapping the
   // first units).
-  if (h1) copy_templates(smem + L.qxz, qxz, C2, X, xlo, xhi - xlo, Z, L.TW);
-  if (h2) copy_templates(smem + L.qyz, qyz, C2, Y, 0, Y, Z, L.TW);
+  if (h1 && !staged) copy_templates<kGeneral>(smem + L.qxz, qxz, C2, X, xlo, xhi - xlo, Z, L.TW);
+  if (h2) copy_templates<kGeneral>(smem + L.qyz, qyz, C2, Y, 0, Y, Z, L.TW);
   if (h3) {
     int8_t* d = reinterpret_cast<int8_t*>(qxy_s);
     const int KR = L.KQ * 4;  // rows a class row of a slab holds
@@ -495,8 +667,21 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
     int* m3_s = m1_s + (L.m3 - L.m1);        // [z][c]
     if (s == s1 - 1) done.ahead(smem + L.m1 + (set ^ 1) * L.tabs, L.tabs, ns);
     if (vec) mbar_wait(&full_bar[u & 1], (u >> 1) & 1);  // unit u has landed
-    const int* buf = smem + L.cube + (u & 1) * L.slab;
+    if (staged) {
+      // Unit u into the buffer (its last reader, the slab before, is past
+      // the block barrier), then the staging area takes unit u + 1, whose
+      // copy overlaps this slab's steps. (Two staging areas, the copies two
+      // slabs ahead, left slabs 3 x rows wide at 43 x 31 x 351, not 5: 3.17
+      // against 2.65 ms at B=4096 on an NVIDIA H100 80GB HBM3, 700.00 W,
+      // utils/kernel_probe.py i8.)
+      mbar_wait_bounded(&full_bar[u & 1], (u >> 1) & 1);
+      realign(u);
+      __syncthreads();
+      if (u + 1 < U) load_unit(u + 1);
+    }
+    const int* buf = smem + L.cube + (staged ? 0 : (u & 1) * L.slab);
     const uint32_t buf_a = smem_u32(buf) + 16 * a_half;
+    const uint32_t sq_a = smem_u32(buf + L.sq);  // staged: the slab's qxz rows
 
     // t1 / t2 on the tensor cores: this warp's run of steps.
     const int steps = last ? run_last.n : run_full.n;
@@ -525,7 +710,11 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
         uint32_t tq;
         if (tab == 1) {
           cr = row * Y + min(16 * tile + a_row, Y - 1);
-          trow = x0 - xlo + row; tq = qxz_a;
+          if (staged) {
+            trow = row; tq = sq_a;
+          } else {
+            trow = x0 - xlo + row; tq = qxz_a;
+          }
         } else {
           cr = min(16 * tile + a_row, xs - 1) * Y + row;
           trow = row; tq = qyz_a;
@@ -612,7 +801,7 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
     }
     __syncthreads();  // the slab's sums are complete; its buffer is free
 
-    if (u + 2 < U) load_unit(u + 2);
+    if (u + 2 < U && !staged) load_unit(u + 2);
     if (++s == s1) {  // the scan's part is complete: hand its set over
       done(wg, b, m1_s, m2_s, m3_s, xlo, xhi);
       s = s0;
@@ -827,17 +1016,31 @@ sel3_scores_kernel(Walk w, const int* __restrict__ ijk, const uint8_t* __restric
   walk_scans<kGeneral>(w, done);
 }
 
-// The x-slab width of whole scans at C2 class rows a block: the widest,
-// balanced over the slabs, whose block fits the shared-memory maximum; 0 if
-// no slab fits.
-int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
+// The x-slab width of whole scans at C2 class rows a block on a route: the
+// widest, balanced over the slabs, whose block fits the shared-memory
+// maximum; 0 if no slab fits.
+int width_on(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3, bool staged) {
   for (int XS = X; XS >= 1; --XS) {
-    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3).total <= kSmemMax) {
+    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3, staged).total <= kSmemMax) {
       const int nslab = (X + XS - 1) / XS;
       return (X + nslab - 1) / nslab;
     }
   }
   return 0;
+}
+
+// Rows of Z bytes that are not whole 16-byte units take the staged route
+// wherever one class row fits it (its staging area costs a slab's bytes:
+// at X = 43, Z = 351 up to about 120 y values); past that, and for an
+// unaligned cube of whole units, slabs are copied with byte loads.
+bool staged_route(int X, int Y, int Z, bool h1, bool h2, bool h3) {
+  return Z % 16 != 0 && width_on(X, Y, Z, 1, h1, h2, h3, true) > 0;
+}
+
+// The x-slab width of whole scans at C2 class rows a block, on the route
+// of these dims.
+int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
+  return width_on(X, Y, Z, C2, h1, h2, h3, staged_route(X, Y, Z, h1, h2, h3));
 }
 
 // The rows of a class group for C2 class rows in all: ceil(C2 / NG) for the
@@ -858,7 +1061,8 @@ bool make_walk(Walk& w, const void* cube, const void* qxz, const void* qyz, cons
   if (B < 1 || X < 1 || Y < 1 || Z < 1 || CT < 1 || CG < 1 || CG > kMaxC2 || CG > CT ||
       XS < 1 || XS > X || P < 1 || P > (X + XS - 1) / XS)
     return false;
-  if (make_layout(XS, P, X, Y, Z, CG, qxz, qyz, qxy).total > kSmemMax) return false;
+  const bool staged = staged_route(X, Y, Z, qxz, qyz, qxy);
+  if (make_layout(XS, P, X, Y, Z, CG, qxz, qyz, qxy, staged).total > kSmemMax) return false;
   w.cube = static_cast<const int8_t*>(cube);
   w.qxz = static_cast<const int8_t*>(qxz);
   w.qyz = static_cast<const int8_t*>(qyz);
@@ -868,6 +1072,7 @@ bool make_walk(Walk& w, const void* cube, const void* qxz, const void* qyz, cons
   // Bulk copies need whole 16-byte rows from a 16-byte aligned cube (a slab
   // then starts and ends on 16 bytes) and at most 2^20 - 1 bytes a barrier.
   w.vec = Z % 16 == 0 && ((uintptr_t)cube & 15) == 0 && (long long)XS * Y * Z < (1 << 20);
+  w.staged = staged;
   return true;
 }
 
@@ -904,7 +1109,7 @@ template <typename Kernel, typename... Ts>
 int launch(Kernel one, Kernel general, const Walk& w, void* stream, Ts... outs) {
   const Kernel kernel = w.NG > 1 || !w.vec ? general : one;
   const size_t smem =
-      make_layout(w.XS, w.P, w.X, w.Y, w.Z, w.C2, w.qxz, w.qyz, w.qxy).total;
+      make_layout(w.XS, w.P, w.X, w.Y, w.Z, w.C2, w.qxz, w.qyz, w.qxy, w.staged).total;
   cudaError_t err;
   const int resident = resident_blocks(kernel, smem, err);
   if (err != cudaSuccess) return (int)err;
@@ -925,7 +1130,9 @@ int whole_scan_resident(Kernel one, Kernel general, int X, int Y, int Z, int C2,
   const Kernel kernel = CG < C2 || Z % 16 ? general : one;
   cudaError_t err;
   const int XS = slab_width(X, Y, Z, CG, h1, h2, h3);
-  const int n = resident_blocks(kernel, make_layout(XS, 1, X, Y, Z, CG, h1, h2, h3).total, err);
+  const bool staged = staged_route(X, Y, Z, h1, h2, h3);
+  const int n =
+      resident_blocks(kernel, make_layout(XS, 1, X, Y, Z, CG, h1, h2, h3, staged).total, err);
   return err == cudaSuccess ? n : -(int)err;
 }
 

@@ -53,9 +53,10 @@
 // - No atomics: every sum runs in a fixed order, so the tables are the same
 //   bits on every run and for every grid size. Every output element is
 //   written exactly once, by a plain store.
-// - A cube whose Z is not a multiple of 8, or whose pointers are not 16-byte
-//   aligned, goes the same way with the producer warp copying 2-byte values
-//   (z padded with zeros to an even count) instead of the copy engine.
+// - On the default instance a cube whose Z is not a multiple of 8, or
+//   whose pointers are not 16-byte aligned, goes the same way with the
+//   producer warp copying 2-byte values (z padded with zeros to an even
+//   count) instead of the copy engine.
 // - The work plan (make_plan). One launch takes C <= 8 classes (a template
 //   argument) and a z-chunk of at most 256 values (a lane's pairs stay in
 //   registers, kMaxPairs) whose templates fit a block. Past that the host
@@ -71,6 +72,24 @@
 //   is one launch, the kernel as it was. What is left refused: one class at
 //   8 z values not fitting a block, i.e. the txy template (X * Y floats)
 //   near 227 KB.
+// - The long-row instance (kLong: a z-chunk past 256 values, up to 384, at
+//   most 3 classes a launch). Where Z needs more than one chunk of the
+//   default instance but fits 6 pairs a lane, the plan takes one chunk of
+//   Z in groups of up to 3 classes instead, when that makes no more
+//   launches (at 43 x 31 x 351 with 3 classes: one launch where there were
+//   two). Its rows need not be whole 16-byte units or aligned: the
+//   producer asks the copy engine for the 16-byte aligned run of device
+//   memory around a stage's G slabs (one cp.async.bulk, whatever Z and the
+//   cube's alignment), and for the runs around each class's txz rows and
+//   txy values of those slabs (txy travels with the slabs, so the yz
+//   template of 3 classes at Y = 31, Z = 351 fits beside a 3-stage ring);
+//   the consumers read past each run's lead. With Z odd every other row
+//   starts at an odd bf16 value: a lane's pair is then the high half of one
+//   word and the low half of the next, and the value past the row's end is
+//   taken as zero. No 2-byte copy runs on this route; tyz is loaded once a
+//   block by the consumer warps. 15 consumer warps beside the producer
+//   (512 threads) leave 128 registers a thread for a lane's 6 pairs of
+//   sums; 16 capped them at 96 and spilled.
 // Where it stands (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
 // utils/kernel_probe.py, PERF.md section 6): 0.9155 ms device at B=4096
 // with the demo model's C = 3, against 1.8097 for the kernel it replaces
@@ -81,7 +100,11 @@
 // What it leaves for later: the row loop reads the yz template from shared
 // memory for every cube pair (C 8-byte loads per 2 values, 558 of those
 // wavefronts at C = 3), the next limit; and a batch of fewer scans than
-// SMs leaves SMs idle.
+// SMs leaves SMs idle. At 43 x 31 x 351 with 3 classes the long-row
+// instance takes 4.38 ms at B=4096 (one launch; a 1.1505 ms bytes bound),
+// against 58.4 ms for the two z-chunk launches of the copy route it
+// replaces there; the copies alone take 1.40 ms, the rows ~5,000 clocks a
+// slab (utils/kernel_probe.py native).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (radarml_tpu_torch/ops/_cuda_build.py)
@@ -93,6 +116,9 @@ namespace {
 
 constexpr int kMaxC = 8;            // classes the kernel is compiled for
 constexpr int kMaxPairs = 4;        // z pairs per lane: Z <= 2 * 32 * kMaxPairs
+constexpr int kLongPairs = 6;       // the long-row instance's: Z <= 2 * 32 * kLongPairs
+constexpr int kLongMaxC = 3;        // classes a long-row launch takes
+constexpr int kLongWarps = 15;      // its consumer warps: 512 threads, 128 registers each
 constexpr int kMaxStages = 8;       // stages the ring holds at most
 constexpr int kStageBytes = 32768;  // a stage holds up to this many bytes of cube
 constexpr int kWideMaxC = 3;        // 16 consumer warps up to this many classes, else 8
@@ -112,6 +138,7 @@ struct Layout {
   int G, NS;                         // x-slabs a stage, stages
   int slab, txz, p2, stage;          // a slab's words; a stage's regions and size
   int bars, tyz, txy, m1, m3, ring;  // region offsets
+  int zw, yw, sxy;                   // long rows: a class's txz and txy words a stage; txy's start
   long total;                        // bytes
 };
 
@@ -124,7 +151,23 @@ __host__ __device__ inline void size_stage(Layout& L, int C, int G) {
   L.stage = L.p2 + round4(G * warps_for(C) * C);
 }
 
-__host__ __device__ inline Layout make_layout(int X, int Y, int Z, int C) {
+// A stage of the long-row instance: the 16-byte aligned run of device memory
+// that holds its G x-slabs (a bulk copy may start up to 14 bytes early and
+// end up to 15 late; a row's last pair may read one word past), and per
+// class such a run of its txz rows (G * Z floats) and of its txy values
+// (G * Y floats), then the m2 partials.
+__host__ __device__ inline void size_stage_long(Layout& L, int C, int Y, int Z, int G) {
+  L.G = G;
+  L.zw = round4(G * Z + 8);
+  L.yw = round4(G * Y + 8);
+  L.txz = round4((2 * G * Y * Z + 30) / 4 + 2);
+  L.sxy = L.txz + C * L.zw;
+  L.p2 = L.sxy + C * L.yw;
+  L.stage = L.p2 + round4(G * kLongWarps * C);
+}
+
+// `lng`: the long-row instance, whose txy travels with the slabs.
+__host__ __device__ inline Layout make_layout(int X, int Y, int Z, int C, bool lng = false) {
   Layout L;
   L.ZP = (Z + 1) / 2;
   L.ZS = 2 * L.ZP;
@@ -133,7 +176,7 @@ __host__ __device__ inline Layout make_layout(int X, int Y, int Z, int C) {
   int off = 0;
   L.bars = off; off += round4(2 * (2 * kMaxStages + 1 + kMaxWarps));  // mbarriers
   L.tyz = off;  off += round4(C * Y * L.ZS);  // float [c][y][ZS], z padded with 0
-  L.txy = off;  off += round4(C * X * Y);     // float [c][x][y]
+  L.txy = off;  off += lng ? 0 : round4(C * X * Y);  // float [c][x][y]
   L.m1 = off;   off += round4(C * Y);         // float [c][y]: rows past the registers
   L.m3 = off;   off += round4(C * L.ZS);      // float [c][ZS]: the warps' running m3
   L.ring = off;
@@ -143,8 +186,13 @@ __host__ __device__ inline Layout make_layout(int X, int Y, int Z, int C) {
   int G = kStageBytes / (4 * L.slab);
   G = G > 32 / C ? 32 / C : G;
   G = G < 1 ? 1 : (G > X ? X : G);
-  size_stage(L, C, G);
-  while (G > 1 && 3L * L.stage > room) size_stage(L, C, --G);
+  if (lng) {
+    size_stage_long(L, C, Y, Z, G);
+    while (G > 1 && 3L * L.stage > room) size_stage_long(L, C, Y, Z, --G);
+  } else {
+    size_stage(L, C, G);
+    while (G > 1 && 3L * L.stage > room) size_stage(L, C, --G);
+  }
   const long ns = room / L.stage;
   L.NS = ns < 2 ? 2 : (ns > kMaxStages ? kMaxStages : (int)ns);
   L.total = 4L * (off + (long)L.NS * L.stage);
@@ -200,6 +248,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+// The 16-byte aligned run of device memory that holds the n bytes at p: its
+// start, and its length (a multiple of 16) as the result.
+__device__ __forceinline__ uint32_t superset(const void* p, uint32_t n, const void*& start) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p), a0 = a & ~uintptr_t(15);
+  start = reinterpret_cast<const void*>(a0);
+  return (uint32_t)(((a + n + 15) & ~uintptr_t(15)) - a0);
+}
+// Where the n bytes at p begin in their superset run, in units of `unit` bytes.
+__device__ __forceinline__ int lead(const void* p, int unit) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15) / unit;
+}
+
 // The consumer warps (not the producer) meet.
 __device__ __forceinline__ void consumers_sync(int threads) {
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
@@ -243,17 +303,17 @@ __device__ inline float warp_sum(float v) {
 // p (row y, summed over z), m2's partials q (summed over y, z) and the m3
 // partials acc3 (per z). tyz_row = tyz[0, y, :] with classes tyz_c apart,
 // txy_col = txy[0, x, y] with classes txy_c apart.
-template <int C>
+template <int C, int KM>
 __device__ __forceinline__ void row_step(const uint32_t* cube, const float* tyz_row, int tyz_c,
                                          const float* txy_col, int txy_c,
-                                         const float2 (&a)[C][kMaxPairs], float (&p)[C],
-                                         float (&q)[C], float2 (&acc3)[C][kMaxPairs], int lane,
+                                         const float2 (&a)[C][KM], float (&p)[C],
+                                         float (&q)[C], float2 (&acc3)[C][KM], int lane,
                                          int KP, int ZP) {
   float t3[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) t3[c] = txy_col[c * txy_c];
 #pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
+  for (int k = 0; k < KM; ++k) {
     const int pair = lane + 32 * k;
     if (k < KP && pair < ZP) {
       const uint32_t w = cube[pair];
@@ -270,24 +330,65 @@ __device__ __forceinline__ void row_step(const uint32_t* cube, const float* tyz_
   }
 }
 
+// row_step on the long-row route: the row starts at bf16 value e of the
+// stage's cube words, which is odd for every other row when Z is odd; then
+// a lane's pair straddles two words (the high half of one, the low half of
+// the next). The value past the row's end (Z odd) is taken as zero: it is
+// the next row's first or the copy's padding. t3 holds txy[c, x, y].
+template <int C>
+__device__ __forceinline__ void row_step_long(const uint32_t* words, int e, const float* tyz_row,
+                                              int tyz_c, const float (&t3)[C],
+                                              const float2 (&a)[C][kLongPairs], float (&p)[C],
+                                              float (&q)[C], float2 (&acc3)[C][kLongPairs],
+                                              int lane, int KP, int ZP, int Z) {
+  const uint32_t* w = words + (e >> 1);
+  const bool odd = e & 1;
+#pragma unroll
+  for (int k = 0; k < kLongPairs; ++k) {
+    const int j = lane + 32 * k;
+    if (k < KP && j < ZP) {
+      float v0, v1;
+      if (odd) {
+        v0 = bf16_hi(w[j]);
+        v1 = bf16_lo(w[j + 1]);
+      } else {
+        const uint32_t u = w[j];
+        v0 = bf16_lo(u);
+        v1 = bf16_hi(u);
+      }
+      if (2 * j + 1 >= Z) v1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        p[c] = fmaf(a[c][k].y, v1, fmaf(a[c][k].x, v0, p[c]));
+        const float2 t = *reinterpret_cast<const float2*>(tyz_row + c * tyz_c + 2 * j);
+        q[c] = fmaf(t.y, v1, fmaf(t.x, v0, q[c]));
+        acc3[c][k].x = fmaf(t3[c], v0, acc3[c][k].x);
+        acc3[c][k].y = fmaf(t3[c], v1, acc3[c][k].y);
+      }
+    }
+  }
+}
+
 // One launch takes C classes and a z-chunk of Z values: the cube, txz and
 // tyz pointers start at the chunk's first z, their rows ZT values apart (the
 // arena's Z); txz, tyz, txy start at the launch's first class and m1, m2, m3
 // at its first row of CT classes a scan (m3 also at the chunk's first z).
 // With `accum` the launch adds its m1 and m2 sums to what is there: the
 // chunks run one after another on one stream, so every sum still runs in a
-// fixed order.
-template <int C>
-__global__ void __launch_bounds__(32 * (warps_for(C) + 1), 1)
+// fixed order. kLong: the long-row instance (one z-chunk of up to 384
+// values, any alignment; its launches take vec = 1).
+template <int C, bool kLong>
+__global__ void __launch_bounds__(32 * ((kLong ? kLongWarps : warps_for(C)) + 1), 1)
 native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict__ txz,
                      const float* __restrict__ tyz, const float* __restrict__ txy,
                      float* __restrict__ m1, float* __restrict__ m2, float* __restrict__ m3,
                      int B, int X, int Y, int Z, int vec, int ZT, int CT, int accum) {
-  constexpr int W = warps_for(C);
+  constexpr int W = kLong ? kLongWarps : warps_for(C);
   constexpr int R = 32 / W;  // rows per warp whose m1 partials stay in registers
   constexpr int kConsumers = 32 * W;
+  constexpr int KM = kLong ? kLongPairs : kMaxPairs;
   extern __shared__ __align__(16) uint32_t smem[];
-  const Layout L = make_layout(X, Y, Z, C);
+  const Layout L = make_layout(X, Y, Z, C, kLong);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);  // [stage]: slab landed
   uint64_t* empty = full + kMaxStages;  // [stage]: every consumer warp is done with it
   uint64_t* tmpl = empty + kMaxStages;  // tyz landed
@@ -342,7 +443,7 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
         *out = accum ? *out + acc : acc;
       }
     };
-    if (vec && lane == 0) {
+    if (vec && !kLong && lane == 0) {
       const uint32_t tyz_bytes = 4u * C * Y * Z;
       mbar_expect_tx(tmpl, tyz_bytes);
       bulk_copy(tyz_s, tyz, tyz_bytes, tmpl);
@@ -358,7 +459,32 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
       const uint16_t* src = cube + ((size_t)unit_scan(u) * X + x0) * Y * ZT;
       uint32_t* st = ring + s * L.stage;
       float* t = reinterpret_cast<float*>(st + L.txz);
-      if (vec) {
+      if (kLong) {
+        // The 16-byte aligned runs that hold the G slabs, and each class's
+        // txz rows and txy values of them, by the copy engine whatever Z
+        // and the alignment; the consumers read past the runs' lead.
+        if (lane == 0) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          const void* from[1 + 2 * C];
+          uint32_t bytes[1 + 2 * C], total = 0;
+          bytes[0] = superset(src, 2u * gx * Y * Z, from[0]);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            bytes[1 + c] = superset(txz + ((size_t)c * X + x0) * Z, 4u * gx * Z, from[1 + c]);
+            bytes[1 + C + c] =
+                superset(txy + ((size_t)c * X + x0) * Y, 4u * gx * Y, from[1 + C + c]);
+          }
+#pragma unroll
+          for (int i = 0; i < 1 + 2 * C; ++i) total += bytes[i];
+          mbar_expect_tx(&full[s], total);
+          bulk_copy(st, from[0], bytes[0], &full[s]);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            bulk_copy(t + c * L.zw, from[1 + c], bytes[1 + c], &full[s]);
+            bulk_copy(st + L.sxy + c * L.yw, from[1 + C + c], bytes[1 + C + c], &full[s]);
+          }
+        }
+      } else if (vec) {
         if (lane == 0) {
           // the stage's readers have released it; order their reads before
           // the copy engine's writes
@@ -390,22 +516,29 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
 
   // The consumer warps. Templates that stay, once per block (tyz by the copy
   // engine on the fast route), overlapping the first slabs.
-  if (!vec)
+  if (kLong) {  // a warp a row, its lanes along z
+    for (int r = warp; r < C * Y; r += W)
+#pragma unroll 4
+      for (int z = lane; z < L.ZS; z += 32)
+        tyz_s[r * L.ZS + z] = z < Z ? tyz[(size_t)r * ZT + z] : 0.f;
+  } else if (!vec) {
     for (int i = tid; i < C * Y * L.ZS; i += kConsumers) {
       const int z = i % L.ZS;
       tyz_s[i] = z < Z ? tyz[(size_t)(i / L.ZS) * ZT + z] : 0.f;
     }
-  for (int i = tid; i < C * X * Y; i += kConsumers) txy_s[i] = txy[i];
+  }
+  if (!kLong)  // the long-row instance's txy travels with the slabs
+    for (int i = tid; i < C * X * Y; i += kConsumers) txy_s[i] = txy[i];
   for (int i = tid; i < C * Y; i += kConsumers) m1_s[i] = 0.f;
   consumers_sync(kConsumers);
-  if (vec) mbar_wait(tmpl, 0);
+  if (vec && !kLong) mbar_wait(tmpl, 0);
 
-  float2 acc3[C][kMaxPairs];  // m3 partials of this lane's pairs over the warp's rows
-  float p1[R][C];             // m1 partials of the warp's first R rows
+  float2 acc3[C][KM];  // m3 partials of this lane's pairs over the warp's rows
+  float p1[R][C];      // m1 partials of the warp's first R rows
 #pragma unroll
   for (int c = 0; c < C; ++c) {
 #pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) acc3[c][k] = make_float2(0.f, 0.f);
+    for (int k = 0; k < KM; ++k) acc3[c][k] = make_float2(0.f, 0.f);
 #pragma unroll
     for (int r = 0; r < R; ++r) p1[r][c] = 0.f;
   }
@@ -414,16 +547,80 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
     const int s = u % L.NS, b = unit_scan(u), x0 = unit_x0(u), gx = unit_gx(u);
     mbar_wait(&full[s], (u / L.NS) & 1);  // unit u has landed
     uint32_t* st = ring + s * L.stage;
+    // Long rows: where the unit's slabs and each class's txz and txy runs
+    // begin in their stage regions (bf16 values, floats).
+    int e0 = 0, o1[C], o3[C];
+    if (kLong) {
+      e0 = lead(cube + ((size_t)b * X + x0) * Y * ZT, 2);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        o1[c] = lead(txz + ((size_t)c * X + x0) * Z, 4);
+        o3[c] = lead(txy + ((size_t)c * X + x0) * Y, 4);
+      }
+    }
     for (int g = 0; g < gx; ++g) {
       const int x = x0 + g;
+      if constexpr (kLong) {
+        const float* tz = reinterpret_cast<const float*>(st + L.txz);
+        const float* ty = reinterpret_cast<const float*>(st + L.sxy);
+        float2 a[C][KM];  // txz[c, x, this lane's pairs], zero past Z
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int k = 0; k < KM; ++k) {
+            const float* row = tz + c * L.zw + o1[c] + g * Z;
+            const int z = 2 * (lane + 32 * k);
+            a[c][k] = make_float2(k < L.KP && z < Z ? row[z] : 0.f,
+                                  k < L.KP && z + 1 < Z ? row[z + 1] : 0.f);
+          }
+        float q[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) q[c] = 0.f;
+        auto t3_of = [&](int y, float (&t3)[C]) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) t3[c] = ty[c * L.yw + o3[c] + g * Y + y];
+        };
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int y = warp + r * W;
+          if (y < Y) {
+            float t3[C];
+            t3_of(y, t3);
+            row_step_long<C>(st, e0 + (g * Y + y) * Z, tyz_s + y * L.ZS, Y * L.ZS, t3, a, p1[r],
+                             q, acc3, lane, L.KP, L.ZP, Z);
+          }
+        }
+        for (int y = warp + R * W; y < Y; y += W) {  // rows past the registers (Y > 32)
+          float t3[C], p[C];
+          t3_of(y, t3);
+#pragma unroll
+          for (int c = 0; c < C; ++c) p[c] = 0.f;
+          row_step_long<C>(st, e0 + (g * Y + y) * Z, tyz_s + y * L.ZS, Y * L.ZS, t3, a, p, q,
+                           acc3, lane, L.KP, L.ZP, Z);
+#pragma unroll
+          for (int c = 0; c < C; ++c) p[c] = warp_sum(p[c]);
+          if (lane == 0) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) m1_s[c * Y + y] += p[c];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) q[c] = warp_sum(q[c]);
+        if (lane == 0) {
+          float* p2 = reinterpret_cast<float*>(st + L.p2);
+#pragma unroll
+          for (int c = 0; c < C; ++c) p2[(g * W + warp) * C + c] = q[c];
+        }
+        continue;
+      }
       const uint32_t* slab = st + g * L.slab;
       const float* txz_s = reinterpret_cast<const float*>(st + L.txz) + g * L.ZS;
 
-      float2 a[C][kMaxPairs];  // txz[c, x, this lane's pairs]
+      float2 a[C][KM];  // txz[c, x, this lane's pairs]
 #pragma unroll
       for (int c = 0; c < C; ++c)
 #pragma unroll
-        for (int k = 0; k < kMaxPairs; ++k) {
+        for (int k = 0; k < KM; ++k) {
           const int pair = lane + 32 * k;
           a[c][k] = (k < L.KP && pair < L.ZP)
                         ? *reinterpret_cast<const float2*>(txz_s + c * L.G * L.ZS + 2 * pair)
@@ -493,11 +690,11 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
     // first; the last one stores the result and hands the turn back to
     // warp 0 for the next scan. A warp waits only for the one before it.
     mbar_wait(&turn[warp], (u / NG) & 1);
-    float2 run[C][kMaxPairs];  // all loads first, so that they are in flight together
+    float2 run[C][KM];  // all loads first, so that they are in flight together
 #pragma unroll
     for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int k = 0; k < kMaxPairs; ++k) {
+      for (int k = 0; k < KM; ++k) {
         const int pair = lane + 32 * k;
         run[c][k] = (warp > 0 && k < L.KP && pair < L.ZP)
                         ? *reinterpret_cast<const float2*>(m3_s + c * L.ZS + 2 * pair)
@@ -506,7 +703,7 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
 #pragma unroll
     for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int k = 0; k < kMaxPairs; ++k) {
+      for (int k = 0; k < KM; ++k) {
         const int pair = lane + 32 * k;
         if (k < L.KP && pair < L.ZP) {
           float2 v = acc3[c][k];
@@ -526,16 +723,16 @@ native_tables_kernel(const uint16_t* __restrict__ cube, const float* __restrict_
   }
 }
 
-template <int C>
+template <int C, bool kLong = false>
 int launch(const void* cube, const void* txz, const void* tyz, const void* txy, void* m1,
            void* m2, void* m3, int B, int X, int Y, int Z, int ZT, int CT, int accum,
            cudaStream_t stream) {
-  constexpr int kThreads = 32 * (warps_for(C) + 1);
-  const Layout L = make_layout(X, Y, Z, C);
+  constexpr int kThreads = 32 * ((kLong ? kLongWarps : warps_for(C)) + 1);
+  const Layout L = make_layout(X, Y, Z, C, kLong);
   if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int vec = Z == ZT && Z % 8 == 0 && ((uintptr_t)cube & 15) == 0 &&
-                  ((uintptr_t)txz & 15) == 0 && ((uintptr_t)tyz & 15) == 0;
-  cudaError_t err = cudaFuncSetAttribute(native_tables_kernel<C>,
+  const int vec = kLong || (Z == ZT && Z % 8 == 0 && ((uintptr_t)cube & 15) == 0 &&
+                            ((uintptr_t)txz & 15) == 0 && ((uintptr_t)tyz & 15) == 0);
+  cudaError_t err = cudaFuncSetAttribute(native_tables_kernel<C, kLong>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -543,49 +740,75 @@ int launch(const void* cube, const void* txz, const void* tyz, const void* txy, 
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, native_tables_kernel<C>,
-                                                           kThreads, L.total)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, native_tables_kernel<C, kLong>, kThreads, L.total)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int grid = B < nsm * per_sm ? B : nsm * per_sm;
-  native_tables_kernel<C><<<grid, kThreads, L.total, stream>>>(
+  native_tables_kernel<C, kLong><<<grid, kThreads, L.total, stream>>>(
       static_cast<const uint16_t*>(cube), static_cast<const float*>(txz),
       static_cast<const float*>(tyz), static_cast<const float*>(txy), static_cast<float*>(m1),
       static_cast<float*>(m2), static_cast<float*>(m3), B, X, Y, Z, vec, ZT, CT, accum);
   return (int)cudaGetLastError();
 }
 
+// A launch whose z-chunk is longer than a lane's pairs of the default
+// instance hold runs the long-row instance.
+__host__ __device__ inline bool long_rows(int zc) { return zc > 2 * 32 * kMaxPairs; }
+
 // The work plan of C classes at arena Z: z-chunks of ZC values (the last
 // one may be shorter) and class groups of CG classes (the last may have
 // fewer). The fewest chunks that keep a lane's pairs in registers (ZC <=
 // 2 * 32 * kMaxPairs), then the fewest groups of at most kMaxC classes
 // whose block fits the shared-memory maximum, then more chunks (ZC a
-// multiple of 8) until one class fits. False when not even 8 z of one
-// class fit (the txy template alone, C * X * Y floats, is then near 227
-// KB). ops/score.py's native_plan mirrors it for the tests; the wrapper asks
+// multiple of 8) until one class fits. Where Z needs more than one chunk
+// but fits the long-row instance (Z <= 2 * 32 * kLongPairs), that
+// instance's plan, one chunk of Z in the fewest groups of at most
+// kLongMaxC classes whose block fits, takes the place of this one when it
+// makes no more launches. False when not even 8 z of one class fit (the
+// txy template alone, C * X * Y floats, is then near 227 KB).
+// ops/score.py's native_plan mirrors it for the tests; the wrapper asks
 // native_score_plan_zchunk before a launch.
 struct Plan {
   int ZC, CG;
 };
 bool make_plan(int X, int Y, int Z, int C, Plan& p) {
   constexpr int kMaxZ = 2 * 32 * kMaxPairs;
-  for (int nz = (Z + kMaxZ - 1) / kMaxZ;; ++nz) {
+  bool found = false;
+  for (int nz = (Z + kMaxZ - 1) / kMaxZ; !found; ++nz) {
     const int zc = nz == 1 ? Z : ((Z + nz - 1) / nz + 7) / 8 * 8;
-    for (int ng = (C + kMaxC - 1) / kMaxC; ng <= C; ++ng) {
+    for (int ng = (C + kMaxC - 1) / kMaxC; ng <= C && !found; ++ng) {
       const int cg = (C + ng - 1) / ng;
       if (make_layout(X, Y, zc, cg).total <= kSmemMax) {
         p.ZC = zc;
         p.CG = cg;
-        return true;
+        found = true;
       }
     }
-    if (zc <= 8) return false;
+    if (!found && zc <= 8) return false;
   }
+  if (long_rows(Z) && Z <= 2 * 32 * kLongPairs) {
+    const int launches = (Z + p.ZC - 1) / p.ZC * ((C + p.CG - 1) / p.CG);
+    for (int ng = (C + kLongMaxC - 1) / kLongMaxC; ng <= C && ng <= launches; ++ng) {
+      const int cg = (C + ng - 1) / ng;
+      if (make_layout(X, Y, Z, cg, true).total <= kSmemMax) {
+        p.ZC = Z;
+        p.CG = cg;
+        break;
+      }
+    }
+  }
+  return true;
 }
 
 int launch_group(int cg, const void* cube, const void* txz, const void* tyz, const void* txy,
                  void* m1, void* m2, void* m3, int B, int X, int Y, int Z, int ZT, int CT,
                  int accum, cudaStream_t s) {
+  if (long_rows(Z)) switch (cg) {
+      case 1: return launch<1, true>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+      case 2: return launch<2, true>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+      default: return launch<3, true>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
+    }
   switch (cg) {
     case 1: return launch<1>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
     case 2: return launch<2>(cube, txz, tyz, txy, m1, m2, m3, B, X, Y, Z, ZT, CT, accum, s);
@@ -605,7 +828,7 @@ extern "C" {
 // Bytes of dynamic shared memory a block takes at these dims with C classes
 // a launch (exposed so the wrapper's own count can be checked against it).
 long native_score_smem_bytes(int X, int Y, int Z, int C) {
-  return make_layout(X, Y, Z, C).total;
+  return make_layout(X, Y, Z, C, long_rows(Z)).total;
 }
 
 // The work plan of make_plan: its z-chunk and its class group, or 0 for

@@ -282,6 +282,78 @@ def slab_width(weights: CombinedWeights) -> int:
     return _library().i8_score_slab_width(X, Y, Z, weights.c2, *has)
 
 
+MAX_GROUP_ROWS = 8  # class rows of one class group (kMaxC2: one mma n-tile)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def layout_bytes(XS: int, P: int, X: int, Y: int, Z: int, C2: int,
+                 planes: Tuple[bool, bool, bool] = (True, True, True),
+                 staged: bool = False) -> int:
+    """Dynamic shared memory of one int8 kernel block, in bytes: make_layout
+    in csrc/i8_score.cu, region by region, for scans in P parts of x-slabs
+    XS wide and C2 class rows a block (`planes`: which templates are
+    present). On the staged route (`staged_route`) qxz travels with the
+    slabs: one buffer holds a slab and its qxz rows, and one staging area
+    holds the next unit's runs as the copy engine brought them."""
+    h1, h2, h3 = planes
+    nslab = -(-X // XS)
+    nsp = -(-nslab // P)
+    XP = min(X, nsp * XS)
+    NR = _round_up(XS * Y, 4)
+    SW = _round_up(Z, 16) // 4
+    TW = -(-SW * 4 // 32) * 8 + 4
+    KQ = -(-XS * Y // 32) * 8
+    words = (C2 * XP * TW if h1 and not staged else 0) + (C2 * Y * TW if h2 else 0) + TW
+    words += nsp * MAX_GROUP_ROWS * KQ if h3 else 0
+    slab = _round_up(NR * SW + 4, 4) + (XS * C2 * TW if staged and h1 else 0)
+    stc = _round_up((XS * Y * Z + 30) // 4 + 8, 4) if staged else 0
+    stq = _round_up((XS * Z + 30) // 4 + 8, 4) if staged and h1 else 0
+    words += (1 if staged else 2) * slab + stc + C2 * stq
+    words += 2 * (_round_up(C2 * Y, 4) + _round_up(C2 * X, 4) + _round_up(Z * C2, 4))
+    return 4 * words
+
+
+def _width(X, Y, Z, cg, planes, staged) -> int:
+    """width_on in csrc/i8_score.cu: the widest balanced slab that fits."""
+    for XS in range(X, 0, -1):
+        if layout_bytes(XS, 1, X, Y, Z, cg, planes, staged) <= SMEM_MAX:
+            n = -(-X // XS)
+            return -(-X // n)
+    return 0
+
+
+def staged_route(X: int, Y: int, Z: int,
+                 planes: Tuple[bool, bool, bool] = (True, True, True)) -> bool:
+    """Whether whole scans at these dims take the staged route: rows of Z
+    bytes that are not whole 16-byte units, wherever one class row fits it
+    (staged_route in csrc/i8_score.cu); else slabs come by whole 16-byte
+    units (or, past the staged route's fit, by byte loads)."""
+    return Z % 16 != 0 and _width(X, Y, Z, 1, planes, True) > 0
+
+
+def whole_scan_plan(X: int, Y: int, Z: int, C2: int,
+                    planes: Tuple[bool, bool, bool] = (True, True, True)
+                    ) -> Optional[Tuple[int, int]]:
+    """The int8 kernels' whole-scan plan for C2 class rows: (rows a class
+    group, x-slab width), as group_rows and slab_width in csrc/i8_score.cu
+    make them on the route of these dims (`staged_route`): the fewest
+    groups of at most MAX_GROUP_ROWS rows whose block fits SMEM_MAX with
+    some slab width, and the widest such width, balanced over the slabs;
+    None where not even one row fits. A mirror for the tests: the CUDA
+    implementation asks the built kernels (i8_score_group_rows,
+    i8_score_slab_width)."""
+    staged = staged_route(X, Y, Z, planes)
+    for ng in range(-(-C2 // MAX_GROUP_ROWS), C2 + 1):
+        cg = -(-C2 // ng)
+        xs = _width(X, Y, Z, cg, planes, staged)
+        if xs:
+            return cg, xs
+    return None
+
+
 def onepass_tables_combined_i8(
     cube: torch.Tensor, weights: CombinedWeights
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

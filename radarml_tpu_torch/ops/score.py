@@ -67,14 +67,18 @@ __all__ = [
 KERNEL_LAUNCHES = 0
 
 # The limits of one launch and the layout constants (csrc/native_score.cu:
-# kMaxC, kMaxPairs, kSmemMax, kMaxStages, kStageBytes, kMaxWarps, kWideMaxC).
+# kMaxC, kMaxPairs, kLongPairs, kLongMaxC, kSmemMax, kMaxStages,
+# kStageBytes, kMaxWarps, kWideMaxC).
 MAX_C = 8  # classes a launch takes
-MAX_Z = 2 * 32 * 4  # z values a launch takes
+MAX_Z = 2 * 32 * 4  # z values a launch of the default instance takes
+LONG_MAX_Z = 2 * 32 * 6  # z values a launch of the long-row instance takes
+LONG_MAX_C = 3  # classes a launch of the long-row instance takes
 SMEM_MAX = 232448
 _MAX_STAGES = 8
 _STAGE_BYTES = 32768
 _MAX_WARPS = 16
 _WIDE_MAX_C = 3
+_LONG_WARPS = 15  # the long-row instance's consumer warps (kLongWarps)
 
 
 def _warps(C: int) -> int:
@@ -89,15 +93,22 @@ def _round4(n: int) -> int:
 def _layout(X: int, Y: int, Z: int, C: int) -> Tuple[int, int, int, int]:
     """(words outside the ring, x-slabs a stage, words a stage, stages) of
     one kernel block: make_layout in csrc/native_score.cu, region by
-    region, each rounded to 16 bytes."""
+    region, each rounded to 16 bytes. A z-chunk past MAX_Z is the long-row
+    instance's: its xy template travels with the slabs, and a stage holds
+    the 16-byte aligned runs of device memory around its slabs and around
+    each class's xz rows and xy values."""
+    long_rows = Z > MAX_Z
     zp = (Z + 1) // 2
     zs = 2 * zp
     slab = _round4(Y * zp)
     fixed = (_round4(2 * (2 * _MAX_STAGES + 1 + _MAX_WARPS)) + _round4(C * Y * zs)
-             + _round4(C * X * Y) + _round4(C * Y) + _round4(C * zs))
+             + (0 if long_rows else _round4(C * X * Y)) + _round4(C * Y) + _round4(C * zs))
     room = SMEM_MAX // 4 - fixed
 
     def stage(G):
+        if long_rows:  # size_stage_long
+            return (_round4((2 * G * Y * Z + 30) // 4 + 2) + C * _round4(G * Z + 8)
+                    + C * _round4(G * Y + 8) + _round4(G * _LONG_WARPS * C))
         return G * slab + _round4(C * G * zs) + _round4(G * _warps(C) * C)
 
     G = min(max(min(_STAGE_BYTES // (4 * slab), 32 // C), 1), X)
@@ -124,20 +135,33 @@ def native_plan(X: int, Y: int, Z: int, C: int) -> Optional[Tuple[int, int]]:
     csrc/native_score.cu makes it. The fewest chunks of at most MAX_Z,
     then the fewest groups of at most MAX_C whose block fits SMEM_MAX, then
     more chunks (a multiple of 8 wide) until one class fits; None when
-    not even 8 z of one class fit. At the default arena with up to 7
+    not even 8 z of one class fit. Where Z needs more than one chunk but
+    is at most LONG_MAX_Z, the long-row instance's plan, one chunk of Z in
+    the fewest groups of at most LONG_MAX_C classes whose block fits, is
+    taken instead when it makes no more launches (at 43 x 31 x 351 with 3
+    classes: (351, 3), one launch). At the default arena with up to 7
     classes it is (Z, C): one launch. A mirror for the tests: the CUDA
     implementation asks the built kernel (native_score_plan_zchunk /
     _group)."""
     nz = -(-Z // MAX_Z)
-    while True:
+    plan = None
+    while plan is None:
         zc = Z if nz == 1 else (-(-Z // nz) + 7) // 8 * 8
         for ng in range(-(-C // MAX_C), C + 1):
             cg = -(-C // ng)
             if shared_memory_bytes(X, Y, zc, cg) <= SMEM_MAX:
-                return zc, cg
-        if zc <= 8:
+                plan = zc, cg
+                break
+        if plan is None and zc <= 8:
             return None
         nz += 1
+    if MAX_Z < Z <= LONG_MAX_Z:
+        launches = -(-Z // plan[0]) * -(-C // plan[1])
+        for ng in range(-(-C // LONG_MAX_C), min(C, launches) + 1):
+            cg = -(-C // ng)
+            if shared_memory_bytes(X, Y, Z, cg) <= SMEM_MAX:
+                return Z, cg
+    return plan
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,10 +22,11 @@ float64 is taken on the 1824 equal rows' Gram at gamma 0.1):
   kstep_from_zero     the tensor core sums one k-step (8 columns) from zero
                       and every k-step is added round to nearest, two in
                       flight: less error, four times the adds
-i8 (the combo kernel of i8_score.cu; default arena, 6 class rows, B = 4096
-and 64):
+i8 (the combo kernel of i8_score.cu; 6 class rows, B = 4096 and 64, at the
+default arena and at 43 x 31 x 351, the staged route):
   as_committed  the kernel as it is
   loads_only    no t1 / t2 / t3 steps: the slab pipeline alone
+  no_realign    the staged route without its realignment (other tables)
   warps_24      24 warps a block instead of 16
   clocks        clock64 around the phases of a slab, summed over the
                 blocks by warp 0 and warp 15: clocks per slab
@@ -40,9 +41,9 @@ next scan's last slab); the lookup and glookup kernels also at B = 1, 7,
 kernel under other plans, each checked against the committed plan's
 tables: B = 64 with 3 parts (resident / B rounded up), B = 100 and 131
 with whole scans
-native (B7; default arena, 3 random classes, B = 4096 and 64; each
-variant's registers and spills as ptxas reports them, and its largest
-|error| against the plain version):
+native (B7; 3 random classes, B = 4096 and 64, at the default arena and at
+43 x 31 x 351, the long-row instance; each variant's registers and spills
+as ptxas reports them, and its largest |error| against the plain version):
   as_committed    the kernel as it is
   warps_8         8 consumer warps a block at every C (16 up to C = 3 as
                   committed)
@@ -239,6 +240,7 @@ I8_TICK = (
 I8_VARIANTS = {
     "as_committed": [],
     "loads_only": I8_SKIP,
+    "no_realign": [("      realign(u);\n", "      if (B < 0) realign(u);\n")],
     "warps_24": [("constexpr int kThreads = 512;", "constexpr int kThreads = 768;")],
     "clocks": [
         ("namespace {\n\nconstexpr int kMaxC2",
@@ -251,6 +253,10 @@ I8_VARIANTS = {
         ("    // t3 on the tensor cores: D[z, c]", "    TICK(2)\n    // t3 on the tensor cores: D[z, c]"),
         ("    __syncthreads();  // the slab's sums are complete; its buffer is free\n",
          "    TICK(3)\n    __syncthreads();\n    TICK(4)\n"),
+        ("      mbar_wait_bounded(&full_bar[u & 1], (u >> 1) & 1);\n      realign(u);\n"
+         "      __syncthreads();\n",
+         "      mbar_wait_bounded(&full_bar[u & 1], (u >> 1) & 1);\n      TICK(6)\n"
+         "      realign(u);\n      __syncthreads();\n      TICK(7)\n"),
         ("      set ^= 1;  // this set is next used two scans on, block barriers later\n    }\n",
          "      set ^= 1;\n    }\n    TICK(5)\n"),
         ('extern "C" {\n\n// The x-slab width',
@@ -265,12 +271,18 @@ I8_VARIANTS = {
 
 def probe_i8(tmp: Path) -> None:
     libs = build_variants("i8_score", I8_VARIANTS, tmp)
+    for dims in ((22, 31, 176), (43, 31, 351)):
+        probe_i8_at(libs, dims)
+
+
+def probe_i8_at(libs: dict, dims) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    X, Y, Z, C2 = 22, 31, 176, 6
+    (X, Y, Z), C2 = dims, 6
     q = [torch.randint(-127, 128, (C2,) + sh, generator=gen, device=dev, dtype=torch.int8)
          for sh in ((X, Z), (Y, Z), (X, Y))]
     cube = torch.randint(-128, 128, (4096, X, Y, Z), generator=gen, device=dev, dtype=torch.int8)
+    want = None
     for variant, lib in libs.items():
         i8_score._bind(lib)
 
@@ -284,9 +296,13 @@ def probe_i8(tmp: Path) -> None:
                 raise RuntimeError(f"i8_score_onepass_tables launch failed: CUDA error {err}")
             return t
 
-        line = (f"i8 {variant}: device "
+        if variant == "as_committed":
+            want = tables(4096)
+        same = all(torch.equal(a, b) for a, b in zip(tables(4096), want))
+        line = (f"i8 {variant} at {dims}: device "
                 f"{device_ms(lambda: tables(4096), 'combo_tables_kernel', 20):.4f} ms at B=4096, "
-                f"{device_ms(lambda: tables(64), 'combo_tables_kernel', 20):.4f} ms at B=64")
+                f"{device_ms(lambda: tables(64), 'combo_tables_kernel', 20):.4f} ms at B=64"
+                f"{'' if same else ' (other tables: the variant drops work)'}")
         if variant == "clocks":
             lib.i8_score_probe_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
             out = (ctypes.c_ulonglong * 16)()
@@ -295,14 +311,14 @@ def probe_i8(tmp: Path) -> None:
             tables(4096)
             torch.cuda.synchronize()
             lib.i8_score_probe_clocks(out, 0)
-            slabs = 4096 * 2  # two x-slabs a scan at this arena
+            slabs = 4096 * -(-X // i8_score.whole_scan_plan(X, Y, Z, C2)[1])
             names = ("loop top", "wait for the slab", "t1/t2 steps", "t3 steps",
-                     "barrier", "write-out")
+                     "barrier", "write-out", "staged wait", "realign and barrier")
             for base, who in ((0, "warp 0"), (8, "warp 15")):
                 line += (f"; {who} clocks per slab: "
                          + ", ".join(f"{n} {out[base + k] / slabs:.0f}"
                                      for k, n in enumerate(names))
-                         + f" (sum {sum(out[base:base + 6]) / slabs:.0f})")
+                         + f" (sum {sum(out[base:base + 8]) / slabs:.0f})")
         print(line, flush=True)
 
 
@@ -404,7 +420,9 @@ def probe_tails(tmp: Path) -> None:
 
 
 _NATIVE_LOADS_ONLY = [("        if (y < Y)\n          row_step<C>(",
-                       "        if (y < Y && B < 0)\n          row_step<C>(")]
+                       "        if (y < Y && B < 0)\n          row_step<C>("),
+                      ("          if (y < Y) {\n            float t3[C];",
+                       "          if (y < Y && B < 0) {\n            float t3[C];")]
 _NATIVE_TICK = (
     "#define TICK(k) if (lane == 0 && (warp == 0 || warp == W - 1 || warp == W)) { "
     "long long n_ = clock64(); atomicAdd(&probe_clk[(warp == W ? 12 : warp ? 6 : 0) + (k)], "
@@ -476,9 +494,14 @@ def probe_native(tmp: Path, earlier=None) -> None:
     logs = {}
     texts = {"earlier": Path(earlier).read_text()} if earlier else None
     libs = build_variants("native_score", NATIVE_VARIANTS, tmp, texts, logs)
+    for dims in ((22, 31, 176), (43, 31, 351)):
+        probe_native_at(libs, logs, dims)
+
+
+def probe_native_at(libs: dict, logs: dict, dims) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    X, Y, Z, C = 22, 31, 176, 3
+    (X, Y, Z), C = dims, 3
     tm = score.native_templates(
         *[torch.randn((C,) + sh, generator=gen, device=dev) * 0.01
           for sh in ((X, Z), (Y, Z), (X, Y))])
@@ -501,7 +524,7 @@ def probe_native(tmp: Path, earlier=None) -> None:
 
         err = max(float((g - w).abs().max()) for g, w in zip(tables(4096), want))
         torch.cuda.synchronize()
-        line = (f"native {variant}: device "
+        line = (f"native {variant} at {dims}: device "
                 f"{device_ms(lambda: tables(4096), 'native_tables_kernel', 20):.4f} ms at B=4096, "
                 f"{device_ms(lambda: tables(64), 'native_tables_kernel', 20):.4f} ms at B=64; "
                 f"max |kernel - plain| {err:.3e}")

@@ -135,48 +135,80 @@ def device_trace(log_dir: Optional[str]) -> Iterator[None]:
     logger.info("device trace written to %s", path)
 
 
-#: Profiler traces `kernel_device_ms` took in this process, and how many of
-#: them came back without the records of a kernel that ran inside them.
-TRACES = {"taken": 0, "lacking": 0}
+#: Profiler traces `kernel_device_ms` took in this process, how many of them
+#: came back without the records of a kernel that ran inside them, and, where
+#: the caller said how many launches a call makes, the launch records the
+#: traces held against the launches their calls made.
+TRACES = {"taken": 0, "lacking": 0, "records": 0, "launches": 0}
+
+
+#: Cycles of the spin kernel (torch.cuda._sleep) that opens and closes a
+#: trace's active step (about 30 ms on an H100), and the host's wait before
+#: the step closes.
+GUARD_CYCLES = 60_000_000
+GUARD_S = 0.1
 
 
 def trace_device_us(fns: dict, symbols: dict, reps: int) -> dict:
     """One torch.profiler (CUPTI) trace of `reps` rounds of the calls in
     `fns`: name -> (total device us, launches) of the kernels whose
     function name contains symbols[name], (0.0, 0) for one the trace
-    lacks."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    lacks, both from the trace's kernel events (one a launch).
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    Traces lost the records of launches near an edge of their window (on
+    an NVIDIA H100 80GB HBM3, 700.00 W): one of each
+    of the first two kernels in a 20-round trace at B=4096, and with a
+    warm-up step in the schedule still 7 or 8 of 20 of every kernel in
+    some traces of short rounds, and the last ~100 ms of a long trace. A
+    loss measured in time at the window's edges, not in launches:
+    key_averages() and the events agree, so no count is at fault, and a
+    warm-up step or a 0.3 ms gap at the start did not end it. So the
+    active step, after a warm-up step of one round, opens and closes with
+    a spin kernel of GUARD_CYCLES (the calls' records lie that far inside
+    the window) and the host waits GUARD_S before closing it; in the chip
+    calls since, every trace held every launch record."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        torch.cuda._sleep(GUARD_CYCLES)
         for _ in range(reps):
             for fn in fns.values():
                 fn()
+        torch.cuda._sleep(GUARD_CYCLES)
         torch.cuda.synchronize()
-    events = prof.key_averages()
+        time.sleep(GUARD_S)  # the records of the last launches reach the profiler
+        prof.step()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out = {}
     for name, symbol in symbols.items():
-        hits = [e for e in events if symbol in e.key]
-        out[name] = (sum(getattr(e, "device_time_total", 0.0) for e in hits),
-                     sum(e.count for e in hits))
+        hits = [e for e in kernels if symbol in e.name]
+        out[name] = (sum(e.time_range.elapsed_us() for e in hits), len(hits))
     return out
 
 
-def kernel_device_calls(fns: dict, symbols: dict, reps: int, log=None) -> dict:
+def kernel_device_calls(fns: dict, symbols: dict, reps: int, log=None,
+                        launches: Optional[dict] = None) -> dict:
     """Device time of one call of each fn in `fns`, from a torch.profiler
     (CUPTI) trace of `reps` rounds of the calls: name -> (ms a call,
     launches a call) of the kernel whose function name contains
     symbols[name] (a substring of what the trace shows). A call's time is
-    its launches' mean time times the launches it makes (the trace's
-    launch count over `reps`, rounded), so it stands beside the call's
-    bound however many launches its work plan makes. Needs a CUDA card.
+    its launches' mean time times the launches it makes (launches[name]
+    where the caller gives it, else the trace's launch count over `reps`,
+    rounded), so it stands beside the call's bound however many launches
+    its work plan makes. Needs a CUDA card.
 
-    A trace now and then came back without some or all of a kernel's
-    records in earlier runs (cause not established; `utils/kernel_probe.py
-    traces` looks for it). A count that is not a whole number of launches a
-    call is reported through `log`; a trace that lacks a symbol is counted
-    in TRACES, reported and taken again, twice at most; a symbol that is
-    still missing raises: no time is ever reported as 0."""
+    With `launches`, each trace's records are added to TRACES["records"]
+    and the launches its calls made to TRACES["launches"]; a count that is
+    not those launches is reported through `log`. A trace that lacks a
+    symbol is counted in TRACES, reported and taken again, twice at most;
+    a symbol that is still missing raises: no time is ever reported as 0."""
     import torch
 
     for fn in fns.values():  # warm-up
@@ -187,12 +219,15 @@ def kernel_device_calls(fns: dict, symbols: dict, reps: int, log=None) -> dict:
         TRACES["taken"] += 1
         out = {}
         for name, (us, n) in got.items():
-            per_call = round(n / reps)
+            per_call = launches[name] if launches else round(n / reps)
+            if launches:
+                TRACES["records"] += n
+                TRACES["launches"] += per_call * reps
             if per_call > 0 and us > 0:
                 out[name] = (us / n * per_call / 1e3, per_call)
                 if n != per_call * reps and log is not None:
-                    log(f"{symbols[name]}: {n} launch records for {reps} calls, taken as "
-                        f"{per_call} a call")
+                    log(f"{symbols[name]}: {n} launch records for {reps} calls of "
+                        f"{per_call} launches")
         missing = [symbols[name] for name in symbols if name not in out]
         if not missing:
             return out
@@ -202,7 +237,9 @@ def kernel_device_calls(fns: dict, symbols: dict, reps: int, log=None) -> dict:
     raise RuntimeError(f"the trace shows no device time for kernels {missing}")
 
 
-def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None) -> dict:
+def kernel_device_ms(fns: dict, symbols: dict, reps: int, log=None,
+                     launches: Optional[dict] = None) -> dict:
     """`kernel_device_calls` without the launch counts: name -> device ms
     of one call of fns[name]."""
-    return {name: ms for name, (ms, _) in kernel_device_calls(fns, symbols, reps, log).items()}
+    return {name: ms for name, (ms, _)
+            in kernel_device_calls(fns, symbols, reps, log, launches).items()}

@@ -177,6 +177,44 @@ def _probe_variants():
     return sorted(kernel_probe.I8_VARIANTS)
 
 
+@pytest.mark.parametrize("Z", [9, 176, 180, 351, 400])
+def test_int8_plan_mirror_keeps_every_shape(Z):
+    """The host mirror of the int8 kernels' plan (ops/i8_score.
+    whole_scan_plan, which chip_smoke.py's phase 3 holds to the CUDA
+    source's): every shape the layout without a staged route took (qxz
+    resident, slabs by whole 16-byte units or byte loads) still has a
+    plan; shapes whose rows are whole 16-byte units keep it; rows that are
+    not take the staged route wherever one class row fits it (its staging
+    area costs a slab, so at a small X its slabs can be narrower than the
+    byte-load route's were)."""
+
+    def unstaged(X, Y, C2):
+        for ng in range(-(-C2 // tk.MAX_GROUP_ROWS), C2 + 1):
+            cg = -(-C2 // ng)
+            xs = tk._width(X, Y, Z, cg, (True,) * 3, False)
+            if xs:
+                return cg, xs
+        return None
+
+    for X in (1, 5, 22, 43):
+        for Y in (1, 7, 31, 61, 120, 144, 150):
+            for C2 in (1, 3, 6, 9, 16):
+                old, new = unstaged(X, Y, C2), tk.whole_scan_plan(X, Y, Z, C2)
+                where = (X, Y, Z, C2)
+                if old is not None:
+                    assert new is not None, where
+                if new is not None:
+                    rows, xs = new
+                    staged = tk.staged_route(X, Y, Z)
+                    assert tk.layout_bytes(xs, 1, X, Y, Z, rows, staged=staged) <= tk.SMEM_MAX
+                    assert staged == (Z % 16 != 0 and tk._width(X, Y, Z, 1, (True,) * 3,
+                                                                 True) > 0), where
+                if Z % 16 == 0:
+                    assert new == old, where
+    if Z == 351:  # the finer arena: slabs five x rows wide where they were one
+        assert unstaged(43, 31, 6) == (6, 1) and tk.whole_scan_plan(43, 31, 351, 6) == (6, 5)
+
+
 @pytest.mark.parametrize("variant", _probe_variants())
 def test_probe_patches_fit_the_source(variant):
     """utils/kernel_probe.py builds variants of csrc/i8_score.cu by text
@@ -198,9 +236,10 @@ def test_kernel_on_the_card():
     equals the plain version bit for bit, at B = 1, 7 and 300, an odd and a
     small arena, each plane masked, levels 1 and 2, 1 to 8 class rows and
     past them (class groups: 9, 10, 16, 18, 32 rows), the finer scan
-    arenas (Z = 351), and a cube view that starts one byte into its buffer
-    (byte-copy path); a shape no plan takes is refused before any launch,
-    naming the limit."""
+    arenas (Z = 351, the staged route), and a cube view that starts one
+    byte into its buffer (at the default arena the byte-copy path, at
+    43 x 31 x 351 the staged route); a shape no plan takes is refused
+    before any launch, naming the limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -240,6 +279,8 @@ def test_kernel_on_the_card():
             held(dims, 9, tk.CombinedWeights(*q, dims=dims + (c2,), levels=1))
     held(default, 7, tk.build_combined_weights(_quant(rng, default, 2), default, device=dev),
          offset=1)
+    fine = (43, 31, 351)
+    held(fine, 7, tk.build_combined_weights(_quant(rng, fine, 2), fine, device=dev), offset=1)
     huge = (43, 200, 400)  # one class row's whole-scan block needs ~320 KB
     w_huge = tk.CombinedWeights(*[torch.zeros((1,) + s, dtype=torch.int8, device=dev)
                                   for s in ((43, 400), (200, 400), (43, 200))],

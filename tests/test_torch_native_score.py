@@ -161,15 +161,19 @@ def _earlier_smem_bytes(X, Y, Z, C):
 @pytest.mark.parametrize("Z", [1, 9, 64, 176, 180, 256, 351, 512])
 def test_no_model_that_fitted_stops_fitting(Z):
     """Every (dims, C) up to 16 classes has a work plan, each of its
-    launches fits, and every (dims, C) that fitted the earlier layout in
-    one launch keeps one launch (plan (Z, C)); the ring holds 2 to 8
-    stages, of which at least 3 at the default arena's Y and Z for every C
-    that fits one launch there."""
+    launches fits (a z-chunk past MAX_Z only as the long-row instance's
+    one chunk of Z <= LONG_MAX_Z, at most LONG_MAX_C classes a launch),
+    and every (dims, C) that fitted the earlier layout in one launch keeps
+    one launch (plan (Z, C)); the ring holds 2 to 8 stages, of which at
+    least 3 at the default arena's Y and Z for every C that fits one
+    launch there."""
     for X in range(1, 48, 3):
         for Y in (1, 7, 13, 31, 61, 120, 200):
             for C in range(1, 17):
                 zc, cg = score.native_plan(X, Y, Z, C)
-                assert zc <= score.MAX_Z and cg <= score.MAX_C, (X, Y, Z, C)
+                long_rows = zc == Z and score.MAX_Z < Z <= score.LONG_MAX_Z
+                assert zc <= score.MAX_Z or long_rows, (X, Y, Z, C)
+                assert cg <= (score.LONG_MAX_C if long_rows else score.MAX_C), (X, Y, Z, C)
                 assert score.shared_memory_bytes(X, Y, zc, cg) <= score.SMEM_MAX
                 last = Z - (-(-Z // zc) - 1) * zc  # the last chunk's width
                 assert 0 < last <= zc and score.shared_memory_bytes(X, Y, last, cg) \
@@ -218,8 +222,10 @@ def test_wrapper_checks_operands(rng, case, err):
 # default arena, all eight at a tiny arena, Z = 180 (not a multiple of 8)
 # and a cube 2 bytes off 16-byte alignment (both the copy route); 8, 9 and
 # 16 classes at the default arena (class groups of 4, 5 and 6) and 9 at a
-# tiny one; the finer scan arenas (Z = 351: two z-chunks a scan, the copy
-# route; 43 x 61 also class groups at 5 classes).
+# tiny one; the finer scan arenas (Z = 351: at Y = 31 the long-row
+# instance, one launch at 3 classes and class groups of 3 + 2 at 5, also
+# with a cube 2 bytes off alignment; at 43 x 61 two z-chunks a scan on the
+# copy route, with class groups at 5 classes).
 CARD_CASES = [((22, 31, 176), 37, 3, False), ((22, 31, 176), 300, 3, False),
               ((22, 31, 176), 9, 1, False), ((22, 31, 176), 9, 5, False),
               ((22, 31, 176), 9, 7, False), ((5, 7, 9), 3, 8, False),
@@ -228,7 +234,7 @@ CARD_CASES = [((22, 31, 176), 37, 3, False), ((22, 31, 176), 300, 3, False),
               ((22, 31, 176), 9, 8, False), ((22, 31, 176), 300, 9, False),
               ((22, 31, 176), 7, 16, False), ((5, 7, 9), 3, 9, False),
               ((43, 31, 351), 7, 3, False), ((22, 31, 351), 7, 5, False),
-              ((43, 61, 351), 7, 5, False)]
+              ((43, 61, 351), 7, 5, False), ((43, 31, 351), 7, 3, True)]
 
 
 @pytest.mark.cuda

@@ -23,12 +23,13 @@ test_torch_native_score.py. Tolerances, with their reasons:
   1e-6 (the JAX package's own contract). The JAX side runs fast int8 and
   pallas only: its interpret-mode fused tails take 8-42 s a call here.
 
-The work plans that let the kernels take these shapes (class groups for
-the int8 kernels, z-chunks and class groups for B7) are made by the CUDA
-sources, which the wrappers ask on the card. B7's has a host mirror,
+The work plans that let the kernels take these shapes (class groups and
+the staged route for the int8 kernels, the long-row instance, z-chunks
+and class groups for B7) are made by the CUDA sources, which the wrappers
+ask on the card. Each has a host mirror, ops/i8_score.whole_scan_plan and
 ops/score.native_plan, checked here to serve every listed shape and to
-keep the default arena's earlier plan, and against the kernel's own on
-the card.
+keep the default arena's earlier plan, and against the kernels' own on
+the card (chip_smoke.py, phase 3).
 """
 
 import numpy as np
@@ -310,18 +311,31 @@ def test_every_listed_shape_has_a_card_plan(dims, classes):
     """B7's z-chunks and class groups (its host mirror, ops/score.native_plan)
     give a plan at every listed shape, each launch within one launch's
     limits; the default arena keeps one launch up to 7 classes, and Z =
-    351 goes in two z-chunks. The int8 kernels' class groups are made by
-    the CUDA source alone: chip_smoke.py's phase 3 runs every listed shape
-    through them on the card."""
+    351 goes as one chunk of the long-row instance in groups of at most 3
+    classes where Y = 31 (one launch at 3 classes), and in two z-chunks
+    (176 and 175 wide) at 43 x 61 x 351, where the long-row instance's
+    yz template of 3 classes does not fit a block. The int8 kernels'
+    plans (class rows a group, slab width) come from their host mirror,
+    ops/i8_score.whole_scan_plan: at Z = 351 the staged route, its slabs
+    wider than one x row where Y = 31. chip_smoke.py's phase 3 holds both
+    mirrors to the CUDA sources' plans on the card."""
     X, Y, Z = dims
     for C in classes:
         zc, cg = score.native_plan(*dims, C)
-        assert zc <= score.MAX_Z and cg <= score.MAX_C
+        long_rows = zc > score.MAX_Z
+        assert zc <= (score.LONG_MAX_Z if long_rows else score.MAX_Z)
+        assert cg <= (score.LONG_MAX_C if long_rows else score.MAX_C)
         assert score.shared_memory_bytes(X, Y, zc, cg) <= score.SMEM_MAX
         if dims == DEFAULT and C <= 7:
             assert (zc, cg) == (176, C)
         if Z == 351:
-            assert zc == 176  # two z-chunks, 176 and 175 wide
+            assert (zc, cg) == ((351, min(C, 3)) if Y == 31 else (176, 3))
+        rows, width = ts.whole_scan_plan(*dims, 2 * C)
+        assert 1 <= rows <= ts.MAX_GROUP_ROWS and 1 <= width <= X
+        assert ts.layout_bytes(width, 1, *dims, rows, staged=ts.staged_route(*dims)) \
+            <= ts.SMEM_MAX
+        if Z == 351 and Y == 31:
+            assert ts.staged_route(*dims) and width > 1
 
 
 def test_card_refusals_name_the_limit(rng):

@@ -39,12 +39,14 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              same bits. Past the earlier limits (one class group of 8 rows
              in B1-B5; 7 classes and Z <= 256 in B7): B1-B5 at C2 6
              (the finer arenas), 10 / 16 / 18 / 32 (levels 2) and 9 / 16
-             (levels 1), B 1 / 7 / 64 / 133 at the default arena and B
+             (levels 1), B 1 / 7 / 64 / 133 at the default arena, B 4096
+             there at C2 9 / 10 / 18 / 32 and at C2 10 (one block of two
+             n-tiles) each plane masked and a cube 1 byte off alignment, B
              7 / 64 at the finer scan arenas 43x31x351, 22x31x351 and
              43x61x351 (Z = 351: the staged route), B 1024 at 43x31x351,
              each plane masked there and a cube 1 byte off alignment,
-             equal to their plain versions, each plan (class rows a
-             group, slab width) the host mirror's; B7 within its bars at
+             equal to their plain versions, each plan at its batch (rows a
+             block, slab width) the host mirror's; B7 within its bars at
              C 8 / 9 / 16 and at the finer arenas (C 1 / 2 / 3 / 5 / 9,
              the long-row instance; B 1024 and a cube 2 bytes off
              alignment at 43x31x351), B7's work plan (class groups,
@@ -84,21 +86,20 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              resident on the card; each table kernel's device time a call
              (its CUDA launches summed, their count printed) and bound at
              B=4096 and 64 at 9 classes (int8 C2 = 18: three class groups
-             in one launch; B7 three launches) and at 43x31x351 with 3
-             classes (B1-B5 on the staged route, B7 one long-row launch),
-             and there by CUDA events the fast path's float32 tables (B7's
-             comparator) and the demo model's exact, fast f32 and fast
-             int8 steps at B=4096 and 64; the profiler traces' launch
-             records against the launches their calls made. With
+             in one launch; B7 two launches), at 5 classes (C2 = 10: one
+             block of two n-tiles a scan at B=4096, class groups at 64), at
+             43x31x351 with 3 classes (B1-B5 on the staged route, B7 one
+             long-row launch) and with 9; by CUDA events the fast path's
+             float32 tables (B7's comparator) at 9 classes and at
+             43x31x351 with 3, and there the demo model's exact, fast f32
+             and fast int8 steps at B=4096 and 64; the profiler traces'
+             launch records against the launches their calls made. With
              --parent, the parent's kernel sources beside this tree's at
              B=4096 at the default arena (the same bits, profiler device
              times in the order parent, this, this, parent, twice) and at
-             43x31x351 at B=4096 and 64 (the int8 kernels' same bits, B7
-             each within its float64 bar; P N N P), the fast float32
-             tables there, and the demo model's exact, fast f32 and fast
-             int8 steps through the parent's pipeline module and this
-             tree's (default arena B=4096, 43x31x351 B=4096 and 64; exact
-             and fast int8 the same bits).
+             those four shapes at B=4096 and 64 (the int8 kernels' same
+             bits, B7 each within its float64 bar; P N N P, twice at
+             4096).
 7. rbf     — the RBF Gram kernel against its plain version and a float64
              oracle, on scaled features of the SVC dataset (process_samples
              (scale=True) of make_dataset(1824, hardness=1.0)) and on
@@ -130,8 +131,9 @@ Phases, one line of findings each; any failure raises (non-zero exit):
 10. svc timing — rbf kernel against plain at the serving and training
              shapes (CUDA events over whole calls, the two pack passes
              included, and each of its three kernels' device time from a
-             profiler trace), SVC exact scans per second at B=4096 and where
-             its time goes, and svc_fit seconds (warm).
+             profiler trace, whose launch records are counted against the
+             launches), SVC exact scans per second at B=4096 and where its
+             time goes, and svc_fit seconds (warm).
 11. apps   — the serving slice through its entry points, on the card
              (~30-60 s): the predict app (python -m radarml_tpu_torch.apps.
              predict) over the demo linear model written as a v1 artifact,
@@ -2870,11 +2872,15 @@ def shape_parity(dev, rng) -> str:
     """Phase 3's cases past the earlier limits. B1-B5 equal their plain
     versions (torch.equal) at C2 6 (levels 2, the finer arenas only), 10 /
     16 / 18 / 32 (levels 2) and 9 / 16 (levels 1): B 1 / 7 / 64 / 133 at
-    the default arena, B 7 / 64 at the three finer arenas (Z = 351: the
-    staged route) and B 1024 at 43 x 31 x 351 with C2 = 6, each plane
-    masked in turn at 43 x 31 x 351 with C2 = 10, and a cube that starts
-    one byte into its buffer there; each shape's plan (class rows a group,
-    slab width) equal to the host mirror's (ops/i8_score.whole_scan_plan).
+    the default arena and B 4096 there at C2 9 / 10 / 18 / 32 (9 and 10:
+    one block of two n-tiles a scan from a batch of five scans an SM on),
+    at C2 10 also five scans an SM and one fewer, each plane masked and a
+    cube one byte off alignment; B 7 /
+    64 at the three finer arenas (Z = 351: the staged route) and B 1024 at
+    43 x 31 x 351 with C2 = 6, each plane masked in turn at 43 x 31 x 351
+    with C2 = 10, and a cube that starts one byte into its buffer there;
+    each case's plan at its batch (rows a block, slab width) equal to the
+    host mirror's (ops/i8_score.batch_plan).
     B7 within its bars at C 8 / 9 / 16 (class groups) and at the finer
     arenas (C 1 / 2 / 3 / 5 and 9: the long-row instance; 43 x 61 x 351
     at C 3 / 5 in two z-chunks), at B 1024 at 43 x 31 x 351 with C 3 and
@@ -2882,7 +2888,14 @@ def shape_parity(dev, rng) -> str:
     mirror's (ops/score.native_plan). Returns the progress line."""
     dims = DEFAULT_ARENA.grid_shape
     fine = {k: Arena(**v).grid_shape for k, v in FINE_ARENAS.items()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [(dims, B, c2, lv, None) for c2, lv in SHAPE_ROWS for B in (1, 7, SMALL_B, 133)]
+    # the main path's batch at the default arena (9 and 10 rows: one block of
+    # two n-tiles a scan), and there at 10 rows each plane masked and a cube
+    # off 16-byte alignment (the byte-copy route)
+    cases += [(dims, BIG, c2, lv, None) for c2, lv in ((9, 1), (10, 2), (18, 2), (32, 2))]
+    cases += [(dims, BIG, 10, 2, m) for m in (0, 1, 2)] + [(dims, BIG, 10, 2, "offset")]
+    cases += [(dims, i8_score.ONE_BLOCK_SCANS_PER_SM * sms + d, 10, 2, None) for d in (-1, 0)]
     cases += [(fd, B, c2, lv, None) for fd in fine.values()
               for c2, lv in ((6, 2),) + SHAPE_ROWS for B in (7, SMALL_B)]
     cases += [(fine["43x31x351"], 7, 10, 2, m) for m in (0, 1, 2)]
@@ -2895,11 +2908,12 @@ def shape_parity(dev, rng) -> str:
         w = i8_tails.build_grouped_weights(random_quant(rng, cdims, levels, masked, C=c2 // levels),
                                            cdims, min(16, cdims[1]), levels=levels, device=dev)
         planes = tuple(q is not None for q in (w.q_xz, w.q_yz, w.q_xy))
-        rows = lib.i8_score_group_rows(*cdims, c2, *planes)
-        plan = (rows, lib.i8_score_slab_width(*cdims, c2, *planes))
-        check(1 <= rows <= 8 and plan[1] >= 1, f"no int8 plan at dims={cdims} C2={c2}")
-        check(plan == i8_score.whole_scan_plan(*cdims, c2, planes),
-              f"int8 plan {plan} != the host mirror's at dims={cdims} C2={c2} planes={planes}")
+        plan = int8_plan(lib, cdims, c2, planes, B)
+        check(1 <= plan[0] <= 8 * i8_score.MAX_TILES and plan[1] >= 1,
+              f"no int8 plan at dims={cdims} C2={c2}")
+        check(plan == i8_score.batch_plan(B, sms, *cdims, c2, planes),
+              f"int8 plan {plan} != the host mirror's at dims={cdims} C2={c2} planes={planes} "
+              f"B={B}")
         cube = torch.from_numpy(rng.integers(-128, 128, (B,) + cdims, dtype=np.int8)).to(dev)
         if offset:
             cube = offset_view(cube, 1)
@@ -2947,19 +2961,30 @@ def shape_parity(dev, rng) -> str:
             check(ek <= 2.0 * er + 1e-6 * omax,
                   f"{where}: error vs float64 {ek:.3e} > 2x plain {er:.3e} + 1e-6 x {omax:.3e}")
             worst = max(worst, ek / max(2.0 * er + 1e-6 * omax, 1e-30))
-    plans = {f"{k} C2={c2}": (lib.i8_score_group_rows(*fd, c2, 1, 1, 1),
-                              lib.i8_score_slab_width(*fd, c2, 1, 1, 1))
-             for k, fd in fine.items() for c2 in (6, 10)}
+    plans = {f"{k} C2={c2}": int8_plan(lib, fd, c2, (1, 1, 1), BIG)
+             for k, fd in fine.items() for c2 in (6, 10, 18)}
+    plans |= {f"22x31x176 C2={c2} B={B}": int8_plan(lib, dims, c2, (1, 1, 1), B)
+              for c2 in (9, 10, 18, 32) for B in (SMALL_B, BIG)}
     nplans = {f"{k} C={C}": score.native_plan(*fd, C) for k, fd in fine.items() for C in (3, 9)}
     return (f"past the earlier limits: B1-B5 equal their plain versions in {n_runs} runs "
             f"({len(cases)} cases: C2 6 at the finer arenas, 10/16/18/32 at levels 2 and "
             f"9/16 at levels 1, B 1/7/64/133 at {dims} and B 7/64 at {', '.join(fine)}, B "
-            f"{FINE_B} at 43x31x351 C2=6, each plane masked at 43x31x351 C2=10, a cube 1 byte "
-            f"off alignment there; max_abs_err {err}); plans (rows a class group, slab width) "
+            f"{BIG} at {dims} with C2 9/10/18/32, and at C2=10 each plane masked and a cube 1 "
+            f"byte off alignment (one block of two n-tiles), B {FINE_B} at 43x31x351 C2=6, each "
+            f"plane masked at 43x31x351 C2=10, a cube 1 byte off alignment there; max_abs_err "
+            f"{err}); plans (rows a block, slab width) at the batch "
             f"{plans}, each the host mirror's; B7 within its bars in {len(native_cases)} cases "
             f"(C 8/9/16 at {dims}, C 3/5 at the finer arenas, C 1/2/9 and B {FINE_B} at 43x31x351, "
             f"a cube 2 bytes off alignment there; worst error at {worst:.2f} of its bar), "
             f"each B7 plan (z-chunk, class group) the host mirror's: {nplans}")
+
+
+def int8_plan(lib, dims, c2: int, planes, B: int) -> tuple:
+    """The int8 kernels' whole-scan plan at a batch of B scans as a built
+    library reports it (i8_score_batch_rows, i8_score_batch_width): rows a
+    block, slab width, the form of its host mirror ops/i8_score.batch_plan."""
+    return (lib.i8_score_batch_rows(B, *dims, c2, *planes),
+            lib.i8_score_batch_width(B, *dims, c2, *planes))
 
 
 def native_launches(dims, C: int) -> int:
@@ -2969,12 +2994,10 @@ def native_launches(dims, C: int) -> int:
     return -(-dims[2] // zc) * -(-C // cg)
 
 
-def demo_steps(dev, B: int, fine: bool, module=None) -> dict:
+def demo_steps(dev, B: int, fine: bool) -> dict:
     """The demo model at the default or the 43 x 31 x 351 scan arena:
     name -> (predictor, inputs) of exact, fast f32 and fast int8 over B
-    synthetic scans (64 tiled), 4 slots, inputs on the card. `module`: the
-    pipeline module whose RadarPredictor serves (a parent tree's, loaded
-    by parent_pipeline), this tree's by default."""
+    synthetic scans (64 tiled), 4 slots, inputs on the card."""
     g = dict(np.load(ASSET))
     arena = Arena(**FINE_ARENAS["43x31x351"]) if fine else DEFAULT_ARENA
     model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"], device=dev)
@@ -2986,9 +3009,8 @@ def demo_steps(dev, B: int, fine: bool, module=None) -> dict:
     f32 = torch.from_numpy(np.rint(cubes).astype(np.float32)).to(dev).repeat(reps, 1, 1, 1)[:B]
     xyz = torch.from_numpy(xyz).to(dev).repeat(reps, 1, 1)[:B]
     valid = torch.from_numpy(valid).to(dev).repeat(reps, 1)[:B]
-    cls = RadarPredictor if module is None else module.RadarPredictor
-    preds = {"exact": cls(mode="exact", **kw), "fast": cls(mode="fast", **kw),
-             "fast_i8": cls(mode="fast", cube_dtype="int8", **kw)}
+    preds = {"exact": RadarPredictor(mode="exact", **kw), "fast": RadarPredictor(mode="fast", **kw),
+             "fast_i8": RadarPredictor(mode="fast", cube_dtype="int8", **kw)}
     i8 = i8_score.encode_int8_cubes(f32)
     return {k: (p, (i8 if k == "fast_i8" else f32, xyz, valid)) for k, p in preds.items()}
 
@@ -2997,22 +3019,27 @@ def shape_timing(dev) -> dict:
     """Phase 6 at the new shapes: each table kernel's device time at
     B=4096 and B=64 with its bound, at 9 classes on the default arena (the
     int8 kernels at C2 = 18, three class groups of 6 rows; B7 at C = 9, 3
-    groups of 3 on the long-row instance) and at 43 x 31 x 351 with 3
-    classes (C2 = 6, the staged route, slabs 5 x rows wide; B7 one launch
-    of the long-row instance). "device" is the device time of one op call,
+    groups of 3 on the long-row instance), at 5 classes there (C2 = 10: one
+    block of two n-tiles a scan at B=4096, slabs 8 x rows wide; two class
+    groups at B=64), at 43 x 31 x 351 with 3 classes (C2 = 6, the staged
+    route, slabs 5 x rows wide; B7 one launch of the long-row instance) and
+    with 9 (C2 = 18: class groups). "device" is the device time of one op call,
     summed over the CUDA launches its plan makes ("launches"), so that it
     stands beside the call's bound. Random int8 / bf16 cubes and
-    templates, 4 slots a scan. At 43 x 31 x 351 also, by CUDA events: the
-    fast path's float32 tables (pipeline.folded_tables, B7's comparator
-    "fast_f32") on the float32 cube with B7's templates, and the demo
-    model's exact, fast f32 and fast int8 steps ("steps"). Returns {shape:
+    templates, 4 slots a scan. At 9 classes and at 43 x 31 x 351 with 3,
+    by CUDA events, the fast path's float32 tables (pipeline.folded_tables,
+    B7's comparator "fast_f32") on the float32 cube with B7's templates;
+    at 43 x 31 x 351 also the demo model's exact, fast f32 and fast int8
+    steps ("steps"). Returns {shape:
     {name: {B: {"device": ms, "launches": n, "bound": ms, "bound_by": ...}}}}
     with "fast_f32" {B: ms} and "steps" {B: {mode: ms}} at 43 x 31 x 351."""
     gen = torch.Generator(device=dev).manual_seed(6)
     rng = np.random.default_rng(6)
     out = {}
+    fine = Arena(**FINE_ARENAS["43x31x351"]).grid_shape
     for shape, dims, C in (("9_classes", DEFAULT_ARENA.grid_shape, 9),
-                           ("43x31x351", Arena(**FINE_ARENAS["43x31x351"]).grid_shape, 3)):
+                           ("5_classes", DEFAULT_ARENA.grid_shape, 5), ("43x31x351", fine, 3),
+                           ("43x31x351_9", fine, 9)):
         X, Y, Z = dims
         cube = torch.randint(-128, 128, (BIG,) + dims, generator=gen, device=dev,
                              dtype=torch.int8)
@@ -3038,7 +3065,7 @@ def shape_timing(dev) -> dict:
                               else int8_bound(name, B, dims, 2 * C, 4))
                 res.setdefault(name, {})[B] = {"device": v, "launches": n, "bound": b_ms,
                                                "bound_by": b_by}
-        if shape == "43x31x351":
+        if shape in ("9_classes", "43x31x351"):  # B7's comparator
             del cube
             f32 = bf.float()
             fast_t = (tm.t_xz, tm.t_yz, tm.t_xy)
@@ -3046,6 +3073,7 @@ def shape_timing(dev) -> dict:
                                               inner=3 if B == BIG else 20, rounds=3)["f"]
                                for B in (BIG, SMALL_B)}
             del f32, bf
+        if shape == "43x31x351":
             res["steps"] = {}
             for B in (BIG, SMALL_B):
                 steps = demo_steps(dev, B, fine=True)
@@ -3072,18 +3100,6 @@ def build_parent(parent: str, tmp: str) -> dict:
     return libs
 
 
-def parent_pipeline(parent: str):
-    """The parent tree's models/pipeline.py as a module of its own (its
-    imports resolve to this tree's package): its RadarPredictor runs the
-    parent's fast paths beside this tree's in one process."""
-    path = os.path.join(parent, "radarml_tpu_torch", "models", "pipeline.py")
-    spec = importlib.util.spec_from_file_location("parent_pipeline", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod  # its dataclasses look their module up there
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def c_calls(lib, nlib, dev, cube, w, ijk, bf16, tm) -> dict:
     """The five int8 kernels and B7 through a built library's C entries
     (this tree's or a parent's) on these operands: name -> call."""
@@ -3093,12 +3109,11 @@ def c_calls(lib, nlib, dev, cube, w, ijk, bf16, tm) -> dict:
     kidx = ijk[..., 2].contiguous()
     qp = [q.data_ptr() for q in (w.q_xz, w.q_yz, w.q_xy)]
     # the lookup kernels' plan from this library's own resident blocks and
-    # slab width (a parent's may differ)
-    resident = lib.i8_score_lookup_resident(X, Y, Z, C2, 1, 1, 1)
-    check(resident > 0, f"i8_score_lookup_resident failed: CUDA error {-resident}")
-    groups = -(-C2 // lib.i8_score_group_rows(X, Y, Z, C2, 1, 1, 1))
-    P, XS = i8_tails.lookup_plan(B, X, max(1, resident // groups),
-                                 lib.i8_score_slab_width(X, Y, Z, C2, 1, 1, 1))
+    # slab width at this batch (a parent's, whose plan has no batch, may differ)
+    resident = kernel_probe.lib_resident(lib, "lookup", (X, Y, Z), C2, B)
+    rows, width = kernel_probe.lib_plan(lib, (X, Y, Z), C2, B)
+    check(resident > 0, f"the lookup kernel's resident blocks: CUDA error {-resident}")
+    P, XS = i8_tails.lookup_plan(B, X, max(1, resident // -(-C2 // rows)), width)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def outs(*shapes):
@@ -3134,22 +3149,14 @@ def c_calls(lib, nlib, dev, cube, w, ijk, bf16, tm) -> dict:
 
 
 def parent_compare(dev, smi, parent: str, cube, w, ijk, bf16, tm) -> dict:
-    """The parent's kernel sources and fast paths beside this tree's in
-    one process. The kernels at B=4096 on phase 6's inputs (the demo
-    model's templates, the tiled demo scans) and at 43 x 31 x 351 with 3
-    classes (random cubes and templates as shape_timing makes them) at
-    B=4096 and 64, through their C entries: the same bits from both at
-    the default arena, and from the int8 kernels at 43 x 31 x 351, where
-    B7's plans differ (two z-chunk launches against one long-row launch)
-    and each is held to a float64 oracle; device times from profiler
-    traces in the order parent, this tree, this tree, parent (twice over
-    at the default arena). Then the demo model's exact, fast f32 and fast
-    int8 steps (CUDA events, the same order) through the parent's
-    pipeline module and this tree's at the default arena (B=4096) and at
-    43 x 31 x 351 (B=4096 and 64), fast int8 the same bits from both, and
-    at 43 x 31 x 351 the fast path's float32 tables (B7's comparator) on
-    the float32 cube. Returns {"default": {tag: {name: [ms]}}, "43x31x351":
-    {B: ...}, "steps": {arena: {B: {tag: {mode: ms}}}}}."""
+    """The parent's kernel sources beside this tree's in one process. The
+    kernels at B=4096 on phase 6's inputs (the demo model's templates, the
+    tiled demo scans), through their C entries, the same bits from both,
+    device times from profiler traces in the order parent, this tree,
+    this tree, parent, twice over; then at the shapes past one class group
+    (compare_shape: 9 and 5 classes at the default arena, 3 and 9 at
+    43 x 31 x 351), B=4096 and 64. Returns {"default": {tag: {name:
+    [ms]}}, shape: {B: {tag: {name: [ms]}}}}."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="parent_kernels_") as tmp:
         parent_libs = build_parent(parent, tmp)
@@ -3157,10 +3164,11 @@ def parent_compare(dev, smi, parent: str, cube, w, ijk, bf16, tm) -> dict:
     libs = {"parent": parent_libs, "this tree": {"i8_score": i8_score._library(),
                                                  "native_score": score._library()}}
     X, Y, Z, _ = w.dims
+    dims_default = (X, Y, Z)
     C2 = w.c2
-    check(parent_libs["i8_score"].i8_score_slab_width(X, Y, Z, C2, 1, 1, 1)
-          == libs["this tree"]["i8_score"].i8_score_slab_width(X, Y, Z, C2, 1, 1, 1),
-          "the parent's whole-scan slab width differs at the default arena")
+    check(kernel_probe.lib_plan(parent_libs["i8_score"], dims_default, C2, BIG)
+          == kernel_probe.lib_plan(libs["this tree"]["i8_score"], dims_default, C2, BIG),
+          "the parent's whole-scan plan differs at the default arena")
     symbols = {n: KERNEL_SYMBOLS[n] for n in KERNEL_SYMBOLS}
 
     def timed(fns, launches, rounds, reps):
@@ -3191,94 +3199,63 @@ def parent_compare(dev, smi, parent: str, cube, w, ijk, bf16, tm) -> dict:
         f"in {build_s:.1f} s) beside this tree's, same bits, device ms in the order P N N P "
         "twice: " + line(out["default"]))
 
-    # 43 x 31 x 351, 3 classes (C2 = 6): the staged route and the long-row B7
+    # The shapes past one class group: 9 and 5 classes at the default arena
+    # (C2 18: class groups; 10: one block of two n-tiles), 3 and 9 at
+    # 43 x 31 x 351 (the staged route and B7's long-row instance); random
+    # cubes and templates as shape_timing makes them
     fdims = Arena(**FINE_ARENAS["43x31x351"]).grid_shape
-    FX, FY, FZ = fdims
+    for label, sdims, C in (("43x31x351", fdims, 3), ("9_classes", dims_default, 9),
+                            ("5_classes", dims_default, 5), ("43x31x351_9", fdims, 9)):
+        out[label] = compare_shape(dev, smi, libs, timed, line, label, sdims, C)
+    return out
+
+
+def compare_shape(dev, smi, libs, timed, line, label, dims, C) -> dict:
+    """parent_compare at one shape: the five int8 kernels and B7 of the
+    parent's sources and this tree's on the same random cubes and
+    templates (C classes, levels 2), B=4096 and 64: the int8 kernels the
+    same bits, B7 each within its float64 bar; device ms a call, P N N P
+    (twice at B=4096). Returns {B: {tag: {name: [ms]}}}."""
+    X, Y, Z = dims
     gen = torch.Generator(device=dev).manual_seed(18)
-    fw = i8_tails.build_grouped_weights(random_quant(np.random.default_rng(18), fdims, 2, C=3),
-                                        fdims, 16, device=dev)
-    ftm = score.native_templates(*[torch.randn((3,) + sh, generator=gen, device=dev) * 0.01
-                                   for sh in ((FX, FZ), (FY, FZ), (FX, FY))])
-    fcube = torch.randint(-128, 128, (BIG,) + fdims, generator=gen, device=dev, dtype=torch.int8)
-    fbf = (torch.rand((BIG,) + fdims, generator=gen, device=dev) * 255).to(torch.bfloat16)
-    fijk = torch.stack([torch.randint(0, n, (BIG, 4), generator=gen, device=dev)
-                        for n in fdims], -1).to(torch.int32)
-    nl = {"parent": -(-FZ // parent_libs["native_score"].native_score_plan_zchunk(*fdims, 3))
-          * -(-3 // parent_libs["native_score"].native_score_plan_group(*fdims, 3)),
-          "this tree": native_launches(fdims, 3)}
-    out["43x31x351"] = {}
+    w = i8_tails.build_grouped_weights(random_quant(np.random.default_rng(18), dims, 2, C=C),
+                                       dims, 16, device=dev)
+    tm = score.native_templates(*[torch.randn((C,) + sh, generator=gen, device=dev) * 0.01
+                                  for sh in ((X, Z), (Y, Z), (X, Y))])
+    cube = torch.randint(-128, 128, (BIG,) + dims, generator=gen, device=dev, dtype=torch.int8)
+    bf = (torch.rand((BIG,) + dims, generator=gen, device=dev) * 255).to(torch.bfloat16)
+    ijk = torch.stack([torch.randint(0, n, (BIG, 4), generator=gen, device=dev)
+                       for n in dims], -1).to(torch.int32)
+    pn = libs["parent"]["native_score"]
+    nl = {"parent": -(-Z // pn.native_score_plan_zchunk(*dims, C))
+          * -(-C // pn.native_score_plan_group(*dims, C)),
+          "this tree": native_launches(dims, C)}
+    out = {}
     for B in (BIG, SMALL_B):
-        ffns = {tag: c_calls(v["i8_score"], v["native_score"], dev, fcube[:B], fw, fijk[:B],
-                             fbf[:B], ftm) for tag, v in libs.items()}
-        for name in ffns["parent"]:
-            a, b = ffns["parent"][name](), ffns["this tree"][name]()
+        fns = {tag: c_calls(v["i8_score"], v["native_score"], dev, cube[:B], w, ijk[:B], bf[:B],
+                            tm) for tag, v in libs.items()}
+        for name in fns["parent"]:
+            a, b = fns["parent"][name](), fns["this tree"][name]()
             torch.cuda.synchronize()
             if name != "native_tables":
                 check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                      f"{name}: the parent's and this tree's bits differ at {fdims} B={B}")
+                      f"{name}: the parent's and this tree's bits differ at {dims} C={C} B={B}")
                 continue
-            v = fbf[:B].double()
-            for t, x, y, spec in zip((ftm.t_xz, ftm.t_yz, ftm.t_xy), a, b,
+            v = bf[:B].double()
+            for t, x, y, spec in zip((tm.t_xz, tm.t_yz, tm.t_xy), a, b,
                                      ("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz")):
                 o = torch.einsum(spec, t.double(), v)
                 ea, eb = (float((r.double() - o).abs().max()) for r in (x, y))
                 check(eb <= 2.0 * ea + 1e-6 * float(o.abs().max()),
-                      f"B7 at {fdims} B={B}: this tree's error {eb:.3e} vs the parent's {ea:.3e}")
+                      f"B7 at {dims} C={C} B={B}: this tree's error {eb:.3e} vs the parent's "
+                      f"{ea:.3e}")
             del v
-        launches = {tag: dict.fromkeys(ffns[tag], 1) | {"native_tables": nl[tag]}
-                    for tag in ffns}
-        out["43x31x351"][B] = timed(ffns, launches, 1, 10 if B == BIG else 20)
-        say("timing", f"{fdims} 3 classes B={B} on {smi}, the parent's kernel sources beside "
-            f"this tree's (B7 {nl['parent']} / {nl['this tree']} launches a call; the int8 "
-            "kernels' bits equal, B7 each within its float64 bar), device ms a call, P N N P: "
-            + line(out["43x31x351"][B]))
-    del fcube, fijk
-    f32 = fbf.float()
-    del fbf
-    fast_t = (ftm.t_xz, ftm.t_yz, ftm.t_xy)
-    ppipe = parent_pipeline(parent)
-    tables = {BIG: {}, SMALL_B: {}}
-    for B in (BIG, SMALL_B):
-        c = f32[:B]
-        tables[B] = interleaved(
-            {"parent": lambda c=c: [torch.einsum(sp, t, c) for sp, t in
-                                    zip(("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz"),
-                                        fast_t)],
-             "this tree": lambda c=c: folded_tables(c, fast_t)},
-            inner=2 if B == BIG else 10, rounds=4)
-    del f32, c
-    out["fast_f32_tables"] = tables
-    say("timing", f"{fdims} 3 classes on {smi}: the fast path's float32 tables (B7's "
-        "comparator), ms by CUDA events, parent (three einsums) / this tree (folded_tables): "
-        + ", ".join(f"B={B} {t['parent']:.4f} / {t['this tree']:.4f}" for B, t in tables.items()))
-
-    # the demo model's steps, the parent's pipeline module beside this tree's
-    out["steps"] = {}
-    for arena, fine, batches in (("default", False, (BIG,)), ("43x31x351", True, (BIG, SMALL_B))):
-        out["steps"][arena] = {}
-        for B in batches:
-            this = demo_steps(dev, B, fine)
-            steps = {"parent": {k: (p, this[k][1])  # the same inputs
-                                for k, (p, _) in demo_steps(dev, B, fine, ppipe).items()},
-                     "this tree": this}
-            got = {tag: {k: [r.cpu() for r in p(*a)] for k, (p, a) in st.items()}
-                   for tag, st in steps.items()}
-            for k in ("exact", "fast_i8"):
-                check(all(torch.equal(x, y) for x, y in zip(got["parent"][k], got["this tree"][k])),
-                      f"{k} at {arena} B={B}: the parent's outputs differ from this tree's")
-            d_fast = float((got["parent"]["fast"][2] - got["this tree"]["fast"][2]).abs().max())
-            check(d_fast <= 1e-5, f"fast f32 at {arena} B={B}: parent vs this tree proba {d_fast}")
-            fns = {f"{tag} {k}": (lambda p=p, a=a: p(*a))
-                   for tag, st in steps.items() for k, (p, a) in st.items()}
-            ms = interleaved(fns, inner=2 if B == BIG else 10, rounds=4)
-            res = {tag: {k: ms[f"{tag} {k}"] for k in steps[tag]} for tag in steps}
-            out["steps"][arena][B] = res | {"fast_proba_delta": d_fast}
-            say("timing", f"{arena} B={B} on {smi}: the demo model's steps, ms by CUDA events "
-                "(median of 4 rounds, order alternating), parent / this tree: " + ", ".join(
-                    f"{k} {res['parent'][k]:.4f} / {res['this tree'][k]:.4f}"
-                    for k in res["parent"])
-                + f"; exact and fast int8 the same bits, fast f32 proba within {d_fast:.2e}")
-            del steps, this, got
+        launches = {tag: dict.fromkeys(fns[tag], 1) | {"native_tables": nl[tag]} for tag in fns}
+        out[B] = timed(fns, launches, 2 if B == BIG else 1, 10 if B == BIG else 20)
+        say("timing", f"{label}: {dims} {C} classes B={B} on {smi}, the parent's kernel sources "
+            f"beside this tree's (B7 {nl['parent']} / {nl['this tree']} launches a call; the "
+            "int8 kernels' bits equal, B7 each within its float64 bar), device ms a call, "
+            "P N N P: " + line(out[B]))
     return out
 
 
@@ -3879,6 +3856,10 @@ def main(argv) -> None:
                 f"{t[BIG]['bound']:.4f} / {t[SMALL_B]['bound']:.4f}, {t[BIG]['bound_by']})"
                 for name, t in res.items() if name not in ("fast_f32", "steps"))
             for shape, res in shape_ms.items()) + f"; in {time.perf_counter() - t0:.1f} s")
+    nine_ms = shape_ms["9_classes"]["fast_f32"]
+    say("timing", f"9 classes on {smi}, by CUDA events, B=4096 / B=64: B7's comparator, the "
+        "fast path's float32 tables (folded_tables) on the float32 cube with B7's templates, "
+        f"{nine_ms[BIG]:.4f} / {nine_ms[SMALL_B]:.4f} ms")
     fine_ms = shape_ms["43x31x351"]
     say("timing", f"43x31x351 on {smi}, by CUDA events, B=4096 / B=64: B7's comparator, the "
         "fast path's float32 tables (folded_tables) on the float32 cube with B7's templates, "
@@ -4088,11 +4069,16 @@ def main(argv) -> None:
         }, inner=3, rounds=5)
         for name, (A, B_) in (("serving", (queries, S)), ("training", (X, X)))
     }
+    # B6's traces are fenced as every trace is (utils/profiling.trace_device_us)
+    # and counted: a call launches each of its three kernels once.
+    traced = dict(TRACES)
     rbf_dev = {
         name: kernel_device_ms({"rbf": lambda A=A, B_=B_: rbf.rbf_gram(A, B_, cfg.gamma)},
-                               RBF_SYMBOLS, reps=3, log=retrace)
+                               RBF_SYMBOLS, reps=3, log=retrace,
+                               launches=dict.fromkeys(RBF_SYMBOLS, 1))
         for name, (A, B_) in (("serving", (queries, S)), ("training", (X, X)))
     }
+    rbf_records = {k: TRACES[k] - traced[k] for k in TRACES}
     exact_in = inputs["exact"]
     K = rbf.rbf_gram(queries, S, cfg.gamma)
     dec = svc.decision_function_ovo(jax_svc, queries)
@@ -4139,6 +4125,9 @@ def main(argv) -> None:
         f"{queries.shape[0] * n_sv * 4 / 2**20:.1f} MiB, the rest the packed operands; plain "
         f"{gram_plain_peak / 2**20:.1f} MiB), one SVC exact step {step_peak / 2**20:.1f} MiB")
 
+    say("svc timing", f"B6 profiler traces: {rbf_records['taken']} taken, "
+        f"{rbf_records['lacking']} without a kernel's records; launch records "
+        f"{rbf_records['records']} of the {rbf_records['launches']} launches the traced calls made")
     lap("phase 10 (svc timing)")
     # -- 11. apps ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4225,6 +4214,7 @@ def main(argv) -> None:
         "launches_shapes": shapes["launches"]["fused_native_score"],
         "device_ms_shapes": {shape: res["native_tables"] for shape, res in shape_ms.items()},
         "fast_f32_ms_43x31x351": shape_ms["43x31x351"]["fast_f32"],
+        "fast_f32_ms_9_classes": nine_ms,
     })
     rbf_b, rbf_by = rbf_bound(queries, S)
     records.append({

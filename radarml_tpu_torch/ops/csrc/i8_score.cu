@@ -31,7 +31,10 @@
 // What bounds them on an H100: the cube read. At the default arena a scan
 // is 22*31*176 = 120,032 bytes against ~2.2M int8 MACs for the three
 // tables, so at 3.35 TB/s a batch of 4096 scans needs ~0.15 ms of reads;
-// the MACs are 9 us of the int8 tensor cores. The kernels these replaced
+// the MACs are 9 us of the int8 tensor cores at their peak, and the padded
+// mma tiles the kernels issue (900 a scan at 6 class rows) ~24 us at the
+// 1,280 TOPS that mma.sync m16n8k32 reaches on an H100 (1.67 SM clocks an
+// mma; utils/kernel_probe.py mma). The kernels these replaced
 // took every dot product with __dp4a, and the dp4a rate set their pace:
 // the combo kernel's 2.2e9 dp4a per 4096 scans in 0.80 ms are 12 lanes a
 // clock per SM; the lookup, sel3, glookup and sel kernels (one block per
@@ -40,18 +43,35 @@
 //
 // What the design does about it: all three contractions run on the int8
 // tensor cores as mma.sync m16n8k32 (s8 x s8 -> s32), the templates as the
-// B operand (8 columns: the class rows of one class group, zeros past them).
-// - Class groups. The C2 class rows are cut into NG groups of at most CG
-//   rows (CG <= 8, one mma n-tile): the fewest groups whose whole-scan
-//   layout below fits a block's shared memory (i8_score_group_rows, which
-//   the wrapper asks before a launch). Each block takes one group and holds only its
-//   templates; the NG blocks of a scan part are neighbours in the grid and
-//   read the same slabs at about the same time, so the cube's bytes come
-//   from device memory about once and from L2 for the other groups. With
-//   C2 <= 8 at the default arena NG = 1 and nothing changes. What is left
-//   refused: an arena where one class row's whole-scan layout (x-slabs one
-//   row wide) does not fit, about 3 * Y * Z + 8 * X * Y + (X + Y) * Z bytes
-//   over 227 KB (at X = 43, Z = 351: more than 144 y values).
+// B operand (n-tiles of 8 columns: 8 class rows, zeros past them).
+// - Class rows a block (batch_rows, which the wrappers ask before a
+//   launch). Up to 8 (one n-tile), one block a scan part. Past 8, one block
+//   of two n-tiles takes all of them (the kTiles = 2 instance: each A
+//   fragment of 16 cube rows, and each transposed t3 fragment, feeds both
+//   tiles' mma, so a slab's cube-side work is done once for every row)
+//   where that block's whole-scan slabs stay at least kWideSlab = 8 x rows
+//   wide (all its templates stay resident, so more rows mean narrower
+//   slabs; at the default arena 9 and 10 rows, slabs 8 wide) and the batch
+//   holds at least 5 scans an SM (one_block_pays: below that the groups'
+//   cheaper first rounds win). Otherwise the rows are cut into NG class
+//   groups of at most 8, the fewest whose whole-scan layout below fits a
+//   block's shared memory (group_rows); each block takes one group and holds only its templates;
+//   the NG blocks of a scan part are neighbours in the grid and read the
+//   same slabs at about the same time, so the cube's bytes come from
+//   device memory about once and from L2 for the other groups (three
+//   groups' loads alone take 1.27x one's). Narrow slabs cost more than
+//   the groups they save: t2's 16-row tiles of x hold as many useful rows
+//   as a slab is wide, and every slab reads the templates again. At 18
+//   rows (9 classes) two blocks of two n-tiles at slabs 8 wide took 0.94
+//   ms a call at B=4096 where three class groups at 11 took 0.86, and one
+//   block's work for 24 rows took 0.43 at slabs 11 wide but 1.14 at 3
+//   (NVIDIA H100 80GB HBM3, 700.00 W; utils/kernel_probe.py i8:
+//   two_blocks, tiles3, tiles3_narrow), while 18 rows' resident templates
+//   leave no room for slabs even 1 wide; so 9 classes keep their three
+//   groups. What is left refused: an arena where
+//   one class row's whole-scan layout (x-slabs one row wide) does not fit,
+//   about 3 * Y * Z + 8 * X * Y + (X + Y) * Z bytes over 227 KB (at X =
+//   43, Z = 351: more than 144 y values).
 // - The work plan. A scan is cut into P parts of contiguous x-slabs (part
 //   p takes slabs [p * nslab / P, (p + 1) * nslab / P), as
 //   ops/i8_tails.part_slabs computes them); block i takes class group i %
@@ -141,7 +161,11 @@
 //       wait / clear, cost 5%), or, with one slab a scan, read / wait /
 //       clear.
 // Where they stand (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
-// radarml_tpu_torch/utils/kernel_probe.py; PERF.md section 6): the combo
+// radarml_tpu_torch/utils/kernel_probe.py; PERF.md section 6): at 5
+// classes (10 rows, one block of two n-tiles) the five kernels take
+// 0.50-0.53 ms a call at B=4096 against 0.58 in two class groups (0.49
+// against 0.58 at 9 rows); at 9 classes 0.84-0.87 in three groups;
+// the combo
 // kernel 0.27 ms device at B=4096 against 0.800 for the dp4a kernel it
 // replaced and a 0.154 ms bytes bound; 0.019 ms at B=64 against 0.0319.
 // With the loads alone it takes 0.186 ms; a slab costs ~7,500 clocks, of
@@ -167,7 +191,8 @@
 
 namespace {
 
-constexpr int kMaxC2 = 8;      // class rows of one class group: one mma n-tile
+constexpr int kMaxC2 = 8;      // class rows of one mma n-tile
+constexpr int kMaxTiles = 2;   // n-tiles of a block's class rows (kMaxTiles * kMaxC2 rows)
 constexpr int kThreads = 512;  // one block per SM
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kSmemMax = 232448;  // one block's dynamic maximum (227 KB)
@@ -189,7 +214,8 @@ struct Layout {
 // reach shared memory by bulk copies of the 16-byte aligned runs of device
 // memory that hold them and are realigned there.
 __host__ __device__ inline Layout make_layout(int XS, int P, int X, int Y, int Z, int C2,
-                                              bool h1, bool h2, bool h3, bool staged = false) {
+                                              bool h1, bool h2, bool h3, bool staged = false,
+                                              int tiles = 1) {
   Layout L;
   L.XS = XS;
   L.nslab = (X + XS - 1) / XS;
@@ -205,7 +231,7 @@ __host__ __device__ inline Layout make_layout(int XS, int P, int X, int Y, int Z
   L.qyz = off;  off += h2 ? C2 * Y * L.TW : 0;
   L.zero = off; off += L.TW;
   L.KQ = (XS * Y + 31) / 32 * 8;     // row quads of a slab, in whole 32-row chunks
-  L.qxy = off;  off += h3 ? L.nsp * kMaxC2 * L.KQ : 0;
+  L.qxy = off;  off += h3 ? L.nsp * tiles * kMaxC2 * L.KQ : 0;
   // a buffer ends with 16 spare bytes: a row's last chunk may read that far
   L.slab = round_up(L.NR * L.SW + 4, 4);
   // staged: one buffer, which also holds its slab's qxz rows [x][c], and
@@ -453,11 +479,12 @@ struct Walk {
   int CT, NG, c0;
 };
 
-// Every kernel and epilogue is compiled twice: kGeneral = false for one
-// class group on the bulk-copy route (the host launches it whenever NG = 1
-// and vec, and it is the code of the kernel before class groups, the
-// default arena's), true for the rest: several class groups or the
-// byte-copy route.
+// Every epilogue is compiled twice and every kernel three times: kGeneral
+// = false for one class group of one n-tile on the bulk-copy route (the
+// host launches it whenever NG = 1 and vec, and it is the code of the
+// kernel before class groups, the default arena's), true for the rest:
+// several class groups, the other routes, and (kTiles = kMaxTiles) one
+// block of several n-tiles.
 //
 // In the epilogues below the other instance's expressions are the ones of
 // the kernel before class groups.
@@ -486,7 +513,7 @@ __device__ __forceinline__ size_t rows_at(const Walk& w, int b, int n) {
 // previous scan's) and the part's slab count; where ns > 1 a block barrier
 // of this scan has passed by then, so every thread is done with the other
 // set, and the scan after this one is the next to use it.
-template <bool kGeneral, class Done>
+template <bool kGeneral, int kTiles, class Done>
 __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   extern __shared__ __align__(16) int smem[];
   __shared__ __align__(8) uint64_t full_bar[2];
@@ -511,9 +538,10 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   const int B = w.B, X = w.X, Y = w.Y, Z = w.Z, C2 = wg.C2, XS = w.XS, vec = w.vec;
   const bool h1 = qxz != nullptr, h2 = qyz != nullptr, h3 = qxy != nullptr;
   const bool staged = kGeneral && w.staged;
-  const Layout L = make_layout(XS, w.P, X, Y, Z, w.C2, h1, h2, h3, staged);
+  const Layout L = make_layout(XS, w.P, X, Y, Z, w.C2, h1, h2, h3, staged, kTiles);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  int* qxy_s = smem + L.qxy;  // [slab of the part][8 classes][KQ] words: 4 rows' bytes each, zeros past C2 and the slab
+  constexpr int kRows = kTiles * kMaxC2;  // class rows of the block's n-tiles
+  int* qxy_s = smem + L.qxy;  // [slab of the part][kRows classes][KQ] words: 4 rows' bytes each, zeros past C2 and the slab
 
   // This block's part: slabs [s0, s1), x rows [xlo, xhi), of scans b0, b0 +
   // G, ...; its work units are (scan, slab of the part).
@@ -608,8 +636,8 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
   if (h3) {
     int8_t* d = reinterpret_cast<int8_t*>(qxy_s);
     const int KR = L.KQ * 4;  // rows a class row of a slab holds
-    for (int i = tid; i < ns * kMaxC2 * KR; i += blockDim.x) {
-      const int r = i % KR, c = (i / KR) % kMaxC2, sl = i / (KR * kMaxC2);
+    for (int i = tid; i < ns * kRows * KR; i += blockDim.x) {
+      const int r = i % KR, c = (i / KR) % kRows, sl = i / (KR * kRows);
       const int x0 = (s0 + sl) * XS, nr = min(XS, X - x0) * Y;
       d[i] = (c < C2 && r < nr) ? qxy[((size_t)c * X + x0) * Y + r] : int8_t(0);
     }
@@ -689,20 +717,23 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
       const int nxt = (xs + 15) / 16;
       int tab = last ? run_last.tab : run_full.tab, tile = last ? run_last.tile : run_full.tile;
       int row = last ? run_last.row : run_full.row, half = last ? run_last.half : run_full.half;
-      // Three accumulators take turns, so that consecutive mma do not wait
-      // for each other; they are summed when a tile is left.
-      int d[3][4] = {};
-      // Add this warp's D to the scan's table and clear it: element i is
-      // tile row g + 8 * (i / 2), class 2 * t + i % 2.
+      // Three accumulators a class tile take turns, so that consecutive mma
+      // do not wait for each other; they are summed when a tile is left.
+      int d[3][kTiles][4] = {};
+      // Add this warp's D to the scan's table and clear it: element i of
+      // class tile k is tile row g + 8 * (i / 2), class 8 * k + 2 * t + i % 2.
       auto flush = [&]() {
         int* dst = tab == 1 ? m1_s : m2_s + x0;
         const int stride = tab == 1 ? Y : X, rows = tab == 1 ? Y : xs;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * tile + g + 8 * (i >> 1), c = 2 * t + (i & 1);
-          if (c < C2 && r < rows) atomicAdd(&dst[c * stride + r], d[0][i] + d[1][i] + d[2][i]);
-          d[0][i] = d[1][i] = d[2][i] = 0;
-        }
+        for (int k = 0; k < kTiles; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 16 * tile + g + 8 * (i >> 1), c = 8 * k + 2 * t + (i & 1);
+            if (c < C2 && r < rows)
+              atomicAdd(&dst[c * stride + r], d[0][k][i] + d[1][k][i] + d[2][k][i]);
+            d[0][k][i] = d[1][k][i] = d[2][k][i] = 0;
+          }
       };
       for (int it = 0; it < steps; ++it) {
         // cube row of this lane's tile row (rows past the edge repeat the last)
@@ -721,19 +752,30 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
         }
         const int zc0 = half ? L.nk / 2 : 0, zc1 = half ? L.nk : L.nk / 2;
         uint32_t a_addr = buf_a + cr * pitch + zc0 * 32;
-        uint32_t b_addr = (b_c < C2 ? tq + (trow * C2 + b_c) * tpitch + 16 * b_half : zero_a) +
-                          zc0 * 32;
-        for (int zc = zc0; zc < zc1; zc += 3, a_addr += 96, b_addr += 96) {
-          uint32_t a[3][4], bq[3][2];
+        // B of class tile k: rows 8 * k .. + 7 of the template row trow
+        uint32_t b_addr[kTiles];
+#pragma unroll
+        for (int k = 0; k < kTiles; ++k)
+          b_addr[k] = (8 * k + b_c < C2 ? tq + (trow * C2 + 8 * k + b_c) * tpitch + 16 * b_half
+                                        : zero_a) +
+                      zc0 * 32;
+        for (int zc = zc0; zc < zc1; zc += 3, a_addr += 96) {
+          uint32_t a[3][4], bq[3][kTiles][2];
 #pragma unroll
           for (int j = 0; j < 3; ++j)
             if (zc + j < zc1) {  // all fragments first, then the products
               ldmatrix_x4(a[j], a_addr + 32 * j);
-              ldmatrix_x2(bq[j], b_addr + 32 * j);
+#pragma unroll
+              for (int k = 0; k < kTiles; ++k) ldmatrix_x2(bq[j][k], b_addr[k] + 32 * j);
             }
 #pragma unroll
           for (int j = 0; j < 3; ++j)
-            if (zc + j < zc1) mma_s8(d[j], a[j], bq[j]);
+            if (zc + j < zc1) {
+#pragma unroll
+              for (int k = 0; k < kTiles; ++k) mma_s8(d[j][k], a[j], bq[j][k]);
+            }
+#pragma unroll
+          for (int k = 0; k < kTiles; ++k) b_addr[k] += 96;
         }
         if (++half == 2) {
           half = 0;
@@ -758,18 +800,20 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
     if (steps3 > 0) {
       const int nkc = last ? run_last.nkc : run_full.nkc;
       int zg = last ? run_last.zg : run_full.zg, kc = last ? run_last.kc : run_full.kc;
-      const int* qw = qxy_s + ((s - s0) * kMaxC2 + g) * L.KQ + t;
-      int da[4] = {0, 0, 0, 0}, db[4] = {0, 0, 0, 0};
+      const int* qw = qxy_s + ((s - s0) * kRows + g) * L.KQ + t;  // class tile k: + 8 * k rows
+      int da[kTiles][4] = {}, db[kTiles][4] = {};
       auto flush3 = [&]() {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int z = 32 * zg + 4 * g + (i >> 1), c = 2 * t + (i & 1);
-          if (c < C2) {
-            if (z < Z) atomicAdd(&m3_s[z * C2 + c], da[i]);
-            if (z + 2 < Z) atomicAdd(&m3_s[(z + 2) * C2 + c], db[i]);
+        for (int k = 0; k < kTiles; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int z = 32 * zg + 4 * g + (i >> 1), c = 8 * k + 2 * t + (i & 1);
+            if (c < C2) {
+              if (z < Z) atomicAdd(&m3_s[z * C2 + c], da[k][i]);
+              if (z + 2 < Z) atomicAdd(&m3_s[(z + 2) * C2 + c], db[k][i]);
+            }
+            da[k][i] = db[k][i] = 0;
           }
-          da[i] = db[i] = 0;
-        }
       };
       for (int it = 0; it < steps3; ++it) {
         const int* col = buf + min(8 * zg + g, L.SW - 1);
@@ -787,10 +831,13 @@ __device__ __forceinline__ void walk_scans(const Walk& w, Done& done) {
           fb[2 * h] = __byte_perm(hi01, hi23, 0x5410);
           fb[2 * h + 1] = __byte_perm(hi01, hi23, 0x7632);
         }
-        bq[0] = qw[8 * kc];
-        bq[1] = qw[8 * kc + 4];
-        mma_s8(da, fa, bq);
-        mma_s8(db, fb, bq);
+#pragma unroll
+        for (int k = 0; k < kTiles; ++k) {
+          bq[0] = qw[8 * k * L.KQ + 8 * kc];
+          bq[1] = qw[8 * k * L.KQ + 8 * kc + 4];
+          mma_s8(da[k], fa, bq);
+          mma_s8(db[k], fb, bq);
+        }
         if (++kc == nkc) {
           flush3();
           kc = 0;
@@ -974,54 +1021,58 @@ struct SelTables {
 };
 
 // Outputs are scan-major int32 t1 (B, C2, Y), t2 (B, C2, X), t3 (B, Z, C2).
-template <bool kGeneral>
+template <bool kGeneral, int kTiles = 1>
 __global__ void __launch_bounds__(kThreads, 1)
 combo_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
   StoreTables<kGeneral> done{t1, t2, t3};
-  walk_scans<kGeneral>(w, done);
+  walk_scans<kGeneral, kTiles>(w, done);
 }
 
-template <bool kGeneral>
+template <bool kGeneral, int kTiles = 1>
 __global__ void __launch_bounds__(kThreads, 1)
 lookup_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
   LookupTables<kGeneral> done{t1, t2, t3};
-  walk_scans<kGeneral>(w, done);
+  walk_scans<kGeneral, kTiles>(w, done);
 }
 
 // The lookup kernel's plan and epilogue under a symbol of its own. The
 // y-group of its weights is the TPU kernel's tiling and changes nothing
 // here.
-template <bool kGeneral>
+template <bool kGeneral, int kTiles = 1>
 __global__ void __launch_bounds__(kThreads, 1)
 grouped_tables_kernel(Walk w, int* __restrict__ t1, int* __restrict__ t2, int* __restrict__ t3) {
   LookupTables<kGeneral> done{t1, t2, t3};
-  walk_scans<kGeneral>(w, done);
+  walk_scans<kGeneral, kTiles>(w, done);
 }
 
 // Outputs t1 (B, C2, Y), t2 (B, C2, X) and d3 (B, T, C2); kidx (B, T) int32.
-template <bool kGeneral>
+template <bool kGeneral, int kTiles = 1>
 __global__ void __launch_bounds__(kThreads, 1)
 sel_tables_kernel(Walk w, const int* __restrict__ kidx, int T, int* __restrict__ t1,
                   int* __restrict__ t2, int* __restrict__ d3) {
   ReadThenClear<SelTables<kGeneral>> done{{kidx, T, t1, t2, d3}};
-  walk_scans<kGeneral>(w, done);
+  walk_scans<kGeneral, kTiles>(w, done);
 }
 
 // Outputs s1, s2, s3 (B, T, C2); ijk (B, T, 3) int32.
-template <bool kGeneral>
+template <bool kGeneral, int kTiles = 1>
 __global__ void __launch_bounds__(kThreads, 1)
 sel3_scores_kernel(Walk w, const int* __restrict__ ijk, const uint8_t* __restrict__ valid, int T,
                    int* __restrict__ s1, int* __restrict__ s2, int* __restrict__ s3) {
   ReadThenClear<ReadScores<kGeneral>> done{{ijk, valid, T, s1, s2, s3}};
-  walk_scans<kGeneral>(w, done);
+  walk_scans<kGeneral, kTiles>(w, done);
 }
+
+// The n-tiles of a block of C2 class rows: those of its kernel instance (1,
+// or kMaxTiles past one n-tile), which its layout holds.
+__host__ __device__ inline int tiles_of(int C2) { return C2 > kMaxC2 ? kMaxTiles : 1; }
 
 // The x-slab width of whole scans at C2 class rows a block on a route: the
 // widest, balanced over the slabs, whose block fits the shared-memory
 // maximum; 0 if no slab fits.
 int width_on(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3, bool staged) {
   for (int XS = X; XS >= 1; --XS) {
-    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3, staged).total <= kSmemMax) {
+    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3, staged, tiles_of(C2)).total <= kSmemMax) {
       const int nslab = (X + XS - 1) / XS;
       return (X + nslab - 1) / nslab;
     }
@@ -1043,9 +1094,25 @@ int slab_width(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   return width_on(X, Y, Z, C2, h1, h2, h3, staged_route(X, Y, Z, h1, h2, h3));
 }
 
-// The rows of a class group for C2 class rows in all: ceil(C2 / NG) for the
-// fewest groups NG whose rows (at most kMaxC2) have a whole-scan slab width;
-// 0 if not even one row has.
+// Slabs at least this many x rows wide keep t2's 16-row tiles half full.
+constexpr int kWideSlab = 8;
+
+// The class rows of one block of kMaxTiles n-tiles that takes all C2 rows
+// of a scan: C2, past one n-tile, where that block's whole-scan slabs are
+// at least kWideSlab x rows wide (or the arena's X); 0 otherwise. Narrower
+// slabs repeat t2's steps (16-row tiles of x) and template reads for every
+// slab: at 18 rows (9 classes) the three class groups beat two blocks of 2
+// n-tiles at slabs 8 rows wide and one block of 3 n-tiles at slabs 3 rows
+// wide (utils/kernel_probe.py i8, variants two_blocks and tiles3_narrow;
+// PERF.md section 6).
+int tile_rows(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
+  return C2 > kMaxC2 && C2 <= kMaxTiles * kMaxC2 &&
+         slab_width(X, Y, Z, C2, h1, h2, h3) >= min(X, kWideSlab) ? C2 : 0;
+}
+
+// The class rows of a class group: ceil(C2 / NG) for the fewest groups NG
+// whose rows (at most kMaxC2) have a whole-scan slab width; 0 if not even
+// one row has.
 int group_rows(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   for (int ng = (C2 + kMaxC2 - 1) / kMaxC2; ng <= C2; ++ng) {
     const int cg = (C2 + ng - 1) / ng;
@@ -1054,15 +1121,52 @@ int group_rows(int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
   return 0;
 }
 
+// SMs of the current device; 0 on a CUDA error.
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// Batches of at least this many scans an SM take one block a scan where
+// tile_rows has one.
+constexpr int kOneBlockScansPerSM = 5;
+
+// Whether one block a scan (tile_rows) takes a batch of B scans sooner than
+// the class groups (group_rows). Both hold one block an SM, so the one
+// block walks B scans in rounds of SMs scans, NG groups in rounds of
+// SMs / NG; a group block's rounds cost less at first (it copies fewer
+// templates and does fewer rows' steps), the one block's later rounds cost
+// less (it does a slab's cube-side work once for every row). On an H100 at
+// 5 classes (C2 = 10, NG = 2, the default arena) the one block took 7-69%
+// longer than the groups below 199 scans, 9-19% at 265-330 and 0-6% at
+// 331-396, was within 3.5% either way at 199-264 and 528, and took no
+// longer for any of the five kernels from 660 = 5 x 132 scans on (2-13%
+// less from 792 on; utils/kernel_probe.py batches, PERF.md section 6).
+bool one_block_pays(int B) {
+  return B >= kOneBlockScansPerSM * sm_count();
+}
+
+// The class rows of a block of a scan at a batch of B scans: tile_rows's
+// where it has them and one_block_pays, else group_rows's.
+int batch_rows(int B, int X, int Y, int Z, int C2, bool h1, bool h2, bool h3) {
+  const int one = tile_rows(X, Y, Z, C2, h1, h2, h3);
+  const int rows = group_rows(X, Y, Z, C2, h1, h2, h3);
+  return one > 0 && one_block_pays(B) ? one : rows;
+}
+
 // Fill `w` for a launch over CT class rows in groups of CG, with x-slabs XS
 // wide and P parts a scan; false for shapes the kernels do not take.
 bool make_walk(Walk& w, const void* cube, const void* qxz, const void* qyz, const void* qxy,
                int B, int X, int Y, int Z, int CT, int CG, int XS, int P) {
-  if (B < 1 || X < 1 || Y < 1 || Z < 1 || CT < 1 || CG < 1 || CG > kMaxC2 || CG > CT ||
-      XS < 1 || XS > X || P < 1 || P > (X + XS - 1) / XS)
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || CT < 1 || CG < 1 || CG > kMaxTiles * kMaxC2 ||
+      CG > CT || XS < 1 || XS > X || P < 1 || P > (X + XS - 1) / XS)
     return false;
   const bool staged = staged_route(X, Y, Z, qxz, qyz, qxy);
-  if (make_layout(XS, P, X, Y, Z, CG, qxz, qyz, qxy, staged).total > kSmemMax) return false;
+  if (make_layout(XS, P, X, Y, Z, CG, qxz, qyz, qxy, staged, tiles_of(CG)).total > kSmemMax)
+    return false;
   w.cube = static_cast<const int8_t*>(cube);
   w.qxz = static_cast<const int8_t*>(qxz);
   w.qyz = static_cast<const int8_t*>(qyz);
@@ -1076,11 +1180,11 @@ bool make_walk(Walk& w, const void* cube, const void* qxz, const void* qyz, cons
   return true;
 }
 
-// A whole-scan walk (P = 1) under the class groups of group_rows and their
+// A whole-scan walk (P = 1) under the class groups of batch_rows and their
 // slab width; false for shapes the kernels do not take.
 bool whole_scan_walk(Walk& w, const void* cube, const void* qxz, const void* qyz,
                      const void* qxy, int B, int X, int Y, int Z, int C2) {
-  const int CG = group_rows(X, Y, Z, C2, qxz, qyz, qxy);
+  const int CG = batch_rows(B, X, Y, Z, C2, qxz, qyz, qxy);
   return CG > 0 && make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, CG,
                              slab_width(X, Y, Z, CG, qxz, qyz, qxy), 1);
 }
@@ -1101,15 +1205,15 @@ int resident_blocks(Kernel kernel, size_t smem, cudaError_t& err) {
 }
 
 // Launch a kernel over `w` on `stream`, its instance `one` (one class
-// group, bulk copies) or `general`: G = min(B, resident / (NG * P)) scans at
-// a time, one block a (class group, part), so every block stays resident and
-// keeps one group and part. Returns cudaGetLastError(); the launch does not
-// synchronise.
+// group, bulk copies), `general` or, past one n-tile of class rows a block,
+// `tiles`: G = min(B, resident / (NG * P)) scans at a time, one block a
+// (class group, part), so every block stays resident and keeps one group
+// and part. Returns cudaGetLastError(); the launch does not synchronise.
 template <typename Kernel, typename... Ts>
-int launch(Kernel one, Kernel general, const Walk& w, void* stream, Ts... outs) {
-  const Kernel kernel = w.NG > 1 || !w.vec ? general : one;
-  const size_t smem =
-      make_layout(w.XS, w.P, w.X, w.Y, w.Z, w.C2, w.qxz, w.qyz, w.qxy, w.staged).total;
+int launch(Kernel one, Kernel general, Kernel tiles, const Walk& w, void* stream, Ts... outs) {
+  const Kernel kernel = w.C2 > kMaxC2 ? tiles : w.NG > 1 || !w.vec ? general : one;
+  const size_t smem = make_layout(w.XS, w.P, w.X, w.Y, w.Z, w.C2, w.qxz, w.qyz, w.qxy, w.staged,
+                                  tiles_of(w.C2)).total;
   cudaError_t err;
   const int resident = resident_blocks(kernel, smem, err);
   if (err != cudaSuccess) return (int)err;
@@ -1118,21 +1222,21 @@ int launch(Kernel one, Kernel general, const Walk& w, void* stream, Ts... outs) 
   return (int)cudaGetLastError();
 }
 
-// Blocks of `kernel` resident at once when it takes whole scans, over every
-// class group (the batch at and above which the work plan does not cut
-// scans is this over the groups), or minus a CUDA error
-// (cudaErrorInvalidValue for shapes it does not take).
+// Blocks of `kernel` resident at once when it takes whole scans of a batch
+// of B under batch_rows, over every class group (the batch at and above
+// which the work plan does not cut scans is this over the groups), or minus
+// a CUDA error (cudaErrorInvalidValue for shapes it does not take).
 template <typename Kernel>
-int whole_scan_resident(Kernel one, Kernel general, int X, int Y, int Z, int C2, int h1, int h2,
-                        int h3) {
-  const int CG = C2 < 1 ? 0 : group_rows(X, Y, Z, C2, h1, h2, h3);
+int whole_scan_resident(Kernel one, Kernel general, Kernel tiles, int B, int X, int Y, int Z,
+                        int C2, int h1, int h2, int h3) {
+  const int CG = C2 < 1 ? 0 : batch_rows(B, X, Y, Z, C2, h1, h2, h3);
   if (CG == 0) return -(int)cudaErrorInvalidValue;
-  const Kernel kernel = CG < C2 || Z % 16 ? general : one;
+  const Kernel kernel = CG > kMaxC2 ? tiles : CG < C2 || Z % 16 ? general : one;
   cudaError_t err;
   const int XS = slab_width(X, Y, Z, CG, h1, h2, h3);
   const bool staged = staged_route(X, Y, Z, h1, h2, h3);
-  const int n =
-      resident_blocks(kernel, make_layout(XS, 1, X, Y, Z, CG, h1, h2, h3, staged).total, err);
+  const int n = resident_blocks(
+      kernel, make_layout(XS, 1, X, Y, Z, CG, h1, h2, h3, staged, tiles_of(CG)).total, err);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -1140,11 +1244,11 @@ int whole_scan_resident(Kernel one, Kernel general, int X, int Y, int Z, int C2,
 // Every element is written: at P > 1 t1 and t3 are first zeroed on
 // `stream`, and the parts add into them.
 template <typename Kernel>
-int split_tables(Kernel one, Kernel general, const void* cube, const void* qxz,
+int split_tables(Kernel one, Kernel general, Kernel tiles, const void* cube, const void* qxz,
                  const void* qyz, const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                  int Y, int Z, int C2, int XS, int P, void* stream) {
   Walk w;
-  const int CG = C2 < 1 ? 0 : group_rows(X, Y, Z, C2, qxz, qyz, qxy);
+  const int CG = C2 < 1 ? 0 : batch_rows(B, X, Y, Z, C2, qxz, qyz, qxy);
   if (CG == 0 || XS > slab_width(X, Y, Z, CG, qxz, qyz, qxy) ||
       !make_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2, CG, XS, P))
     return (int)cudaErrorInvalidValue;
@@ -1154,7 +1258,7 @@ int split_tables(Kernel one, Kernel general, const void* cube, const void* qxz,
     if (err == cudaSuccess) err = cudaMemsetAsync(t3, 0, sizeof(int) * B * Z * C2, s);
     if (err != cudaSuccess) return (int)err;
   }
-  return launch(one, general, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
+  return launch(one, general, tiles, w, stream, static_cast<int*>(t1), static_cast<int*>(t2),
                 static_cast<int*>(t3));
 }
 
@@ -1162,28 +1266,29 @@ int split_tables(Kernel one, Kernel general, const void* cube, const void* qxz,
 
 extern "C" {
 
-// The x-slab width of whole scans under the class groups of group_rows
-// (exposed so the wrapper can report it and plan the lookup and glookup
-// kernels' parts); 0 for shapes the kernels do not take.
-int i8_score_slab_width(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  const int CG = C2 < 1 ? 0 : group_rows(X, Y, Z, C2, h1, h2, h3);
+// The rows of a block of a scan at a batch of B scans (batch_rows); 0 for
+// shapes the kernels do not take, which ops/i8_score.card_operands refuses
+// before any launch.
+int i8_score_batch_rows(int B, int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  return C2 < 1 ? 0 : batch_rows(B, X, Y, Z, C2, h1, h2, h3);
+}
+
+// The x-slab width of whole scans of a batch of B under batch_rows (exposed
+// so the wrapper can report it and plan the lookup and glookup kernels'
+// parts); 0 for shapes the kernels do not take.
+int i8_score_batch_width(int B, int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  const int CG = i8_score_batch_rows(B, X, Y, Z, C2, h1, h2, h3);
   return CG == 0 ? 0 : slab_width(X, Y, Z, CG, h1, h2, h3);
 }
 
-// The rows of a class group (group_rows); 0 for shapes the kernels do not
-// take, which ops/i8_score.card_operands refuses before any launch.
-int i8_score_group_rows(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  return C2 < 1 ? 0 : group_rows(X, Y, Z, C2, h1, h2, h3);
+// whole_scan_resident of the lookup and the glookup kernel at a batch of B.
+int i8_score_lookup_resident_at(int B, int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  return whole_scan_resident(lookup_tables_kernel<false>, lookup_tables_kernel<true>,
+                             lookup_tables_kernel<true, kMaxTiles>, B, X, Y, Z, C2, h1, h2, h3);
 }
-
-// whole_scan_resident of the lookup and the glookup kernel.
-int i8_score_lookup_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  return whole_scan_resident(lookup_tables_kernel<false>, lookup_tables_kernel<true>, X, Y, Z, C2,
-                             h1, h2, h3);
-}
-int i8_score_grouped_resident(int X, int Y, int Z, int C2, int h1, int h2, int h3) {
-  return whole_scan_resident(grouped_tables_kernel<false>, grouped_tables_kernel<true>, X, Y, Z,
-                             C2, h1, h2, h3);
+int i8_score_grouped_resident_at(int B, int X, int Y, int Z, int C2, int h1, int h2, int h3) {
+  return whole_scan_resident(grouped_tables_kernel<false>, grouped_tables_kernel<true>,
+                             grouped_tables_kernel<true, kMaxTiles>, B, X, Y, Z, C2, h1, h2, h3);
 }
 
 // The combo kernel on `stream`: whole scans. Outputs are scan-major int32
@@ -1195,7 +1300,8 @@ int i8_score_onepass_tables(const void* cube, const void* qxz, const void* qyz,
                             int X, int Y, int Z, int C2, void* stream) {
   Walk w;
   if (!whole_scan_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2)) return (int)cudaErrorInvalidValue;
-  return launch(combo_tables_kernel<false>, combo_tables_kernel<true>, w, stream,
+  return launch(combo_tables_kernel<false>, combo_tables_kernel<true>,
+                combo_tables_kernel<true, kMaxTiles>, w, stream,
                 static_cast<int*>(t1), static_cast<int*>(t2), static_cast<int*>(t3));
 }
 
@@ -1205,14 +1311,16 @@ int i8_score_onepass_tables(const void* cube, const void* qxz, const void* qyz,
 int i8_score_lookup_tables(const void* cube, const void* qxz, const void* qyz,
                            const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                            int Y, int Z, int C2, int XS, int P, void* stream) {
-  return split_tables(lookup_tables_kernel<false>, lookup_tables_kernel<true>, cube, qxz, qyz,
-                      qxy, t1, t2, t3, B, X, Y, Z, C2, XS, P, stream);
+  return split_tables(lookup_tables_kernel<false>, lookup_tables_kernel<true>,
+                      lookup_tables_kernel<true, kMaxTiles>, cube, qxz, qyz, qxy, t1, t2, t3, B,
+                      X, Y, Z, C2, XS, P, stream);
 }
 int i8_score_grouped_tables(const void* cube, const void* qxz, const void* qyz,
                             const void* qxy, void* t1, void* t2, void* t3, int B, int X,
                             int Y, int Z, int C2, int XS, int P, void* stream) {
-  return split_tables(grouped_tables_kernel<false>, grouped_tables_kernel<true>, cube, qxz, qyz,
-                      qxy, t1, t2, t3, B, X, Y, Z, C2, XS, P, stream);
+  return split_tables(grouped_tables_kernel<false>, grouped_tables_kernel<true>,
+                      grouped_tables_kernel<true, kMaxTiles>, cube, qxz, qyz, qxy, t1, t2, t3, B,
+                      X, Y, Z, C2, XS, P, stream);
 }
 
 // The sel kernel: whole scans; t1 (B, C2, Y) and t2 (B, C2, X) and the
@@ -1224,7 +1332,8 @@ int i8_score_sel_tables(const void* cube, const void* qxz, const void* qyz, cons
   Walk w;
   if (T < 0 || !whole_scan_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2))
     return (int)cudaErrorInvalidValue;
-  return launch(sel_tables_kernel<false>, sel_tables_kernel<true>, w, stream,
+  return launch(sel_tables_kernel<false>, sel_tables_kernel<true>,
+                sel_tables_kernel<true, kMaxTiles>, w, stream,
                 static_cast<const int*>(kidx), T, static_cast<int*>(t1), static_cast<int*>(t2),
                 static_cast<int*>(d3));
 }
@@ -1238,7 +1347,8 @@ int i8_score_sel3_scores(const void* cube, const void* qxz, const void* qyz, con
   Walk w;
   if (T < 0 || !whole_scan_walk(w, cube, qxz, qyz, qxy, B, X, Y, Z, C2))
     return (int)cudaErrorInvalidValue;
-  return launch(sel3_scores_kernel<false>, sel3_scores_kernel<true>, w, stream,
+  return launch(sel3_scores_kernel<false>, sel3_scores_kernel<true>,
+                sel3_scores_kernel<true, kMaxTiles>, w, stream,
                 static_cast<const int*>(ijk), static_cast<const uint8_t*>(valid), T,
                 static_cast<int*>(s1), static_cast<int*>(s2), static_cast<int*>(s3));
 }

@@ -221,7 +221,7 @@ def card_operands(cube: torch.Tensor, weights: CombinedWeights) -> None:
     directly, so this runs there on every call. Raises unless the cube
     and every template are contiguous, typed and shaped as the kernels
     take them, on one CUDA device, at a shape the built kernels' work
-    plan takes (their `i8_score_group_rows`: every class count; at X =
+    plan takes (their `i8_score_batch_rows`: every class count; at X =
     43, Z = 351 up to 144 y values)."""
     _check(cube, weights)
     X, Y, Z, _ = weights.dims
@@ -239,7 +239,7 @@ def card_operands(cube: torch.Tensor, weights: CombinedWeights) -> None:
     if cube.device.type != "cuda":
         raise ValueError(f"no one-pass kernel for device {cube.device}")
     planes = [int(q is not None) for q in (weights.q_xz, weights.q_yz, weights.q_xy)]
-    if _library().i8_score_group_rows(X, Y, Z, C2, *planes) == 0:
+    if _library().i8_score_batch_rows(cube.shape[0], X, Y, Z, C2, *planes) == 0:
         raise ValueError(
             f"no int8 table kernel plan fits dims {(X, Y, Z)}: the templates of one class "
             f"row over x-slabs one row wide need more than the kernels' limit of {SMEM_MAX} "
@@ -256,13 +256,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "i8_score_grouped_tables": [p] * 7 + [i] * 7 + [p],
         "i8_score_sel_tables": [p] * 8 + [i] * 6 + [p],
         "i8_score_sel3_scores": [p] * 9 + [i] * 6 + [p],
-        "i8_score_slab_width": [i] * 7,
-        "i8_score_group_rows": [i] * 7,
-        "i8_score_lookup_resident": [i] * 7,
-        "i8_score_grouped_resident": [i] * 7,
+        "i8_score_batch_rows": [i] * 8,
+        "i8_score_batch_width": [i] * 8,
+        "i8_score_lookup_resident_at": [i] * 8,
+        "i8_score_grouped_resident_at": [i] * 8,
     }
     for fn, types in argtypes.items():
-        if hasattr(lib, fn):  # i8_score_group_rows is absent from an earlier source's build
+        if hasattr(lib, fn):  # an earlier source's build lacks the newer entries
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = i
     return lib
@@ -274,15 +274,19 @@ def _library() -> ctypes.CDLL:
     return _bind(load_library("i8_score"))
 
 
-def slab_width(weights: CombinedWeights) -> int:
-    """The x-slab width the CUDA kernel launches whole scans with for these
-    weights, under its class groups (builds the kernel if needed)."""
+def slab_width(weights: CombinedWeights, B: int = 1 << 30) -> int:
+    """The x-slab width the CUDA kernel launches whole scans of a batch of
+    B with for these weights (by default a large batch), under its plan
+    (builds the kernel if needed)."""
     X, Y, Z, _ = weights.dims
     has = [int(q is not None) for q in (weights.q_xz, weights.q_yz, weights.q_xy)]
-    return _library().i8_score_slab_width(X, Y, Z, weights.c2, *has)
+    return _library().i8_score_batch_width(B, X, Y, Z, weights.c2, *has)
 
 
 MAX_GROUP_ROWS = 8  # class rows of one class group (kMaxC2: one mma n-tile)
+MAX_TILES = 2  # n-tiles of a block's class rows (kMaxTiles)
+WIDE_SLAB = 8  # x rows a slab of a block of several n-tiles needs at least (kWideSlab)
+ONE_BLOCK_SCANS_PER_SM = 5  # scans an SM from which that block runs (kOneBlockScansPerSM)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -295,7 +299,8 @@ def layout_bytes(XS: int, P: int, X: int, Y: int, Z: int, C2: int,
     """Dynamic shared memory of one int8 kernel block, in bytes: make_layout
     in csrc/i8_score.cu, region by region, for scans in P parts of x-slabs
     XS wide and C2 class rows a block (`planes`: which templates are
-    present). On the staged route (`staged_route`) qxz travels with the
+    present), in ⌈C2 / 8⌉ mma n-tiles (the packed qxy words hold 8 rows a
+    tile). On the staged route (`staged_route`) qxz travels with the
     slabs: one buffer holds a slab and its qxz rows, and one staging area
     holds the next unit's runs as the copy engine brought them."""
     h1, h2, h3 = planes
@@ -307,7 +312,7 @@ def layout_bytes(XS: int, P: int, X: int, Y: int, Z: int, C2: int,
     TW = -(-SW * 4 // 32) * 8 + 4
     KQ = -(-XS * Y // 32) * 8
     words = (C2 * XP * TW if h1 and not staged else 0) + (C2 * Y * TW if h2 else 0) + TW
-    words += nsp * MAX_GROUP_ROWS * KQ if h3 else 0
+    words += nsp * _round_up(C2, MAX_GROUP_ROWS) * KQ if h3 else 0
     slab = _round_up(NR * SW + 4, 4) + (XS * C2 * TW if staged and h1 else 0)
     stc = _round_up((XS * Y * Z + 30) // 4 + 8, 4) if staged else 0
     stq = _round_up((XS * Z + 30) // 4 + 8, 4) if staged and h1 else 0
@@ -337,14 +342,28 @@ def staged_route(X: int, Y: int, Z: int,
 def whole_scan_plan(X: int, Y: int, Z: int, C2: int,
                     planes: Tuple[bool, bool, bool] = (True, True, True)
                     ) -> Optional[Tuple[int, int]]:
-    """The int8 kernels' whole-scan plan for C2 class rows: (rows a class
-    group, x-slab width), as group_rows and slab_width in csrc/i8_score.cu
-    make them on the route of these dims (`staged_route`): the fewest
-    groups of at most MAX_GROUP_ROWS rows whose block fits SMEM_MAX with
-    some slab width, and the widest such width, balanced over the slabs;
-    None where not even one row fits. A mirror for the tests: the CUDA
-    implementation asks the built kernels (i8_score_group_rows,
-    i8_score_slab_width)."""
+    """The int8 kernels' whole-scan plan for C2 class rows: (rows a block,
+    x-slab width), as group_rows and slab_width in csrc/i8_score.cu make
+    them on the route of these dims (`staged_route`). Past one n-tile of
+    rows, all C2 rows in one block (up to MAX_TILES n-tiles) where its
+    slabs are at least WIDE_SLAB x rows wide (or X); otherwise the fewest
+    class groups of at most MAX_GROUP_ROWS rows whose block fits SMEM_MAX
+    with some slab width. The width is the widest that fits, balanced over
+    the slabs; None where not even one row fits. A mirror for the tests:
+    the CUDA implementation asks the built kernels (i8_score_batch_rows,
+    i8_score_batch_width), whose plan for a large batch this is."""
+    if MAX_GROUP_ROWS < C2 <= MAX_TILES * MAX_GROUP_ROWS:
+        xs = _width(X, Y, Z, C2, planes, staged_route(X, Y, Z, planes))
+        if xs >= min(X, WIDE_SLAB):
+            return C2, xs
+    return _groups_plan(X, Y, Z, C2, planes)
+
+
+def _groups_plan(X: int, Y: int, Z: int, C2: int,
+                 planes: Tuple[bool, bool, bool]) -> Optional[Tuple[int, int]]:
+    """group_rows's class groups in csrc/i8_score.cu: the fewest groups of
+    at most MAX_GROUP_ROWS rows whose block fits SMEM_MAX with some slab
+    width, and that width; None where not even one row fits."""
     staged = staged_route(X, Y, Z, planes)
     for ng in range(-(-C2 // MAX_GROUP_ROWS), C2 + 1):
         cg = -(-C2 // ng)
@@ -352,6 +371,20 @@ def whole_scan_plan(X: int, Y: int, Z: int, C2: int,
         if xs:
             return cg, xs
     return None
+
+
+def batch_plan(B: int, sms: int, X: int, Y: int, Z: int, C2: int,
+               planes: Tuple[bool, bool, bool] = (True, True, True)
+               ) -> Optional[Tuple[int, int]]:
+    """The plan at a batch of B scans on a card of `sms` SMs (batch_rows in
+    csrc/i8_score.cu): `whole_scan_plan`, but that its block of several
+    n-tiles needs a batch of at least ONE_BLOCK_SCANS_PER_SM scans an SM
+    (one_block_pays); a smaller batch takes the class groups, whose
+    cheaper first rounds win there."""
+    plan = whole_scan_plan(X, Y, Z, C2, planes)
+    if plan is None or plan[0] <= MAX_GROUP_ROWS or B >= ONE_BLOCK_SCANS_PER_SM * sms:
+        return plan
+    return _groups_plan(X, Y, Z, C2, planes)
 
 
 def onepass_tables_combined_i8(

@@ -236,20 +236,21 @@ def part_slabs(X: int, XS: int, P: int) -> List[Tuple[int, int]]:
 # -- CUDA kernels --------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_shape(device: int, kernel: str, dims: Tuple[int, int, int], c2: int,
+@functools.lru_cache(maxsize=1024)
+def _plan_shape(device: int, kernel: str, B: int, dims: Tuple[int, int, int], c2: int,
                 planes: Tuple[bool, bool, bool]) -> Tuple[int, int]:
-    """(resident blocks over the class groups, slab width) of the lookup or
-    glookup kernel's whole-scan plan on CUDA card `device`; raises on a
-    CUDA error."""
+    """(resident blocks over the blocks a scan, slab width) of the lookup or
+    glookup kernel's whole-scan plan for a batch of B scans on CUDA card
+    `device` (the plan's rows a block depend on the batch,
+    csrc/i8_score.cu batch_rows); raises on a CUDA error."""
     lib = i8_score._library()
-    fn = f"i8_score_{kernel}_resident"
+    fn = f"i8_score_{kernel}_resident_at"
     with torch.cuda.device(device):
-        resident = getattr(lib, fn)(*dims, c2, *planes)
-    if resident <= 0:
-        raise RuntimeError(f"{fn} failed: CUDA error {-resident} (dims={dims}, C2={c2})")
-    groups = -(-c2 // lib.i8_score_group_rows(*dims, c2, *planes))
-    return max(1, resident // groups), lib.i8_score_slab_width(*dims, c2, *planes)
+        resident = getattr(lib, fn)(B, *dims, c2, *planes)
+        if resident <= 0:
+            raise RuntimeError(f"{fn} failed: CUDA error {-resident} (dims={dims}, C2={c2})")
+        groups = -(-c2 // lib.i8_score_batch_rows(B, *dims, c2, *planes))
+        return max(1, resident // groups), lib.i8_score_batch_width(B, *dims, c2, *planes)
 
 
 def lookup_plan_on_card(B: int, weights: CombinedWeights,
@@ -257,12 +258,12 @@ def lookup_plan_on_card(B: int, weights: CombinedWeights,
     """`lookup_plan` for B scans with these weights on their CUDA card:
     (P, XS), as onepass_tables_i8 (kernel "lookup") or
     onepass_tables_grouped_i8 ("grouped") launches it, from that kernel's
-    own resident-block count over its class groups (builds the kernels if
-    needed)."""
+    own resident-block count over its class groups at this batch (builds
+    the kernels if needed)."""
     if kernel not in ("lookup", "grouped"):
         raise ValueError(f"kernel must be 'lookup' or 'grouped', got {kernel!r}")
     planes = tuple(q is not None for q in (weights.q_xz, weights.q_yz, weights.q_xy))
-    resident, width = _plan_shape(weights.device.index, kernel, weights.dims[:3], weights.c2,
+    resident, width = _plan_shape(weights.device.index, kernel, B, weights.dims[:3], weights.c2,
                                   planes)
     return lookup_plan(B, weights.dims[0], resident, width)
 

@@ -1,6 +1,6 @@
 """Where the hand-written kernels spend their time: a probe for the card.
 
-    python3 -m radarml_tpu_torch.utils.kernel_probe [rbf] [i8] [tails] [native] [traces] [--earlier FILE.cu]
+    python3 -m radarml_tpu_torch.utils.kernel_probe [rbf] [i8] [tails] [batches] [native] [mma] [traces] [--earlier FILE.cu]
 
 It builds variants of `ops/csrc/rbf_gram.cu`, `ops/csrc/i8_score.cu` and
 `ops/csrc/native_score.cu` by patching their text (every patch must match the committed source
@@ -22,14 +22,27 @@ float64 is taken on the 1824 equal rows' Gram at gamma 0.1):
   kstep_from_zero     the tensor core sums one k-step (8 columns) from zero
                       and every k-step is added round to nearest, two in
                       flight: less error, four times the adds
-i8 (the combo kernel of i8_score.cu; 6 class rows, B = 4096 and 64, at the
-default arena and at 43 x 31 x 351, the staged route):
+i8 (the combo kernel of i8_score.cu; B = 4096 and 64, at the default arena
+with 6, 9, 10 and 18 class rows (3, 9 at levels 1, 5 and 9 classes) and at
+43 x 31 x 351, the staged route, with 6 and 18; each case's plan, blocks a
+scan and slab width, as the build reports it; each variant's registers and
+spills as ptxas reports them):
   as_committed  the kernel as it is
   loads_only    no t1 / t2 / t3 steps: the slab pipeline alone
   no_realign    the staged route without its realignment (other tables)
   warps_24      24 warps a block instead of 16
+  two_blocks    past 16 class rows two blocks of 2 n-tiles a scan at the
+                widest slabs that fit, in place of class groups
+  tiles3        every block on an instance of 3 n-tiles (its rows past C2
+                zero): at 6 class rows the work of one block of 24 rows,
+                at the slabs of 6 (11 x rows wide at the default arena)
+  tiles3_narrow the same at slabs at most 3 x rows wide
   clocks        clock64 around the phases of a slab, summed over the
-                blocks by warp 0 and warp 15: clocks per slab
+                blocks by warp 0 and warp 15: clocks per slab of a block,
+                and per scan over the blocks that share it
+  earlier       with --earlier FILE.cu, that source (the same C interface)
+                under each variant, with the variant's patches that it
+                holds (an earlier source lacks later lines)
 tails (the lookup, glookup, sel and sel3 kernels, which share the combo
 kernel's walk; the same shapes, 4 target slots a scan for sel and sel3),
 beside the combo kernel in the same build: device ms at B = 4096 and 64,
@@ -41,6 +54,12 @@ next scan's last slab); the lookup and glookup kernels also at B = 1, 7,
 kernel under other plans, each checked against the committed plan's
 tables: B = 64 with 3 parts (resident / B rounded up), B = 100 and 131
 with whole scans
+batches (the five int8 kernels at 5 classes on the default arena, C2 =
+10, over batches of 1 to 4096 scans, one block of two n-tiles a scan
+against two class groups: one_block and groups force the plan at every
+batch, as_committed takes the committed rule, earlier is --earlier's
+source; and, with --earlier, 43 x 31 x 351 with 6 rows at B = 4096, the
+committed source beside the earlier one)
 native (B7; 3 random classes, B = 4096 and 64, at the default arena and at
 43 x 31 x 351, the long-row instance; each variant's registers and spills
 as ptxas reports them, and its largest |error| against the plain version):
@@ -59,6 +78,9 @@ as ptxas reports them, and its largest |error| against the plain version):
                   producer: clocks per slab
   earlier       FILE.cu given with --earlier (a source with the same C
                 interface, e.g. an earlier version of the kernel)
+mma: the int8 mma.sync m16n8k32 rate (the table kernels' instruction), a
+register-only loop on every SM at 16, 8 and 4 warps an SM with 1, 4 and 8
+independent accumulators a warp: TOPS and SM clocks an mma.
 traces: how often a profiler trace, taken as kernel_device_ms takes it,
 lacks the records of a kernel that ran in it: 40 traces each of B7 at
 B = 64 (one launch ~0.04 ms) with 1 and with 20 launches.
@@ -67,6 +89,7 @@ B = 64 (one launch ~0.04 ms) with 1 and with 20 launches.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 import tempfile
@@ -233,15 +256,36 @@ def probe_rbf(tmp: Path) -> None:
 
 I8_SKIP = [("    if (steps > 0) {\n", "    if (steps > 0 && B < 0) {\n"),
            ("    if (steps3 > 0) {\n", "    if (steps3 > 0 && B < 0) {\n")]
+# the plan of one block of several n-tiles a scan, against narrower slabs
+_TILES3 = [("constexpr int kMaxTiles = 2;", "constexpr int kMaxTiles = 3;"),
+           ("__host__ __device__ inline int tiles_of(int C2) { return C2 > kMaxC2 ? kMaxTiles : 1; }",
+            "__host__ __device__ inline int tiles_of(int C2) { return kMaxTiles; }"),
+           ("  const Kernel kernel = w.C2 > kMaxC2 ? tiles : w.NG > 1 || !w.vec ? general : one;",
+            "  const Kernel kernel = tiles;")]
+_ONE_BLOCK = ("  return C2 > kMaxC2 && C2 <= kMaxTiles * kMaxC2 &&\n"
+              "         slab_width(X, Y, Z, C2, h1, h2, h3) >= min(X, kWideSlab) ? C2 : 0;\n")
 I8_TICK = (
     "#define TICK(k) if (lane == 0 && (warp == 0 || warp == kWarps - 1)) { "
-    "long long n_ = clock64(); atomicAdd(&probe_clk[(warp ? 8 : 0) + k], "
+    "long long n_ = clock64(); atomicAdd(&probe_clk[(warp ? 8 : 0) + (k)], "
     "(unsigned long long)(n_ - t_)); t_ = n_; }\n")
 I8_VARIANTS = {
     "as_committed": [],
     "loads_only": I8_SKIP,
     "no_realign": [("      realign(u);\n", "      if (B < 0) realign(u);\n")],
     "warps_24": [("constexpr int kThreads = 512;", "constexpr int kThreads = 768;")],
+    # past 16 class rows, two blocks of 2 n-tiles a scan at the widest slabs
+    # that fit (8 x rows at 9 rows a block) instead of class groups
+    "two_blocks": [(_ONE_BLOCK, "  return C2 <= kMaxC2 ? 0 : C2 <= kMaxTiles * kMaxC2 ? C2 "
+                              ": (C2 + 1) / 2;\n")],
+    # every block on an instance of 3 n-tiles (the class rows past C2 zero):
+    # one block's work for up to 24 rows, at the slab width of the rows it
+    # holds, and at slabs at most 3 x rows wide
+    "tiles3": _TILES3,
+    "tiles3_narrow": _TILES3 + [(
+        "  for (int XS = X; XS >= 1; --XS) {\n"
+        "    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3, staged, tiles_of(C2)).total",
+        "  for (int XS = min(X, 3); XS >= 1; --XS) {\n"
+        "    if (make_layout(XS, 1, X, Y, Z, C2, h1, h2, h3, staged, tiles_of(C2)).total")],
     "clocks": [
         ("namespace {\n\nconstexpr int kMaxC2",
          "namespace {\n__device__ unsigned long long probe_clk[16];\n" + I8_TICK
@@ -259,26 +303,53 @@ I8_VARIANTS = {
          "      realign(u);\n      __syncthreads();\n      TICK(7)\n"),
         ("      set ^= 1;  // this set is next used two scans on, block barriers later\n    }\n",
          "      set ^= 1;\n    }\n    TICK(5)\n"),
-        ('extern "C" {\n\n// The x-slab width',
+        ('extern "C" {\n\n// The ',
          'extern "C" {\nint i8_score_probe_clocks(unsigned long long* out, int clear) {\n'
          "  unsigned long long z[16] = {};\n"
          "  if (clear) return (int)cudaMemcpyToSymbol(probe_clk, z, sizeof(z));\n"
          "  return (int)cudaMemcpyFromSymbol(out, probe_clk, sizeof(z));\n}\n\n"
-         "// The x-slab width"),
+         "// The "),
     ],
 }
 
 
-def probe_i8(tmp: Path) -> None:
-    libs = build_variants("i8_score", I8_VARIANTS, tmp)
-    for dims in ((22, 31, 176), (43, 31, 351)):
-        probe_i8_at(libs, dims)
+# (dims, class rows) of the i8 probe: 3, 5 and 9 classes at levels 2 on the
+# default arena, 3 and 9 at 43 x 31 x 351
+I8_CASES = (((22, 31, 176), 6), ((22, 31, 176), 9), ((22, 31, 176), 10), ((22, 31, 176), 18),
+            ((43, 31, 351), 6), ((43, 31, 351), 18))
 
 
-def probe_i8_at(libs: dict, dims) -> None:
+def earlier_variants(variants: dict, earlier) -> dict:
+    """"earlier <variant>" -> the text of the source file `earlier` under
+    the patches of that variant that it holds (an earlier source lacks the
+    lines of later code), for each variant of which it holds at least one
+    patch or none is asked; a patch that matches more than once raises."""
+    if not earlier:
+        return {}
+    text = Path(earlier).read_text()
+    out = {}
+    for variant, patches in variants.items():
+        held = [(old, new) for old, new in patches if text.count(old)]
+        if held or not patches:
+            out[f"earlier {variant}"] = patched(text, held)
+    return out
+
+
+def probe_i8(tmp: Path, earlier=None) -> None:
+    logs = {}
+    libs = build_variants("i8_score", I8_VARIANTS, tmp, earlier_variants(I8_VARIANTS, earlier),
+                          logs)
+    for variant in libs:
+        print(f"i8 {variant} (ptxas):\n  {ptxas_lines(logs[variant], 'combo_tables_kernel')}",
+              flush=True)
+    for dims, C2 in I8_CASES:
+        probe_i8_at(libs, dims, C2)
+
+
+def probe_i8_at(libs: dict, dims, C2: int) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    (X, Y, Z), C2 = dims, 6
+    X, Y, Z = dims
     q = [torch.randint(-127, 128, (C2,) + sh, generator=gen, device=dev, dtype=torch.int8)
          for sh in ((X, Z), (Y, Z), (X, Y))]
     cube = torch.randint(-128, 128, (4096, X, Y, Z), generator=gen, device=dev, dtype=torch.int8)
@@ -299,11 +370,14 @@ def probe_i8_at(libs: dict, dims) -> None:
         if variant == "as_committed":
             want = tables(4096)
         same = all(torch.equal(a, b) for a, b in zip(tables(4096), want))
-        line = (f"i8 {variant} at {dims}: device "
+        rows, width = lib_plan(lib, dims, C2, 4096)
+        blocks = -(-C2 // rows)
+        line = (f"i8 {variant} at {dims} C2={C2} ({blocks} blocks a scan, slabs {width} x "
+                f"rows wide): device "
                 f"{device_ms(lambda: tables(4096), 'combo_tables_kernel', 20):.4f} ms at B=4096, "
                 f"{device_ms(lambda: tables(64), 'combo_tables_kernel', 20):.4f} ms at B=64"
                 f"{'' if same else ' (other tables: the variant drops work)'}")
-        if variant == "clocks":
+        if variant.endswith("clocks"):
             lib.i8_score_probe_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
             out = (ctypes.c_ulonglong * 16)()
             torch.cuda.synchronize()
@@ -311,14 +385,15 @@ def probe_i8_at(libs: dict, dims) -> None:
             tables(4096)
             torch.cuda.synchronize()
             lib.i8_score_probe_clocks(out, 0)
-            slabs = 4096 * -(-X // i8_score.whole_scan_plan(X, Y, Z, C2)[1])
+            slabs = 4096 * -(-X // width) * blocks  # slabs the blocks walked
             names = ("loop top", "wait for the slab", "t1/t2 steps", "t3 steps",
                      "barrier", "write-out", "staged wait", "realign and barrier")
             for base, who in ((0, "warp 0"), (8, "warp 15")):
-                line += (f"; {who} clocks per slab: "
+                line += (f"; {who} clocks per slab of a block: "
                          + ", ".join(f"{n} {out[base + k] / slabs:.0f}"
                                      for k, n in enumerate(names))
-                         + f" (sum {sum(out[base:base + 8]) / slabs:.0f})")
+                         + f" (sum {sum(out[base:base + 8]) / slabs:.0f}; per scan over its "
+                         f"{blocks} blocks {sum(out[base:base + 8]) / 4096:.0f})")
         print(line, flush=True)
 
 
@@ -331,92 +406,173 @@ TAILS_VARIANTS = {
 }
 
 
-def probe_tails(tmp: Path) -> None:
-    libs = build_variants("i8_score", TAILS_VARIANTS, tmp)
+def lib_plan(lib, dims, c2: int, B: int) -> tuple:
+    """(rows a block, slab width) of the int8 kernels' whole-scan plan at
+    a batch of B scans, every plane present, as a built library reports it
+    (i8_score_batch_rows, i8_score_batch_width), or as an earlier source's
+    does, whose plan has no batch (i8_score_group_rows,
+    i8_score_slab_width)."""
+    if hasattr(lib, "i8_score_batch_rows"):
+        return (lib.i8_score_batch_rows(B, *dims, c2, 1, 1, 1),
+                lib.i8_score_batch_width(B, *dims, c2, 1, 1, 1))
+    return (lib.i8_score_group_rows(*dims, c2, 1, 1, 1),
+            lib.i8_score_slab_width(*dims, c2, 1, 1, 1))
+
+
+def lib_resident(lib, kernel: str, dims, c2: int, B: int) -> int:
+    """Resident blocks of the lookup or glookup ("grouped") kernel's
+    whole-scan plan at a batch of B, every plane present, as lib_plan
+    asks them."""
+    if hasattr(lib, "i8_score_batch_rows"):
+        return getattr(lib, f"i8_score_{kernel}_resident_at")(B, *dims, c2, 1, 1, 1)
+    return getattr(lib, f"i8_score_{kernel}_resident")(*dims, c2, 1, 1, 1)
+
+
+I8_SYMBOLS = {"combo": "combo_tables_kernel", "lookup": "lookup_tables_kernel",
+              "grouped": "grouped_tables_kernel", "sel": "sel_tables_kernel",
+              "sel3": "sel3_scores_kernel"}
+
+
+def int8_calls(lib, cube, q, ijk, B: int, plan=None) -> dict:
+    """The five int8 kernels of a built library on the first B scans of
+    `cube` (B, X, Y, Z) with templates q (qxz, qyz, qxy) and target slots
+    ijk (B', T, 3): name (I8_SYMBOLS) -> call. The lookup and glookup
+    kernels take `plan` (P, XS), by default ops/i8_tails.lookup_plan from
+    the library's own resident blocks and slab width at this batch."""
+    dev = cube.device
+    X, Y, Z = cube.shape[1:]
+    C2, T = q[0].shape[0], ijk.shape[1]
+    dims = (X, Y, Z)
+    kidx = ijk[:B, :, 2].contiguous()
+    ijk = ijk[:B].contiguous()
+    qp = [t_.data_ptr() for t_ in q]
+    rows, width = lib_plan(lib, dims, C2, B)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def outs(*shapes):
+        return [torch.empty(sh, dtype=torch.int32, device=dev) for sh in shapes]
+
+    def run(fn, extra, o, *ints):
+        err = getattr(lib, fn)(cube.data_ptr(), *qp, *extra, *[t_.data_ptr() for t_ in o],
+                               B, X, Y, Z, C2, *ints, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+        return o
+
+    def split(kernel):
+        resident = lib_resident(lib, kernel, dims, C2, B)
+        P, XS = plan or i8_tails.lookup_plan(B, X, max(1, resident // -(-C2 // rows)), width)
+        return lambda: run(f"i8_score_{kernel}_tables", (), outs(*tabs), XS, P)
+
+    tabs = ((B, C2, Y), (B, C2, X), (B, Z, C2))
+    return {"combo": lambda: run("i8_score_onepass_tables", (), outs(*tabs)),
+            "lookup": split("lookup"), "grouped": split("grouped"),
+            "sel": lambda: run("i8_score_sel_tables", (kidx.data_ptr(),),
+                               outs(tabs[0], tabs[1], (B, T, C2)), T),
+            "sel3": lambda: run("i8_score_sel3_scores", (ijk.data_ptr(), None),
+                                outs(*[(B, T, C2)] * 3), T)}
+
+
+def int8_operands(dims, C2: int, B: int = 4096, T: int = 4):
+    """Random int8 templates (qxz, qyz, qxy) of C2 class rows, a cube of B
+    scans and T target slots a scan at `dims`, on the card, seed 0."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    X, Y, Z, C2, T = 22, 31, 176, 6, 4
+    X, Y, Z = dims
     q = [torch.randint(-127, 128, (C2,) + sh, generator=gen, device=dev, dtype=torch.int8)
          for sh in ((X, Z), (Y, Z), (X, Y))]
-    cube = torch.randint(-128, 128, (4096, X, Y, Z), generator=gen, device=dev, dtype=torch.int8)
-    ijk = torch.stack([torch.randint(0, n, (4096, T), generator=gen, device=dev)
-                       for n in (X, Y, Z)], -1).to(torch.int32)
-    kidx = ijk[..., 2].contiguous()
-    qp = [t_.data_ptr() for t_ in q]
+    cube = torch.randint(-128, 128, (B, X, Y, Z), generator=gen, device=dev, dtype=torch.int8)
+    ijk = torch.stack([torch.randint(0, n, (B, T), generator=gen, device=dev)
+                       for n in dims], -1).to(torch.int32)
+    return q, cube, ijk
+
+
+def probe_tails(tmp: Path) -> None:
+    libs = build_variants("i8_score", TAILS_VARIANTS, tmp)
+    dims, C2 = (22, 31, 176), 6
+    X = dims[0]
+    q, cube, ijk = int8_operands(dims, C2)
     for variant, lib in libs.items():
         i8_score._bind(lib)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        resident = {k: getattr(lib, f"i8_score_{k}_resident")(X, Y, Z, C2, 1, 1, 1)
-                    for k in ("lookup", "grouped")}
-        width = lib.i8_score_slab_width(X, Y, Z, C2, 1, 1, 1)
-
-        def combo(B, lib=lib):
-            t = [torch.empty(sh, dtype=torch.int32, device=dev)
-                 for sh in ((B, C2, Y), (B, C2, X), (B, Z, C2))]
-            err = lib.i8_score_onepass_tables(cube.data_ptr(), *qp, *[t_.data_ptr() for t_ in t],
-                                              B, X, Y, Z, C2, stream)
-            if err != 0:
-                raise RuntimeError(f"i8_score_onepass_tables launch failed: CUDA error {err}")
-            return t
-
-        def lookup(B, plan=None, kernel="lookup", lib=lib):
-            P, XS = plan or i8_tails.lookup_plan(B, X, resident[kernel], width)
-            t = [torch.empty(sh, dtype=torch.int32, device=dev)
-                 for sh in ((B, C2, Y), (B, C2, X), (B, Z, C2))]
-            err = getattr(lib, f"i8_score_{kernel}_tables")(
-                cube.data_ptr(), *qp, *[t_.data_ptr() for t_ in t], B, X, Y, Z, C2, XS, P,
-                stream)
-            if err != 0:
-                raise RuntimeError(f"i8_score_{kernel}_tables launch failed: CUDA error {err}")
-            return t
-
-        def grouped(B):
-            return lookup(B, kernel="grouped")
-
-        def sel(B, lib=lib):
-            t = [torch.empty(sh, dtype=torch.int32, device=dev)
-                 for sh in ((B, C2, Y), (B, C2, X), (B, T, C2))]
-            err = lib.i8_score_sel_tables(cube.data_ptr(), *qp, kidx.data_ptr(),
-                                          *[t_.data_ptr() for t_ in t], B, X, Y, Z, C2, T,
-                                          stream)
-            if err != 0:
-                raise RuntimeError(f"i8_score_sel_tables launch failed: CUDA error {err}")
-            return t
-
-        def sel3(B, lib=lib):
-            s = [torch.empty((B, T, C2), dtype=torch.int32, device=dev) for _ in range(3)]
-            err = lib.i8_score_sel3_scores(cube.data_ptr(), *qp, ijk.data_ptr(), None,
-                                           *[s_.data_ptr() for s_ in s], B, X, Y, Z, C2, T,
-                                           stream)
-            if err != 0:
-                raise RuntimeError(f"i8_score_sel3_scores launch failed: CUDA error {err}")
-            return s
-
+        resident = {k: lib_resident(lib, k, dims, C2, 4096) for k in ("lookup", "grouped")}
+        width = lib_plan(lib, dims, C2, 4096)[1]
         parts = []
-        for name, fn, symbol in (("combo", combo, "combo_tables_kernel"),
-                                 ("lookup", lookup, "lookup_tables_kernel"),
-                                 ("grouped", grouped, "grouped_tables_kernel"),
-                                 ("sel", sel, "sel_tables_kernel"),
-                                 ("sel3", sel3, "sel3_scores_kernel")):
+        for name, symbol in I8_SYMBOLS.items():
             parts.append(f"{name} " + " / ".join(
-                f"{device_ms(lambda B=B, fn=fn: fn(B), symbol, 20):.4f}" for B in (4096, 64)))
+                f"{device_ms(int8_calls(lib, cube, q, ijk, B)[name], symbol, 20):.4f}"
+                for B in (4096, 64)))
         line = (f"tails {variant}: device ms at B=4096 / 64: " + ", ".join(parts)
                 + f" (resident blocks {resident}, slab width {width})")
         if variant == "as_committed":
             sweep = []
             for B in (1, 7, 100, 131, 132, 133):
                 P, XS = i8_tails.lookup_plan(B, X, resident["lookup"], width)
+                calls = int8_calls(lib, cube, q, ijk, B)
                 sweep.append(f"B={B} (P {P}, XS {XS}) "
-                             f"{device_ms(lambda B=B: lookup(B), 'lookup_tables_kernel', 20):.4f}"
+                             f"{device_ms(calls['lookup'], 'lookup_tables_kernel', 20):.4f}"
                              f" / glookup "
-                             f"{device_ms(lambda B=B: grouped(B), 'grouped_tables_kernel', 20):.4f}")
+                             f"{device_ms(calls['grouped'], 'grouped_tables_kernel', 20):.4f}")
             for B, plan in ((64, (3, 8)), (100, (1, width)), (131, (1, width))):
-                if not all(torch.equal(a, b) for a, b in zip(lookup(B, plan), lookup(B))):
+                forced = int8_calls(lib, cube, q, ijk, B, plan)["lookup"]
+                if not all(torch.equal(a, b) for a, b in
+                           zip(forced(), int8_calls(lib, cube, q, ijk, B)["lookup"]())):
                     raise AssertionError(f"lookup tables at B={B} differ under the plan {plan}")
-                ms = device_ms(lambda B=B, plan=plan: lookup(B, plan), "lookup_tables_kernel", 20)
+                ms = device_ms(forced, "lookup_tables_kernel", 20)
                 sweep.append(f"B={B} forced (P {plan[0]}, XS {plan[1]}) {ms:.4f}")
             line += "; lookup " + ", ".join(sweep)
         print(line, flush=True)
+
+
+# the plan at every batch forced one way: one block of two n-tiles a scan
+# (where tile_rows has one) or class groups
+_RULE = "bool one_block_pays(int B) {\n"
+BATCH_VARIANTS = {"one_block": [(_RULE, _RULE + "  if (B > 0) return true;\n")],
+                  "groups": [(_RULE, _RULE + "  if (B > 0) return false;\n")]}
+BATCH_SWEEP = (1, 33, 64, 66, 67, 96, 128, 132, 133, 160, 198, 199, 200, 264, 265, 330, 331,
+               396, 528, 660, 792, 924, 1056, 1188, 1320, 1584, 2048, 2640, 4096)
+
+
+def probe_batches(tmp: Path, earlier=None) -> None:
+    """The five int8 kernels at 5 classes on the default arena (C2 = 10,
+    where one block of two n-tiles a scan or two class groups take a
+    scan) over BATCH_SWEEP: as committed, under BATCH_VARIANTS and, with
+    --earlier, that source, interleaved at each batch in the order
+    earlier, groups, one_block, as_committed, as_committed, one_block,
+    groups, earlier, each variant's tables checked against the committed
+    build's. Then at 43 x 31 x 351 with 6 rows (the staged route) and
+    B = 4096 the committed build beside the earlier source, in the order
+    earlier, as_committed, as_committed, earlier, four times."""
+    texts = {"earlier": Path(earlier).read_text()} if earlier else {}
+    libs = build_variants("i8_score", {"as_committed": []} | BATCH_VARIANTS, tmp, texts)
+    for lib in libs.values():
+        i8_score._bind(lib)
+    order = [v for v in ("earlier", "groups", "one_block", "as_committed") if v in libs]
+    order += order[::-1]
+
+    def sweep(dims, C2, batches, order):
+        q, cube, ijk = int8_operands(dims, C2, max(batches))
+        for B in batches:
+            calls = {v: int8_calls(libs[v], cube, q, ijk, B) for v in libs}
+            want = {n: f() for n, f in calls["as_committed"].items()}
+            for v in libs:
+                for n, f in calls[v].items():
+                    if not all(torch.equal(a, b) for a, b in zip(f(), want[n])):
+                        raise AssertionError(f"{v} {n} at B={B}: other tables")
+            times = {v: {n: [] for n in I8_SYMBOLS} for v in libs}
+            for v in order:
+                for n, ms in kernel_device_ms(calls[v], I8_SYMBOLS, 20).items():
+                    times[v][n].append(ms)
+            plans = ", ".join(f"{v} {lib_plan(libs[v], dims, C2, B)}" for v in libs)
+            print(f"batches {dims} C2={C2} B={B} (rows a block, slab width: {plans}): device "
+                  "ms a call, " + "; ".join(
+                      f"{n} " + ", ".join(f"{v} " + "/".join(f"{x:.4f}" for x in times[v][n])
+                                          for v in libs)
+                      for n in I8_SYMBOLS), flush=True)
+
+    sweep((22, 31, 176), 10, BATCH_SWEEP, order)
+    if "earlier" in libs:
+        libs = {v: libs[v] for v in ("as_committed", "earlier")}
+        sweep((43, 31, 351), 6, (4096,), ["earlier", "as_committed", "as_committed", "earlier"] * 4)
 
 
 _NATIVE_LOADS_ONLY = [("        if (y < Y)\n          row_step<C>(",
@@ -475,17 +631,18 @@ NATIVE_CLOCKS = {0: ("first consumer warp", ("wait for the slab", "rows", "m1 at
                  12: ("producer", ("wait for a free stage", "m2 sums", "copy issue", "loop"))}
 
 
-def ptxas_lines(log: str) -> str:
-    """ptxas's register and spill lines for the table kernel, one per
-    instantiation, shortened to `C, W: registers, spills`."""
+def ptxas_lines(log: str, symbol: str = "native_tables_kernel") -> str:
+    """ptxas's register and spill lines for the kernel named `symbol`, one
+    per instantiation, led by its template arguments as mangled (`<3,8>`
+    for integers, `<b1,2>` for a bool and an integer)."""
     out, kernel = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1] if "'" in line else line
-        elif kernel and "native_tables_kernel" in kernel and (
-                "registers" in line or "spill" in line):
-            tmpl = kernel.split("ILi")[1:] if "ILi" in kernel else [kernel]
-            args = ",".join(t.split("E")[0] for t in tmpl)
+        elif kernel and symbol in kernel and ("registers" in line or "spill" in line):
+            tmpl = kernel.split(symbol, 1)[1].split("Ev", 1)[0]
+            args = ",".join(("b" if k == "b" else "") + v
+                            for k, v in re.findall(r"L([bi])(\d+)E", tmpl))
             out.append(f"<{args}> {line.split(':', 1)[-1].strip()}")
     return "\n  ".join(out)
 
@@ -544,6 +701,73 @@ def probe_native_at(libs: dict, logs: dict, dims) -> None:
         print(f"{line}\n  {ptxas_lines(logs[variant])}", flush=True)
 
 
+# The mma probe: int8 mma.sync m16n8k32 (the table kernels' instruction) in
+# a register-only loop of `chains` independent accumulators a warp, one
+# block of `warps` warps on each SM.
+MMA_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int kChains>
+__global__ void __launch_bounds__(512, 1) mma_rate_kernel(int iters, int* out) {
+  int d[kChains][4] = {};
+  const uint32_t x = threadIdx.x;
+  const uint32_t a0 = x, a1 = x * 3u, a2 = x ^ 5u, a3 = 7u, b0 = x * 11u, b1 = 13u;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < kChains; ++c)
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+r"(d[c][0]), "+r"(d[c][1]), "+r"(d[c][2]), "+r"(d[c][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+  int s = 0;
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  if (s == 0x7fffffff) out[0] = s;  // keeps the products
+}
+extern "C" int mma_rate(int chains, int blocks, int warps, int iters, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* o = static_cast<int*>(out);
+  if (chains == 1) mma_rate_kernel<1><<<blocks, 32 * warps, 0, st>>>(iters, o);
+  else if (chains == 4) mma_rate_kernel<4><<<blocks, 32 * warps, 0, st>>>(iters, o);
+  else mma_rate_kernel<8><<<blocks, 32 * warps, 0, st>>>(iters, o);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def probe_mma(tmp: Path) -> None:
+    """int8 mma.sync m16n8k32 a warp can issue: device time of a loop on
+    every SM, as TOPS and SM clocks an mma (at the SM clock nvidia-smi
+    reads under the load), beside the card's 1,979 TOPS int8 peak."""
+    src = tmp / "mma_rate.cu"
+    src.write_text(MMA_SOURCE)
+    lib_path = tmp / "libmma_rate.so"
+    subprocess.run([_cuda_build.find_nvcc(), *_cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mma_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    dev = torch.device("cuda", 0)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    iters = 4096
+    for warps, chains in ((16, 8), (16, 4), (16, 1), (4, 8), (8, 8)):
+        def run(warps=warps, chains=chains):
+            err = lib.mma_rate(chains, sms, warps, iters, out.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"mma_rate launch failed: CUDA error {err}")
+        ms = device_ms(run, "mma_rate_kernel", 5)
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60).stdout.strip()
+        n = sms * warps * iters * chains  # mma
+        tops = n * 16 * 8 * 32 * 2 / (ms * 1e-3) / 1e12
+        print(f"mma {warps} warps an SM x {chains} chains: {ms:.4f} ms, {tops:.0f} TOPS int8, "
+              f"{ms * 1e-3 * float(clock or 'nan') * 1e6 / (n / sms):.2f} SM clocks an mma "
+              f"(clocks.sm {clock} MHz after the run)", flush=True)
+
+
 def probe_traces(n: int = 40) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -579,11 +803,15 @@ def main(argv) -> None:
         if "rbf" in which:
             probe_rbf(Path(tmp))
         if "i8" in which:
-            probe_i8(Path(tmp))
+            probe_i8(Path(tmp), earlier)
         if "tails" in which:
             probe_tails(Path(tmp))
+        if "batches" in which:
+            probe_batches(Path(tmp), earlier)
         if "native" in which:
             probe_native(Path(tmp), earlier)
+        if "mma" in which:
+            probe_mma(Path(tmp))
     if "traces" in which:
         probe_traces()
 

@@ -174,7 +174,7 @@ def test_encode_matches_jax(rng, dtype):
 def _probe_variants():
     from radarml_tpu_torch.utils import kernel_probe
 
-    return sorted(kernel_probe.I8_VARIANTS)
+    return sorted(kernel_probe.I8_VARIANTS) + sorted(kernel_probe.BATCH_VARIANTS)
 
 
 @pytest.mark.parametrize("Z", [9, 176, 180, 351, 400])
@@ -183,10 +183,11 @@ def test_int8_plan_mirror_keeps_every_shape(Z):
     whole_scan_plan, which chip_smoke.py's phase 3 holds to the CUDA
     source's): every shape the layout without a staged route took (qxz
     resident, slabs by whole 16-byte units or byte loads) still has a
-    plan; shapes whose rows are whole 16-byte units keep it; rows that are
-    not take the staged route wherever one class row fits it (its staging
-    area costs a slab, so at a small X its slabs can be narrower than the
-    byte-load route's were)."""
+    plan; shapes whose rows are whole 16-byte units keep it, but where one
+    block of two n-tiles takes all the class rows at slabs at least
+    WIDE_SLAB x rows wide; rows that are not take the staged route
+    wherever one class row fits it (its staging area costs a slab, so at a
+    small X its slabs can be narrower than the byte-load route's were)."""
 
     def unstaged(X, Y, C2):
         for ng in range(-(-C2 // tk.MAX_GROUP_ROWS), C2 + 1):
@@ -209,22 +210,68 @@ def test_int8_plan_mirror_keeps_every_shape(Z):
                     assert tk.layout_bytes(xs, 1, X, Y, Z, rows, staged=staged) <= tk.SMEM_MAX
                     assert staged == (Z % 16 != 0 and tk._width(X, Y, Z, 1, (True,) * 3,
                                                                  True) > 0), where
-                if Z % 16 == 0:
-                    assert new == old, where
+                    if rows > tk.MAX_GROUP_ROWS:  # one block of two n-tiles, wide slabs
+                        assert rows == C2 and xs >= min(X, tk.WIDE_SLAB), where
+                    elif Z % 16 == 0:
+                        assert new == old, where
     if Z == 351:  # the finer arena: slabs five x rows wide where they were one
         assert unstaged(43, 31, 6) == (6, 1) and tk.whole_scan_plan(43, 31, 351, 6) == (6, 5)
+
+
+# The listed shapes: the default arena and the three finer ones.
+LISTED_DIMS = [(22, 31, 176), (43, 31, 351), (22, 31, 351), (43, 61, 351)]
+
+
+@pytest.mark.parametrize("C2", range(1, 33))
+@pytest.mark.parametrize("dims", LISTED_DIMS, ids=lambda d: "x".join(map(str, d)))
+def test_int8_plan_takes_one_block_where_slabs_stay_wide(dims, C2):
+    """Every class row count the JAX package serves at the listed shapes
+    (C2 = levels x C: 1 to 32 at levels 1, the even ones at levels 2) has a
+    plan, and its block fits SMEM_MAX. Past one n-tile, all the class rows
+    go to one block a scan (up to MAX_TILES n-tiles) exactly where that
+    block's slabs are at least WIDE_SLAB x rows wide (t2's 16-row tiles
+    half full); otherwise the blocks a scan are the fewest class groups of
+    at most MAX_GROUP_ROWS rows that fit. At the default arena the plan
+    up to 8 rows is the earlier one (C2 rows, slabs 11 x rows wide), 9 and
+    10 rows (9 classes at levels 1, 5 at levels 2) take one block with
+    slabs 8 x rows wide, and the rest class groups at 11. A batch of fewer
+    than ONE_BLOCK_SCANS_PER_SM scans an SM takes class groups in place of
+    the one block (ops/i8_score.batch_plan)."""
+    X, Y, Z = dims
+    rows, xs = tk.whole_scan_plan(*dims, C2)
+    staged = tk.staged_route(*dims)
+    assert tk.layout_bytes(xs, 1, X, Y, Z, rows, staged=staged) <= tk.SMEM_MAX
+    one = (tk.MAX_GROUP_ROWS < C2 <= tk.MAX_TILES * tk.MAX_GROUP_ROWS
+           and tk._width(X, Y, Z, C2, (True,) * 3, staged) >= min(X, tk.WIDE_SLAB))
+    if one:
+        assert rows == C2 and xs == tk._width(X, Y, Z, C2, (True,) * 3, staged)
+    else:
+        assert rows <= tk.MAX_GROUP_ROWS
+        for ng in range(-(-C2 // tk.MAX_GROUP_ROWS), -(-C2 // rows)):
+            assert tk.layout_bytes(1, 1, X, Y, Z, -(-C2 // ng), staged=staged) > tk.SMEM_MAX
+    if dims == (22, 31, 176):
+        assert (rows, xs) == ((C2, 11) if C2 <= 8 else (C2, 8) if C2 <= 10
+                              else (-(-C2 // -(-C2 // 8)), 11))
+    elif C2 <= 8:
+        assert not one
+    # below a batch of five scans an SM the one block gives way to class groups
+    assert tk.batch_plan(660, 132, *dims, C2) == tk.batch_plan(4096, 132, *dims, C2) == (rows, xs)
+    for B in (64, 659):
+        groups = tk.batch_plan(B, 132, *dims, C2)
+        assert groups == (rows, xs) if not one else groups[0] <= tk.MAX_GROUP_ROWS
 
 
 @pytest.mark.parametrize("variant", _probe_variants())
 def test_probe_patches_fit_the_source(variant):
     """utils/kernel_probe.py builds variants of csrc/i8_score.cu by text
-    patches; every patch must match the committed source exactly once, and
+    patches (its i8 and batches sections); every patch must match the committed source exactly once, and
     only `as_committed` leaves it as it is."""
     from radarml_tpu_torch.ops import _cuda_build
     from radarml_tpu_torch.utils import kernel_probe
 
     source = (_cuda_build.CSRC / "i8_score.cu").read_text()
-    text = kernel_probe.patched(source, kernel_probe.I8_VARIANTS[variant])
+    text = kernel_probe.patched(
+        source, (kernel_probe.I8_VARIANTS | kernel_probe.BATCH_VARIANTS)[variant])
     assert (text == source) == (variant == "as_committed")
     with pytest.raises(RuntimeError, match="matches 0 times"):
         kernel_probe.patched(source, [("no such line in the source", "")])
@@ -235,10 +282,11 @@ def test_kernel_on_the_card():
     """On a card: the wrapper launches the kernel (counted) and every table
     equals the plain version bit for bit, at B = 1, 7 and 300, an odd and a
     small arena, each plane masked, levels 1 and 2, 1 to 8 class rows and
-    past them (class groups: 9, 10, 16, 18, 32 rows), the finer scan
-    arenas (Z = 351, the staged route), and a cube view that starts one
-    byte into its buffer (at the default arena the byte-copy path, at
-    43 x 31 x 351 the staged route); a shape no plan takes is refused
+    past them (one block of two n-tiles: 9, 10 rows, also each plane
+    masked; class groups: 11, 16, 18, 32 rows), the finer scan arenas (Z =
+    351, the staged route), and a cube view that starts one byte into its
+    buffer (at the default arena the byte-copy path, at 3 and 5 classes,
+    at 43 x 31 x 351 the staged route); a shape no plan takes is refused
     before any launch, naming the limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -268,7 +316,7 @@ def test_kernel_on_the_card():
     ):
         held(dims, B, tk.build_combined_weights(
             _quant(rng, dims, levels, masked=masked), dims, levels=levels, device=dev))
-    for dims, rows in ((default, (*range(1, 9), 9, 10, 16, 18, 32)),
+    for dims, rows in ((default, (*range(1, 9), 9, 10, 11, 16, 18, 32)),
                        ((9, 13, 180), (*range(1, 9), 10, 18)), ((5, 7, 9), (*range(1, 9), 9, 16)),
                        ((43, 31, 351), (3, 6, 9, 10)), ((22, 31, 351), (6, 10)),
                        ((43, 61, 351), (6, 10))):
@@ -276,9 +324,16 @@ def test_kernel_on_the_card():
         for c2 in rows:
             q = [torch.from_numpy(rng.integers(-127, 128, (c2,) + s).astype(np.int8)).to(dev)
                  for s in ((X, Z), (Y, Z), (X, Y))]
-            held(dims, 9, tk.CombinedWeights(*q, dims=dims + (c2,), levels=1))
+            # past one n-tile a batch of at least five scans an SM (one block
+            # of two n-tiles a scan where the slabs stay wide)
+            held(dims, 700 if c2 > 8 else 9, tk.CombinedWeights(*q, dims=dims + (c2,), levels=1))
     held(default, 7, tk.build_combined_weights(_quant(rng, default, 2), default, device=dev),
          offset=1)
+    five = tk.build_combined_weights(_quant(rng, default, 2, C=5), default, device=dev)  # 2 n-tiles
+    held(default, 700, five, offset=1)
+    for m in (0, 1, 2):
+        held(default, 700, tk.build_combined_weights(_quant(rng, default, 2, masked=m, C=5),
+                                                     default, device=dev))
     fine = (43, 31, 351)
     held(fine, 7, tk.build_combined_weights(_quant(rng, fine, 2), fine, device=dev), offset=1)
     huge = (43, 200, 400)  # one class row's whole-scan block needs ~320 KB

@@ -454,7 +454,10 @@ def test_kernels_on_the_card():
     lookup and glookup kernels cut scans, each plane masked, levels 2 and
     1, y-groups 1 / 5 / 16 / Y (some not dividing Y), -1 / past-the-end /
     invalid slots, and sel with no slot (T = 0) and with one slab a scan
-    at (5, 7, 9), where it reads, waits and clears."""
+    at (5, 7, 9), where it reads, waits and clears; at 5 classes (10 class
+    rows) one block of two n-tiles a scan from a batch of five scans an
+    SM on (also with a plane masked) and class groups below it, at the
+    default arena and at (9, 13, 180)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -471,15 +474,21 @@ def test_kernels_on_the_card():
                 == tt.lookup_plan_on_card(B, plans[31], "grouped"))
     assert ts.slab_width(tt.build_onepass_weights(_quant(rng, (5, 7, 9))[0], (5, 7, 9),
                                                   device=dev)) == 5
-    for dims, B, masked, levels in (
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    five = tt.build_onepass_weights(_quant(rng, DEFAULT, C=5)[0], DEFAULT, device=dev)
+    assert tt.lookup_plan_on_card(5 * sms, five)[1] == 8  # one block a scan, slabs 8 x rows wide
+    assert tt.lookup_plan_on_card(64, five)[1] == 11  # class groups
+    for dims, B, masked, levels, C in [case + (3,) for case in (
             (DEFAULT, 7, None, 2), (DEFAULT, 3, 0, 2), (DEFAULT, 2, 1, 2),
             (DEFAULT, 1, 2, 2), ((5, 7, 9), 5, None, 2), ((9, 13, 180), 3, None, 2),
             (DEFAULT, 5, None, 1), ((5, 7, 9), 4, 2, 1),
             (DEFAULT, 64, None, 2), (DEFAULT, 64, 0, 2), (DEFAULT, 64, 1, 2),
             (DEFAULT, 64, 2, 2), (DEFAULT, 64, None, 1), (DEFAULT, 131, None, 2),
             (DEFAULT, 132, None, 2), (DEFAULT, 133, 1, 2), (DEFAULT, 300, None, 2),
-            (DEFAULT, 300, None, 1), ((9, 13, 180), 131, 0, 1), ((5, 7, 9), 133, None, 2)):
-        port_q, _ = _quant(rng, dims, masked, levels=levels)
+            (DEFAULT, 300, None, 1), ((9, 13, 180), 131, 0, 1), ((5, 7, 9), 133, None, 2))] + [
+            (DEFAULT, 64, None, 2, 5), (DEFAULT, 700, None, 2, 5), (DEFAULT, 700, 1, 2, 5),
+            (DEFAULT, 300, 2, 1, 10), ((9, 13, 180), 700, None, 2, 5)]:
+        port_q, _ = _quant(rng, dims, masked, C=C, levels=levels)
         cube = ts.pack_cubes_i8(_cubes(rng, B, dims)).to(dev)
         ijk = torch.from_numpy(_ijk(rng, dims, B, 4)).to(dev)
         valid = torch.from_numpy(rng.random((B, 4)) < 0.7).to(dev)

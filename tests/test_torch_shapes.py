@@ -23,9 +23,10 @@ test_torch_native_score.py. Tolerances, with their reasons:
   1e-6 (the JAX package's own contract). The JAX side runs fast int8 and
   pallas only: its interpret-mode fused tails take 8-42 s a call here.
 
-The work plans that let the kernels take these shapes (class groups and
-the staged route for the int8 kernels, the long-row instance, z-chunks
-and class groups for B7) are made by the CUDA sources, which the wrappers
+The work plans that let the kernels take these shapes (one block of two
+n-tiles or class groups and the staged route for the int8 kernels, the
+long-row instance, z-chunks and class groups for B7) are made by the
+CUDA sources, which the wrappers
 ask on the card. Each has a host mirror, ops/i8_score.whole_scan_plan and
 ops/score.native_plan, checked here to serve every listed shape and to
 keep the default arena's earlier plan, and against the kernels' own on
@@ -58,7 +59,7 @@ DEFAULT = (22, 31, 176)
 FINE = {(43, 31, 351): dict(r_res=1.0, theta_res=2.0), (22, 31, 351): dict(r_res=1.0),
         (43, 61, 351): dict(r_res=1.0, theta_res=2.0, phi_res=1.0)}
 SMALL = [(5, 7, 9), (9, 13, 180)]
-ROWS = [9, 10, 16, 18]  # class rows C2 = levels x C: 9 = 9 x 1, else 2 x C
+ROWS = [9, 10, 16, 18, 32]  # class rows C2 = levels x C: 9 = 9 x 1, else 2 x C
 ENTRIES = ["combo", "lookup", "glookup", "sel", "sel3"]
 
 
@@ -158,9 +159,9 @@ def _jax(entry, jax_q, dims, c2, cubes, ijk, valid):
 @pytest.mark.parametrize("c2", ROWS)
 @pytest.mark.parametrize("dims", SMALL, ids=lambda d: "x".join(map(str, d)))
 def test_int8_tables_past_eight_rows_match_jax(rng, dims, c2, entry):
-    """B1-B5 (plain versions) at 9 / 10 / 16 / 18 class rows, bit-equal to
-    the JAX kernels in interpret mode; -1, past-the-end and invalid slots
-    read zero in both."""
+    """B1-B5 (plain versions) at 9 / 10 / 16 / 18 / 32 class rows, bit-equal
+    to the JAX kernels in interpret mode; -1, past-the-end and invalid
+    slots read zero in both."""
     port_q, jax_q = _quant(rng, dims, c2)
     B, T = 3, 2
     cubes = rng.integers(0, 256, (B,) + dims).astype(np.uint8)
@@ -331,7 +332,9 @@ def test_every_listed_shape_has_a_card_plan(dims, classes):
         if Z == 351:
             assert (zc, cg) == ((351, min(C, 3)) if Y == 31 else (176, 3))
         rows, width = ts.whole_scan_plan(*dims, 2 * C)
-        assert 1 <= rows <= ts.MAX_GROUP_ROWS and 1 <= width <= X
+        assert 1 <= rows <= ts.MAX_TILES * ts.MAX_GROUP_ROWS and 1 <= width <= X
+        if rows > ts.MAX_GROUP_ROWS:  # one block of two n-tiles a scan, slabs kept wide
+            assert rows == 2 * C and width >= min(X, ts.WIDE_SLAB)
         assert ts.layout_bytes(width, 1, *dims, rows, staged=ts.staged_route(*dims)) \
             <= ts.SMEM_MAX
         if Z == 351 and Y == 31:

@@ -91,9 +91,12 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              43x31x351 with 3 classes (B1-B5 on the staged route, B7 one
              long-row launch) and with 9; by CUDA events the fast path's
              float32 tables (B7's comparator) at 9 classes and at
-             43x31x351 with 3, and there the demo model's exact, fast f32
-             and fast int8 steps at B=4096 and 64; the profiler traces'
-             launch records against the launches their calls made. With
+             43x31x351 with 3; the C7 table (utils/route_bench): the demo
+             model's exact, fast f32 and fast int8 steps at B 1 / 7 / 64 /
+             128 / 4096 beside the einsums the fast modes replaced, fast
+             int8's tables checked bit-equal to the int64 route's at every
+             batch; the profiler traces' launch records against the
+             launches their calls made. With
              --parent, the parent's kernel sources beside this tree's at
              B=4096 at the default arena (the same bits, profiler device
              times in the order parent, this, this, parent, twice) and at
@@ -198,8 +201,8 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              default schedule (100 epochs, patience 10, batch 64: epochs run,
              seconds an epoch in the app and warm, ms a step by CUDA events,
              one traced step's kernels, device ms and idle share, best val
-             loss and accuracy, peak memory) and the sgan app on the same
-             data (128x128, n_batch 32, 150 supervised samples, 5 epochs:
+             loss and accuracy, its history by epoch, peak memory) and the
+             sgan app on the same data (128x128, n_batch 32, 150 supervised samples, 5 epochs:
              steps, seconds, ms a fused four-phase step by CUDA events and
              traced, both precise-BN recalibrations' ms, the c head's val
              accuracy, peak memory); each artifact served by the predict app
@@ -249,7 +252,10 @@ Phases, one line of findings each; any failure raises (non-zero exit):
 15. mesh   — the multi-device layer (radarml_tpu_torch/parallel/), each
              group's ranks in processes of their own (this script with
              --mesh-rank GROUP DIR, started by parallel/spawn.run_ranks
-             with torchrun's environment and a deadline). One rank on a
+             with torchrun's environment, a store this process hosts and a
+             deadline; each rank leaves its group with
+             mesh.close_distributed and its exit code is printed). One
+             rank on a
              group of its own (NCCL on cuda:0): make_dp_sgd_train_step
              (512 x 10,010) and the fused combo predictor at B=4096 on
              make_mesh(1) bit-equal to mesh=None. Two ranks sharing
@@ -270,7 +276,8 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              walked alone bit-equal to the same fold in the 5-fold stack,
              a 3-fold stack to its slice (the one-device controls run
              beside the ranks). The dnn app with
-             --mesh 2 under python -m torch.distributed.run (3 epochs of
+             --mesh 2 under python -m torch.distributed.run --standalone
+             (3 epochs of
              make_dataset(2280)) against --mesh 0 run twice, all under
              cuDNN's deterministic algorithms (DNN_LAUNCHER): the first
              epoch's loss within rtol 1e-4, later epochs within twice one
@@ -318,8 +325,9 @@ Phases, one line of findings each; any failure raises (non-zero exit):
              pallas mode), equal to direct calls; the demo model at
              43x31x351, B=4096, each mode's step by CUDA events and each
              table kernel's device time a call, the traces' launch
-             records against the launches. Its record is printed as a
-             {"shapes": ...} JSON line.
+             records against the launches; the C7 table at 43x31x351 (as
+             phase 6's). Its record is printed as a {"shapes": ...} JSON
+             line.
 
 Every phase's seconds are printed as it ends ([time] lines).
 
@@ -401,6 +409,8 @@ from radarml_tpu_torch.data.synthetic import (  # noqa: E402
 from radarml_tpu_torch.models import linear, svc  # noqa: E402
 from radarml_tpu_torch.models.linear import from_numpy  # noqa: E402
 from radarml_tpu_torch.models.pipeline import (  # noqa: E402
+    EXACT_BLOCK_BYTES,
+    M1_SLAB_BYTES,
     RadarPredictor,
     folded_tables,
     pad_targets,
@@ -411,7 +421,8 @@ from radarml_tpu_torch.ops.features import FeatureSpec, process_samples  # noqa:
 from radarml_tpu_torch.serving.stream import StreamConfig, StreamingClassifier  # noqa: E402
 from radarml_tpu_torch.train.gridsearch import SGD_PARAM_GRID, parameter_grid  # noqa: E402
 from radarml_tpu_torch.train.trainer import deterministic_cudnn  # noqa: E402
-from radarml_tpu_torch.utils import kernel_probe  # noqa: E402
+from radarml_tpu_torch.utils import kernel_probe, route_bench  # noqa: E402
+from radarml_tpu_torch.utils.route_bench import cuda_ms, interleaved  # noqa: E402
 from radarml_tpu_torch.utils.profiling import (  # noqa: E402
     TRACES, kernel_device_calls, kernel_device_ms)
 
@@ -498,31 +509,6 @@ def margin_ok(proba: np.ndarray, best: np.ndarray, min_proba: float,
     return (top2[..., 1] - top2[..., 0] > margin) & (
         np.abs(best - min_proba) > margin
     )
-
-
-def cuda_ms(fn, inner: int) -> float:
-    """Mean ms of one fn() over `inner` back-to-back calls (CUDA events)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(inner):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / inner
-
-
-def interleaved(fns: dict, inner: int, rounds: int) -> dict:
-    """Median ms per name; names alternate order every round."""
-    for fn in fns.values():  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    times = {k: [] for k in fns}
-    names = list(fns)
-    for r in range(rounds):
-        for k in names if r % 2 == 0 else names[::-1]:
-            times[k].append(cuda_ms(fns[k], inner))
-    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def random_quant(rng, dims, levels, masked=None, C=3):
@@ -1595,6 +1581,11 @@ def neural_in(d, dev, smi) -> dict:
         + f"); peak device memory of the app {cnn_peak:.1f} MiB above what was held; "
         f"predict --mode exact over c_model.pickle, {N_NEURAL_SCANS} scans: {n_ans} targets "
         f"== a direct RadarPredictor call (proba delta {d_cnn:.2e})")
+    res["cnn"]["history"] = {k: [float(v) for v in hist[k]] for k in
+                             ("loss", "val_loss", "accuracy", "val_accuracy")}
+    say("neural", "the dnn app's history by epoch: " + "; ".join(
+        f"{k} " + ", ".join(f"{v:.4f}" for v in vals)
+        for k, vals in res["cnn"]["history"].items()))
 
     # c. C5: kill and resume on the card
     t0 = time.perf_counter()
@@ -2352,11 +2343,12 @@ def mesh_rank(argv) -> None:
         rep.update(counts=counts, ms=ms, s_parts=parts)
     rep["s"] = time.perf_counter() - t_start
     print(json.dumps(rep), flush=True)
+    pmesh.close_distributed()
 
 
 def mesh_group(d, group: str, n: int) -> list:
     """Run `n` ranks of `group` (this script with --mesh-rank) and return
-    their reports."""
+    their reports (run_ranks returns only when every rank exited 0)."""
     from radarml_tpu_torch.parallel.spawn import run_ranks
 
     outs = run_ranks([sys.executable, os.path.abspath(__file__), "--mesh-rank", group, d],
@@ -2396,8 +2388,6 @@ def mesh_data(d, dev, svc_model):
 def mesh_in(d, dev, smi, svc_model) -> dict:
     import pickle
 
-    from radarml_tpu_torch.parallel.spawn import free_port
-
     logging.getLogger("radarml_tpu_torch").setLevel(logging.WARNING)
     t_phase = t0 = time.perf_counter()
     json.dump(MESH_CFG, open(os.path.join(d, "mesh.json"), "w"))
@@ -2414,7 +2404,7 @@ def mesh_in(d, dev, smi, svc_model) -> dict:
         f"combo predictor (B={MESH_CFG['scans']}) on make_mesh(1) against mesh=None: "
         f"{one['dp_step_equal']} / {one['fused_equal']} bit-equal; {one['s']:.1f} s in the "
         f"rank; {res['one']['s_group']:.1f} s for it and the data (made in "
-        f"{res['s_data']:.1f} s)")
+        f"{res['s_data']:.1f} s); the rank left its group and exited 0")
     check(one["dp_step_equal"], "the dp step on a one-rank mesh differs from no mesh")
     check(one["fused_equal"], "the fused predictor on a one-rank mesh differs from no mesh")
 
@@ -2474,7 +2464,8 @@ def mesh_in(d, dev, smi, svc_model) -> dict:
     res["two"] = [{k: rep[k] for k in ("rank", "backend", "device", "s", "s_parts", "ms")}
                   for rep in two]
     say("mesh", f"on {smi}: two ranks sharing {two[0]['device']}, backend {two[0]['backend']} "
-        f"(ranks on {two[0]['device']} / {two[1]['device']}; {two_s:.1f} s with their start "
+        f"(ranks on {two[0]['device']} / {two[1]['device']}, each left the group and exited 0"
+        f"; {two_s:.1f} s with their start "
         "and this process's one-device controls beside them; in rank 0: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in two[0]["s_parts"].items())
         + f"): sharded serving B={MESH_CFG['scans']} x 4 slots, each rank's half bit-equal to "
@@ -2523,8 +2514,8 @@ def mesh_in(d, dev, smi, svc_model) -> dict:
         common += ["--platform", "cpu"]
 
     def torchrun():
-        return ["-m", "torch.distributed.run", "--nproc-per-node", "2", "--master-addr",
-                "127.0.0.1", "--master-port", str(free_port()), launcher, "--mesh", "2"]
+        return ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                launcher, "--mesh", "2"]
 
     runs = {"dnn2": torchrun(), "dnn2_nosum": torchrun(), "dnn0_0": [launcher],
             "dnn0_1": [launcher]}
@@ -2547,6 +2538,8 @@ def mesh_in(d, dev, smi, svc_model) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    say("mesh", "dnn runs' exit codes (the torchrun runs' ranks leave their group at exit): "
+        + ", ".join(f"{k} {p.returncode}" for k, p in procs.items()))
     hists = {}
     for k in runs:
         with open(os.path.join(d, k, "c_model.pickle"), "rb") as f:
@@ -2994,25 +2987,34 @@ def native_launches(dims, C: int) -> int:
     return -(-dims[2] // zc) * -(-C // cg)
 
 
-def demo_steps(dev, B: int, fine: bool) -> dict:
-    """The demo model at the default or the 43 x 31 x 351 scan arena:
-    name -> (predictor, inputs) of exact, fast f32 and fast int8 over B
-    synthetic scans (64 tiled), 4 slots, inputs on the card."""
-    g = dict(np.load(ASSET))
-    arena = Arena(**FINE_ARENAS["43x31x351"]) if fine else DEFAULT_ARENA
-    model, calib = from_numpy(g["coef"], g["intercept"], g["calib_a"], g["calib_b"], device=dev)
-    kw = dict(train_arena=DEFAULT_ARENA, scan_arena=arena, model=model, calibration=calib,
-              min_proba=float(g["min_proba"]), device=dev)
-    cubes, targets = make_scan_batch(SMALL_B, arena=arena, seed=int(g["scan_seed"]))
-    xyz, valid = pad_targets([[(t.x, t.y, t.z)] for t in targets], max_targets=4)
-    reps = -(-B // SMALL_B)
-    f32 = torch.from_numpy(np.rint(cubes).astype(np.float32)).to(dev).repeat(reps, 1, 1, 1)[:B]
-    xyz = torch.from_numpy(xyz).to(dev).repeat(reps, 1, 1)[:B]
-    valid = torch.from_numpy(valid).to(dev).repeat(reps, 1)[:B]
-    preds = {"exact": RadarPredictor(mode="exact", **kw), "fast": RadarPredictor(mode="fast", **kw),
-             "fast_i8": RadarPredictor(mode="fast", cube_dtype="int8", **kw)}
-    i8 = i8_score.encode_int8_cubes(f32)
-    return {k: (p, (i8 if k == "fast_i8" else f32, xyz, valid)) for k, p in preds.items()}
+C7_BATCHES = (1, 7, 64, 128, BIG)
+
+
+def c7_table(dev, smi, phase: str, fine: bool) -> dict:
+    """ROADMAP C7: the demo model's exact, fast and fast int8 steps at B 1 /
+    7 / 64 / 128 / 4096 beside the einsums the fast modes replaced
+    (`utils/route_bench.route_table`, CUDA events, 4 slots), at the default
+    or the 43 x 31 x 351 scan arena. Fails if fast int8's tables differ
+    by a bit from the int64 route's (the float64 einsums' integers on the
+    card, the CPU's int64 einsums up to 128 scans)."""
+    arena = "43x31x351" if fine else "22x31x176"
+    t0 = time.perf_counter()
+    table = route_bench.route_table(dev, fine, batches=C7_BATCHES, forced_routes=False)
+    for B, r in table.items():
+        check(all(r["bits"].values()),
+              f"fast int8's tables differ from the int64 route's at {arena}, B={B}: {r['bits']}")
+    say(phase, f"C7 on {smi} at {arena}, the demo model's step in ms by CUDA events, 4 slots "
+        "(fast: M1 in one product while one x's slab of the batch is at most "
+        f"pipeline.M1_SLAB_BYTES = {M1_SLAB_BYTES >> 20} MiB, else one a x; fast int8: m1 and m3 "
+        "over the (scan, x) blocks while the bytes they move are at most "
+        f"pipeline.EXACT_BLOCK_BYTES = {EXACT_BLOCK_BYTES >> 20} MiB, else a x; einsums: the forms "
+        "they replaced): " + "; ".join(
+            f"B={B}: exact {r['ms']['exact']:.4f}, fast {r['ms']['fast']:.4f} (einsums "
+            f"{r['ms']['fast_einsum']:.4f}), fast int8 {r['ms']['fast_i8']:.4f} (einsums "
+            f"{r['ms']['fast_i8_einsum']:.4f})" for B, r in table.items())
+        + "; fast int8's tables == the int64 route's at every batch; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return table
 
 
 def shape_timing(dev) -> dict:
@@ -3028,11 +3030,10 @@ def shape_timing(dev) -> dict:
     stands beside the call's bound. Random int8 / bf16 cubes and
     templates, 4 slots a scan. At 9 classes and at 43 x 31 x 351 with 3,
     by CUDA events, the fast path's float32 tables (pipeline.folded_tables,
-    B7's comparator "fast_f32") on the float32 cube with B7's templates;
-    at 43 x 31 x 351 also the demo model's exact, fast f32 and fast int8
-    steps ("steps"). Returns {shape:
+    B7's comparator "fast_f32") on the float32 cube with B7's templates.
+    Returns {shape:
     {name: {B: {"device": ms, "launches": n, "bound": ms, "bound_by": ...}}}}
-    with "fast_f32" {B: ms} and "steps" {B: {mode: ms}} at 43 x 31 x 351."""
+    with "fast_f32" {B: ms} at those two shapes."""
     gen = torch.Generator(device=dev).manual_seed(6)
     rng = np.random.default_rng(6)
     out = {}
@@ -3073,14 +3074,6 @@ def shape_timing(dev) -> dict:
                                               inner=3 if B == BIG else 20, rounds=3)["f"]
                                for B in (BIG, SMALL_B)}
             del f32, bf
-        if shape == "43x31x351":
-            res["steps"] = {}
-            for B in (BIG, SMALL_B):
-                steps = demo_steps(dev, B, fine=True)
-                res["steps"][B] = interleaved(
-                    {k: (lambda p=p, a=a: p(*a)) for k, (p, a) in steps.items()},
-                    inner=2 if B == BIG else 10, rounds=3)
-                del steps
         out[shape] = res
     return out
 
@@ -3407,8 +3400,9 @@ def shapes_in(d, dev, smi) -> dict:
                                     - np.array([p for _, p in want_app])).max())
         check(d_app[quant] <= 1e-6, f"the predict app --fused_quant {quant} vs direct "
               f"{d_app[quant]}")
+    c7 = c7_table(dev, smi, "shapes", fine=True)
     res = {"rows": rows, "launches": launched, "model_s": model_s, "predict_app_s": app_s,
-           "step_ms_43x31x351": step_ms, "device_ms_43x31x351": kdev,
+           "step_ms_43x31x351": step_ms, "device_ms_43x31x351": kdev, "c7_43x31x351": c7,
            "trace_records": records,
            "predict_app_targets": {m: len(app[m]) for m in app}, "predict_app_delta": d_app,
            "s": time.perf_counter() - t_phase}
@@ -3854,7 +3848,7 @@ def main(argv) -> None:
                 f"{name} {t[BIG]['device']:.4f} / {t[SMALL_B]['device']:.4f} in "
                 f"{t[BIG]['launches']} / {t[SMALL_B]['launches']} launches a call (bound "
                 f"{t[BIG]['bound']:.4f} / {t[SMALL_B]['bound']:.4f}, {t[BIG]['bound_by']})"
-                for name, t in res.items() if name not in ("fast_f32", "steps"))
+                for name, t in res.items() if name != "fast_f32")
             for shape, res in shape_ms.items()) + f"; in {time.perf_counter() - t0:.1f} s")
     nine_ms = shape_ms["9_classes"]["fast_f32"]
     say("timing", f"9 classes on {smi}, by CUDA events, B=4096 / B=64: B7's comparator, the "
@@ -3863,16 +3857,15 @@ def main(argv) -> None:
     fine_ms = shape_ms["43x31x351"]
     say("timing", f"43x31x351 on {smi}, by CUDA events, B=4096 / B=64: B7's comparator, the "
         "fast path's float32 tables (folded_tables) on the float32 cube with B7's templates, "
-        f"{fine_ms['fast_f32'][BIG]:.4f} / {fine_ms['fast_f32'][SMALL_B]:.4f} ms; the demo "
-        "model's steps: " + ", ".join(
-            f"{k} {fine_ms['steps'][BIG][k]:.4f} / {fine_ms['steps'][SMALL_B][k]:.4f} ms"
-            for k in fine_ms["steps"][BIG]))
+        f"{fine_ms['fast_f32'][BIG]:.4f} / {fine_ms['fast_f32'][SMALL_B]:.4f} ms (the demo "
+        "model's steps there: phase 17's C7 table)")
     if parent is None:
         say("timing", "no --parent tree given: the parent's kernel sources are not timed")
     else:
         parent_ms = parent_compare(dev, smi, parent, packed, w_tails, tijk, bf16_all, tm_demo)
         print(json.dumps({"parent": parent_ms}), flush=True)
 
+    print(json.dumps({"c7_22x31x176": c7_table(dev, smi, "timing", fine=False)}), flush=True)
     say("timing", f"profiler traces so far: {TRACES['taken']} taken, {TRACES['lacking']} "
         f"without a kernel's records; launch records {TRACES['records']} of the "
         f"{TRACES['launches']} launches the traced calls made")

@@ -43,6 +43,7 @@ mask, as in the JAX package. Results are tensors on the predictor's
 from __future__ import annotations
 
 import dataclasses
+from functools import reduce
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -93,6 +94,7 @@ __all__ = [
     "RadarPredictor",
     "encode_host_cubes",
     "encode_int8_cubes",
+    "exact_tables",
     "folded_tables",
     "folded_tables_exact",
     "pad_targets",
@@ -131,8 +133,12 @@ def folded_tables(cubes: torch.Tensor, templates) -> List[Optional[torch.Tensor]
     M3 a batched product over the scans of each scan's (Z, X·Y) view (the
     (X·Y, Z) rows, transposed) by the (X·Y, C) template; M1 a batched
     product over the scans of each x's (Y, Z) rows by that x's (Z, C)
-    template, summed over x in order. Full float32 (TF32 off); the sums
-    run in another order than the JAX package's einsums.
+    template, summed over x in order. At a small batch (`one_product_m1`)
+    M1 is instead one product of a (B·Y, X·Z) permuted copy of the cube
+    by the (X·Z, C) template; under a symbolic batch (torch.export) a
+    `torch.cond` makes the same choice at each call, so an exported
+    program keeps the live predictor's bits. Full float32 (TF32 off); the
+    sums run in another order than the JAX package's einsums.
     """
     full_f32()
     B, X, Y, Z = cubes.shape
@@ -147,12 +153,31 @@ def folded_tables(cubes: torch.Tensor, templates) -> List[Optional[torch.Tensor]
         m3 = torch.matmul(cubes.reshape(B, X * Y, Z).transpose(1, 2), t_xy.reshape(C, X * Y).T)
         m3 = m3.transpose(1, 2)
     if t_xz is not None:
-        C = t_xz.shape[0]
-        acc = torch.zeros((B, Y, C), dtype=torch.float32, device=cubes.device)
-        for x in range(X):
-            acc.baddbmm_(cubes[:, x], t_xz[:, x, :].T.expand(B, -1, -1))
-        m1 = acc.transpose(1, 2)
-    return [m1, m2, m3]
+        one = one_product_m1(cubes.shape)
+        if isinstance(one, bool):
+            m1 = (_m1_one_product if one else _m1_per_x)(cubes, t_xz)
+        else:  # a symbolic batch: the program chooses at each call
+            m1 = torch.cond(one, _m1_one_product, _m1_per_x, (cubes, t_xz))
+    return [None if m1 is None else m1.transpose(1, 2), m2, m3]
+
+
+def _m1_one_product(cubes: torch.Tensor, t_xz: torch.Tensor) -> torch.Tensor:
+    """M1 (B, Y, C) as one product of a (B·Y, X·Z) permuted copy of the
+    cube by the (X·Z, C) template."""
+    B, X, Y, Z = cubes.shape
+    C = t_xz.shape[0]
+    rows = cubes.permute(0, 2, 1, 3).reshape(B * Y, X * Z)  # the copy
+    return torch.mm(rows, t_xz.permute(1, 2, 0).reshape(X * Z, C)).view(B, Y, C)
+
+
+def _m1_per_x(cubes: torch.Tensor, t_xz: torch.Tensor) -> torch.Tensor:
+    """M1 (B, Y, C) as a batched product a x over the scans of that x's (Y,
+    Z) rows by its (Z, C) template, summed over x in order."""
+    B = cubes.shape[0]
+    acc = torch.bmm(cubes[:, 0], t_xz[:, 0, :].T.expand(B, -1, -1))
+    for x in range(1, cubes.shape[1]):
+        acc = torch.baddbmm(acc, cubes[:, x], t_xz[:, x, :].T.expand(B, -1, -1))
+    return acc
 
 
 # float32 holds every integer of magnitude up to 2^24. A product of an
@@ -162,17 +187,70 @@ def folded_tables(cubes: torch.Tensor, templates) -> List[Optional[torch.Tensor]
 EXACT_F32_TERMS = (1 << 24) // (127 * 128)  # 1032
 
 
+# The float32 route (`folded_tables`) takes M1 in one product over a
+# permuted copy of the cube while one x's float32 slab of the batch,
+# B·Y·Z·4 bytes, stays within this many; past it, one product a x on the
+# cube as it lies. The copy does not grow with the classes. The product a
+# x launches X times, and a launch pays for itself once its slab takes
+# long enough to read. Measured on an H100 (utils/route_bench.py, the demo
+# model's step with each route forced): the one product won or tied at
+# slabs up to 21 MiB (1024 scans at 22 x 31 x 176, 512 at 43 x 31 x 351),
+# the product a x won at 32 MiB (768 scans at 43 x 31 x 351); so too for
+# 9- and 16-class models (--table class_steps). Under a symbolic batch
+# (torch.export) a torch.cond chooses at each call.
+M1_SLAB_BYTES = 24 << 20
+
+
+def one_product_m1(shape):
+    """Whether `folded_tables` computes M1 of a (B, X, Y, Z) batch in one
+    product (True) or one a x: a bool, or under a symbolic batch a
+    SymBool."""
+    B, X, Y, Z = shape
+    return B * Y * Z * 4 <= M1_SLAB_BYTES
+
+
+# The int8 route (`exact_tables`) takes m1 and m3 in one batched product
+# each over the batch's (scan, x) blocks while the bytes those products
+# move stay within this many: each reads the float32-widened cube (4·B·X·
+# Y·Z), copies its template once a scan and writes each block's partial
+# table (together 4·B·X·(Y + Z) a template row); past it, the products a
+# x and the runs of (x, y), whose launches cost the same at any batch.
+# The copies grow with the class rows, so the last block batch falls as
+# they grow. Measured on an H100 (utils/route_bench.py --table
+# class_steps: the fast int8 steps of 3-, 9- and 16-class models with
+# each route forced, 64 to 1024 scans, both arenas; and the demo model's
+# steps to 4096): at this budget every step took its faster route or one
+# within 10% of it (the blocks' last batch: 1593 / 414 scans at 3 classes
+# at 22 x 31 x 176 / 43 x 31 x 351, 1162 / 307 at 9, 883 / 236 at 16).
+EXACT_BLOCK_BYTES = 1792 << 20
+
+
+def block_products_exact(shape, rows):
+    """Whether `exact_tables` computes m1 and m3 of a (B, X, Y, Z) batch
+    over the (scan, x) blocks, `rows` the template rows of each unmasked
+    plane of the two (xz, xy): a bool, or under a symbolic batch a
+    SymBool."""
+    B, X, Y, Z = shape
+    return sum(4 * B * X * (Y * Z + (Y + Z) * r) for r in rows) <= EXACT_BLOCK_BYTES
+
+
 def _runs(n: int) -> List[slice]:
     """[0, n) in consecutive runs of at most EXACT_F32_TERMS."""
     return [slice(a, min(n, a + EXACT_F32_TERMS)) for a in range(0, n, EXACT_F32_TERMS)]
 
 
 def folded_tables_exact(cubes: torch.Tensor, quant) -> List[Optional[torch.Tensor]]:
+    """`exact_tables` as int64 (see there)."""
+    return [None if m is None else m.to(torch.int64) for m in exact_tables(cubes, quant)]
+
+
+def exact_tables(cubes: torch.Tensor, quant) -> List[Optional[torch.Tensor]]:
     """The fast int8 path's raw integer tables on any device: a (B, X, Y,
     Z) int8 cube batch against the int8 templates q_xz (C2, X, Z), q_yz
-    (C2, Y, Z), q_xy (C2, X, Y) (None for a masked plane) gives int64 m1
-    (B, C2, Y), m2 (B, C2, X), m3 (B, C2, Z), exactly: the values of the
-    int64 einsums and of the JAX package's int32 ones.
+    (C2, Y, Z), q_xy (C2, X, Y) (None for a masked plane; int8, or their
+    values as float32) gives float64 m1 (B, C2, Y), m2 (B, C2, X), m3 (B,
+    C2, Z), exactly: integers, the values of the int64 einsums and of the
+    JAX package's int32 ones.
 
     The cube is widened to float32 once and contracted as it lies, in runs
     of at most EXACT_F32_TERMS products (each run's float32 result is an
@@ -181,26 +259,61 @@ def folded_tables_exact(cubes: torch.Tensor, quant) -> List[Optional[torch.Tenso
     Z) rows by that x's (Z, C2) template), m2 over each run of z for each
     y (one batched product over y of the (C2, Z) template by the (Z, B·X)
     rows), m3 over runs of the flattened (x, y) of each scan's (X·Y, Z)
-    view. On the card this is the fast int8 path; the CPU predictor keeps
-    its int64 einsums, which the tests hold this to.
+    view. At a small batch (`block_products_exact`) m1 and m3 take one
+    batched product each over the (scan, x) blocks instead
+    (`_small_batch_exact`); under a symbolic batch (torch.export) a
+    `torch.cond` makes the same choice at each call. On the card this is
+    the fast int8 path; the CPU predictor keeps its int64 einsums, which
+    the tests hold this to.
     """
     full_f32()  # a TF32 product would round
     B, X, Y, Z = cubes.shape
     v = cubes.to(torch.float32).contiguous()
-    q_xz, q_yz, q_xy = (None if q is None else q.to(torch.float32) for q in quant)
-    f64 = torch.float64
-    m1 = m2 = m3 = None
-    if q_yz is not None:
+    q_xz, q_xy = (None if q is None else q.to(torch.float32) for q in (quant[0], quant[2]))
+    m2 = None
+    if quant[1] is not None:
+        q_yz = quant[1].to(torch.float32)
         C2 = q_yz.shape[0]
         rows = v.view(B * X, Y, Z).permute(1, 2, 0)  # (Y, Z, B·X), no copy
-        tq = q_yz.permute(1, 0, 2).contiguous()  # (Y, C2, Z)
-        m2 = sum(torch.bmm(tq[:, :, r], rows[:, r]).sum(0, dtype=f64) for r in _runs(Z))
+        tq = q_yz.permute(1, 0, 2)  # (Y, C2, Z), no copy
+        m2 = reduce(torch.add, (torch.bmm(tq[:, :, r], rows[:, r]).sum(0, dtype=torch.float64)
+                                for r in _runs(Z)))
         m2 = m2.view(C2, B, X).transpose(0, 1)
+    present = [q for q in (q_xz, q_xy) if q is not None]
+    if not present:
+        return [None, m2, None]
+    small = block_products_exact(cubes.shape, [q.shape[0] for q in present])
+    if isinstance(small, bool):
+        m1, m3 = (_small_batch_exact if small else _per_x_exact)(v, q_xz, q_xy)
+    else:  # a symbolic batch: the program chooses at each call
+
+        def branch(fn):
+            def run(v, *qs):
+                it = iter(qs)
+                out = fn(v, *(None if q is None else next(it) for q in (q_xz, q_xy)))
+                # contiguous: both branches' outputs must have one layout
+                return tuple(m.contiguous() for m in out if m is not None)
+            return run
+
+        out = iter(torch.cond(small, branch(_small_batch_exact), branch(_per_x_exact),
+                              (v, *present)))
+        m1, m3 = (None if q is None else next(out) for q in (q_xz, q_xy))
+    return [m1, m2, m3]
+
+
+def _per_x_exact(v: torch.Tensor, q_xz, q_xy) -> Tuple:
+    """Exact float64 m1 (B, C2, Y) and m3 (B, C2, Z) of a float32-widened
+    int8 batch `v` on the cube as it lies: m1 a batched product over the
+    scans for each x and run of z, m3 a batched product over the scans for
+    each run of the flattened (x, y)."""
+    B, X, Y, Z = v.shape
+    f64 = torch.float64
+    m1 = m3 = None
     if q_xy is not None:
         C2 = q_xy.shape[0]
         flat, tq = v.view(B, X * Y, Z), q_xy.reshape(C2, X * Y)
-        m3 = sum(torch.matmul(flat[:, r].transpose(1, 2), tq[:, r].T).to(f64)
-                 for r in _runs(X * Y))
+        m3 = reduce(torch.add, (torch.matmul(flat[:, r].transpose(1, 2), tq[:, r].T).to(f64)
+                                for r in _runs(X * Y)))
         m3 = m3.transpose(1, 2)
     if q_xz is not None:
         # stacked, not written through bmm's out=: torch.export on the card
@@ -208,7 +321,38 @@ def folded_tables_exact(cubes: torch.Tensor, quant) -> List[Optional[torch.Tenso
         part = torch.stack([torch.bmm(v[:, x, :, r], q_xz[:, x, r].T.expand(B, -1, -1))
                             for x in range(X) for r in _runs(Z)])
         m1 = part.sum(0, dtype=f64).transpose(1, 2)
-    return [None if m is None else m.to(torch.int64) for m in (m1, m2, m3)]
+    return m1, m3
+
+
+def _per_scan_x(t: torch.Tensor, B: int) -> torch.Tensor:
+    """A (X, ·, ·) template as (B·X, ·, ·), its x-th block at b·X + x: one
+    product over the batch's (scan, x) blocks then takes one launch."""
+    return t.expand((B,) + tuple(t.shape)).reshape((B * t.shape[0],) + tuple(t.shape[1:]))
+
+
+def _small_batch_exact(v: torch.Tensor, q_xz, q_xy) -> Tuple:
+    """Exact float64 m1 (B, C2, Y) and m3 (B, C2, Z) of a float32-widened
+    int8 batch `v` in one batched product each, over its (scan, x) blocks:
+    m1 from each block's (Y, Z) rows by that x's (Z, C2) template, m3 from
+    that x's (C2, Y) template by the block; each block's sum (at most Z
+    or Y products) is an exact float32 integer, and the blocks add up
+    over x in float64. The templates are copied once a scan (B·X·Z·C2 and
+    B·X·C2·Y values); the cube is not."""
+    B, X, Y, Z = v.shape
+    blocks = v.view(B * X, Y, Z)
+    m1 = m3 = None
+    if q_xz is not None:
+        C2 = q_xz.shape[0]
+        t = _per_scan_x(q_xz.permute(1, 2, 0), B)  # (B·X, Z, C2)
+        part = reduce(torch.add, (torch.bmm(blocks[:, :, r], t[:, r]).view(B, X, Y, C2)
+                                  .sum(1, dtype=torch.float64) for r in _runs(Z)))
+        m1 = part.transpose(1, 2)
+    if q_xy is not None:
+        C2 = q_xy.shape[0]
+        t = _per_scan_x(q_xy.permute(1, 0, 2), B)  # (B·X, C2, Y)
+        m3 = reduce(torch.add, (torch.bmm(t[:, :, r], blocks[:, r]).view(B, X, C2, Z)
+                                .sum(1, dtype=torch.float64) for r in _runs(Y)))
+    return m1, m3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -466,6 +610,8 @@ class RadarPredictor:
                 None if q is None else tuple(self._tensor(a) for a in q)
                 for q in self._quantized_split_templates()
             ]
+            # the int8 templates' values as float32 once (exact_tables' operands)
+            q32 = [None if q is None else q[0].to(torch.float32) for q in quant]
         templates = [self._tensor(t) for t in self._split_templates()]
         intercept = self.model.intercept
         specs = ("cxz,bxyz->bcy", "cyz,bxyz->bcx", "cxy,bxyz->bcz")
@@ -485,13 +631,12 @@ class RadarPredictor:
             """The three (B, C, ·) float32 tables, None for a masked plane."""
             if not int8:
                 return folded_tables(cubes.to(torch.float32), templates)
-            qs = [None if q is None else q[0] for q in quant]
             if cubes.device.type == "cpu":
                 v = cubes.to(torch.int64)
-                raws = [None if q is None else torch.einsum(sp, q.to(torch.int64), v)
-                        for sp, q in zip(specs, qs)]
+                raws = [None if q is None else torch.einsum(sp, q[0].to(torch.int64), v)
+                        for sp, q in zip(specs, quant)]
             else:
-                raws = folded_tables_exact(cubes, qs)
+                raws = exact_tables(cubes, q32)
             return [None if r is None else dequantize(q, r) for q, r in zip(quant, raws)]
 
         def read(m_bcd, idx):

@@ -12,6 +12,13 @@ below:
   owns a card, gloo on the CPU and where ranks share a card (NCCL refuses
   two ranks on one device). Rank r computes on `cuda:(local_rank %
   device_count)`, or on the CPU where the caller asks for it.
+* `close_distributed` leaves the group: a barrier, so that no rank tears
+  its connections down while a peer still uses them, then
+  `destroy_process_group`, which joins the backend's threads before the
+  interpreter exits. A rank program calls it at its end;
+  `init_distributed` also registers it to run at exit, where it skips
+  the barrier if the program is ending on an uncaught exception (its
+  peers may never reach one).
 * `make_mesh` arranges the group's ranks in a named
   `torch.distributed.device_mesh.DeviceMesh` ("data", optionally
   "model"). `make_mesh(1)`, or `make_mesh()` with no group, is a one-rank
@@ -29,8 +36,10 @@ code path of that layout.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import os
+import sys
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +55,7 @@ __all__ = [
     "all_reduce_sum",
     "batch_sharding",
     "check_mesh",
+    "close_distributed",
     "gather_batch",
     "init_distributed",
     "local_mesh",
@@ -104,6 +114,26 @@ def init_distributed(
     kw = {} if world is None else {"world_size": world, "rank": rank}
     dist.init_process_group(backend, init_method=init, **kw)
     _LAYOUT["device"] = dev
+    if not _LAYOUT.get("at_exit"):
+        atexit.register(_close_at_exit)
+        _LAYOUT["at_exit"] = True
+
+
+def close_distributed(barrier: bool = True) -> None:
+    """Leave the group: wait for every rank (`barrier`), then destroy the
+    process group. Idempotent; does nothing where no group exists."""
+    if not dist.is_initialized():
+        return
+    if barrier:
+        dist.barrier()
+    dist.destroy_process_group()
+    _LAYOUT.pop("device", None)
+
+
+def _close_at_exit() -> None:
+    # An uncaught exception has been printed by now (sys.last_value): a
+    # barrier would wait for peers that may never come, so only destroy.
+    close_distributed(barrier=getattr(sys, "last_value", None) is None)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

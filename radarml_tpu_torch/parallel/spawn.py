@@ -1,39 +1,37 @@
 """Run a command as N local ranks, the way torchrun would, with a deadline.
 
 Each rank is a process of its own that gets torchrun's environment
-(RANK, LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR 127.0.0.1
-and a free MASTER_PORT), so `parallel.mesh.init_distributed()` joins it
-to the group from the environment. The ranks share one deadline: a rank
-that fails, or a group that outlives the deadline, ends every rank, so a
-hung collective fails its caller instead of waiting forever.
+(RANK, LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR 127.0.0.1,
+MASTER_PORT), so `parallel.mesh.init_distributed()` joins it to the
+group from the environment. As torchrun's agent does, the calling
+process hosts the group's TCPStore for the group's whole life, on a port
+the system picks when it is bound (TORCHELASTIC_USE_AGENT_STORE tells
+the ranks to connect to it): no port is released before the ranks take
+it, so no other group can take it in between, and no rank outlives the
+store. The ranks share one deadline: a rank that fails, or a group that
+outlives the deadline, ends every rank, so a hung collective fails its
+caller instead of waiting forever.
 
     outs = run_ranks([sys.executable, "driver.py"], n=2, timeout=120)
+    # each rank's standard output; every rank exited 0
 """
 
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import tempfile
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["free_port", "run_ranks", "RanksFailed"]
+__all__ = ["run_ranks", "RanksFailed"]
 
 _ROOT = Path(__file__).resolve().parents[2]  # the checkout holding the package
 
 
 class RanksFailed(RuntimeError):
     """A rank exited non-zero, or the group outlived its deadline."""
-
-
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that was free a moment ago."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _tail(path: str, n: int = 4000) -> str:
@@ -44,18 +42,30 @@ def _tail(path: str, n: int = 4000) -> str:
 def run_ranks(cmd: Sequence[str], n: int, timeout: float,
               env: Optional[Dict[str, str]] = None,
               cwd: Optional[str] = None) -> List[str]:
-    """Run `cmd` as ranks 0..n-1 and return each rank's standard output.
+    """Run `cmd` as ranks 0..n-1 and return each rank's standard output,
+    in rank order: a return means every rank exited 0.
 
     The package's checkout is put first on PYTHONPATH. Raises RanksFailed
     with the failing rank's error output (the others are killed) if a
     rank exits non-zero or the group has not finished after `timeout`
     seconds.
     """
+    from torch.distributed import TCPStore
+
     base = dict(os.environ if env is None else env)
     parts = [p for p in base.get("PYTHONPATH", "").split(os.pathsep) if p]
     base["PYTHONPATH"] = os.pathsep.join([str(_ROOT)] + parts)
-    base.update(WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(free_port()))
+    store = TCPStore("127.0.0.1", 0, n, is_master=True, wait_for_workers=False)
+    try:
+        base.update(WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(store.port), TORCHELASTIC_USE_AGENT_STORE="True",
+                    TORCHELASTIC_RESTART_COUNT="0")
+        return _run(cmd, n, timeout, base, cwd)
+    finally:
+        del store  # every rank has ended: _run kills the ones still running
+
+
+def _run(cmd, n, timeout, base, cwd) -> List[str]:
     with tempfile.TemporaryDirectory() as tmp:
         procs, logs = [], []
         for r in range(n):

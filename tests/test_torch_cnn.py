@@ -283,3 +283,57 @@ def test_adam_matches_optax_on_one_update():
     p.grad = torch.from_numpy(g)
     opt.step()
     np.testing.assert_allclose(p.detach().numpy(), want, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.25])
+def test_dropout_masks_match_flax_dropout(rate):
+    """The port's dropout against flax's `nn.Dropout` (what the JAX CNN
+    applies after each dense layer's ReLU): every kept unit scaled by
+    1/(1 - rate), the rest zero; the kept share within 5 binomial sigmas
+    of 1 - rate in both, and of each other; a fresh mask at every draw;
+    no mask at rate 0; and in the model, each mask multiplies its dense
+    layer's output while inference applies none."""
+    import flax.linen as fnn
+
+    shape, keep = (4096, 64), 1.0 - rate
+    gen = torch.Generator().manual_seed(0)
+    masks = cnn.dropout_masks(2, shape, rate, gen)
+    again = cnn.dropout_masks(2, shape, rate, gen)
+    ones = jnp.ones(shape, jnp.float32)
+    flax_masks = [np.asarray(fnn.Dropout(rate, deterministic=False).apply(
+        {}, ones, rngs={"dropout": jax.random.PRNGKey(k)})) for k in range(2)]
+    n = shape[0] * shape[1]
+    sigma = np.sqrt(keep * rate / n)
+    for m in [t.numpy() for t in masks] + flax_masks:
+        assert m.dtype == np.float32
+        np.testing.assert_array_equal(np.unique(m), [0.0, np.float32(1.0 / keep)])
+        assert abs((m > 0).mean() - keep) <= 5 * sigma
+    port_keep = np.mean([(t.numpy() > 0).mean() for t in masks])
+    flax_keep = np.mean([(m > 0).mean() for m in flax_masks])
+    assert abs(port_keep - flax_keep) <= 5 * np.sqrt(2) * sigma
+    assert not torch.equal(masks[0], masks[1])  # one per dense layer
+    assert not any(torch.equal(a, b) for a, b in zip(masks, again))  # one per step
+    assert cnn.dropout_masks(2, shape, 0.0, gen) is None
+
+    model = cnn.init_cnn(3, (16, 16), seed=0, device="cpu", dropout_rate=rate).eval()
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (5, 16, 16, 3))
+                         .astype(np.float32))
+    full = [torch.ones(5, 64), torch.ones(5, 64)]
+    with torch.no_grad():
+        assert torch.equal(model(x, full), model(x))
+        # a zero mask on the first layer leaves the second layer its bias only
+        dead = model(x, [torch.zeros(5, 64), torch.ones(5, 64)])
+        want = model.Dense_2(torch.relu(model.Dense_1.bias)).expand(5, -1)
+        torch.testing.assert_close(dead, want, rtol=0, atol=1e-6)
+        m = cnn.dropout_masks(2, (5, 64), rate, gen)
+        h = torch.relu(model.Dense_0(_features(model, x))) * m[0]
+        h = torch.relu(model.Dense_1(h)) * m[1]
+        torch.testing.assert_close(model(x, m), model.Dense_2(h), rtol=0, atol=1e-6)
+
+
+def _features(model, x):
+    """The flattened branch features a MultiViewCNN feeds its first dense layer."""
+    v = x.permute(0, 3, 1, 2)
+    f = torch.cat([model.branch_xz(v[:, 0:1]), model.branch_yz(v[:, 1:2]),
+                   model.branch_xy(v[:, 2:3])], dim=1)
+    return f.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

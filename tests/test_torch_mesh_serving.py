@@ -115,6 +115,7 @@ for key, call in (("divisible", lambda: preds["fused_combo"](cubes[:9], xyz[:9],
     except ValueError as e:
         errors[key] = str(e)
 print(json.dumps({"errors": errors, "backend": mesh.backend, "device": str(mesh.device)}))
+tmesh.close_distributed()
 '''
 
 

@@ -48,7 +48,7 @@ import torch
 from radarml_tpu.models.cnn import MultiViewCNN as JaxCNN
 from radarml_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from radarml_tpu.train import trainer as jtrainer
-from radarml_tpu_torch.parallel.spawn import free_port, run_ranks
+from radarml_tpu_torch.parallel.spawn import run_ranks
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -203,6 +203,7 @@ for name, run in (("cnn", lambda: cnn_run(mesh, 0.5)), ("cnn0", lambda: cnn_run(
     out.update({f"{name}:{k}": v for k, v in run().items()})
 np.savez(os.path.join(sys.argv[1], f"r{mesh.rank}.npz"), **out)
 print("done")
+tmesh.close_distributed()
 '''
 
 RUNS = {}
@@ -359,8 +360,8 @@ def test_dnn_app_mesh_under_torchrun(tmp_path):
     single = dnn_app.main(args + ["--results_dir", str(tmp_path / "one")])
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]),
                OMP_NUM_THREADS="1")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+    # --standalone: the launcher binds its store's port itself (port 0)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
            "-m", "radarml_tpu_torch.apps.dnn", "--mesh", "2",
            "--results_dir", str(tmp_path / "two")] + args
     done = subprocess.run(cmd, env=env, cwd=str(tmp_path), capture_output=True, timeout=180)

@@ -22,7 +22,7 @@ from radarml_tpu.parallel.mesh import replicate as jax_replicate
 from radarml_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from radarml_tpu.parallel.train_step import make_dp_sgd_train_step as jax_dp_step
 from radarml_tpu_torch.parallel import mesh as tmesh
-from radarml_tpu_torch.parallel.spawn import run_ranks
+from radarml_tpu_torch.parallel.spawn import RanksFailed, run_ranks
 from radarml_tpu_torch.parallel.train_step import make_dp_sgd_train_step
 
 CPU = "cpu"
@@ -110,6 +110,7 @@ p, best, proba = pred(cubes, xyz, valid)
 dump("fast", cubes=cubes, xyz=xyz, coef=model.coef, pred=p, proba=proba)
 report["odd_scans"] = raises(lambda: pred(cubes[:5], xyz[:5], valid[:5]))
 print(json.dumps(report))
+tmesh.close_distributed()
 '''
 
 # Four ranks from the environment, as torchrun starts them.
@@ -132,6 +133,7 @@ report = {
     "one": [tmesh.make_mesh(1, device="cpu").backend, tmesh.make_mesh(1).data_size],
 }
 print(json.dumps(report))
+tmesh.close_distributed()
 '''
 
 
@@ -334,3 +336,66 @@ def test_placements_and_check_mesh():
     assert tmesh.check_mesh(mesh) is mesh and tmesh.check_mesh(None) is None
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tmesh.check_mesh(jax.devices())
+
+
+# Leaving the group: close_distributed before a group, twice after it, and
+# the group's store as run_ranks hosts it.
+_CLOSE = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+from radarml_tpu_torch.parallel import mesh as tmesh
+tmesh.close_distributed()  # no group yet: nothing to do
+tmesh.init_distributed(device="cpu")
+tag = int(sys.argv[1])
+t = torch.tensor([10.0 * tag + dist.get_rank()])
+dist.all_reduce(t)
+report = {"sum": t.item(), "port": os.environ["MASTER_PORT"], "rank": dist.get_rank()}
+if sys.argv[2] == "raise" and dist.get_rank() == 1:
+    raise RuntimeError("rank 1 fails after joining")
+if sys.argv[2] == "close":
+    tmesh.close_distributed()
+    tmesh.close_distributed()  # idempotent
+    report["after"] = dist.is_initialized()
+print(json.dumps(report))
+'''
+
+
+def _close_group(tmp_path, tag, how):
+    driver = tmp_path / f"close_{tag}.py"
+    driver.write_text(_CLOSE)
+    outs = run_ranks([sys.executable, str(driver), str(tag), how], 2, RANK_TIMEOUT)
+    return [json.loads(s.strip().splitlines()[-1]) for s in outs]
+
+
+def test_close_distributed_is_idempotent_and_ranks_exit_0(tmp_path):
+    """A rank program that leaves its group (twice) exits 0, as does one
+    that leaves it through the exit handler init_distributed registers;
+    with no group, close_distributed does nothing."""
+    tmesh.close_distributed()
+    assert not torch.distributed.is_initialized()
+    for how in ("close", "at_exit"):
+        reports = _close_group(tmp_path, 1, how)  # returns: every rank exited 0
+        assert [r["sum"] for r in reports] == [21.0, 21.0]
+        if how == "close":
+            assert [r["after"] for r in reports] == [False, False]
+
+
+def test_a_failing_rank_still_fails_the_group(tmp_path):
+    """The exit handler skips its barrier after an uncaught exception, so
+    the failing rank exits non-zero at once and run_ranks raises."""
+    with pytest.raises(RanksFailed, match=r"(?s)rank 1 of 2: exit code 1.*fails after joining"):
+        _close_group(tmp_path, 2, "raise")
+
+
+def test_concurrent_groups_get_their_own_store(tmp_path):
+    """Two groups started at once: each rank joins its own group's store
+    (a port per group) and sums its own group's values."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        got = list(pool.map(lambda tag: _close_group(tmp_path, tag, "close"), (3, 4)))
+    a, b = got
+    assert [r["sum"] for r in a] == [61.0, 61.0] and [r["sum"] for r in b] == [81.0, 81.0]
+    assert len({r["port"] for r in a}) == 1 and len({r["port"] for r in b}) == 1
+    assert a[0]["port"] != b[0]["port"]

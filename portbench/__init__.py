@@ -1,0 +1,6 @@
+"""The benchmark of radarml_tpu_torch, the PyTorch and CUDA port.
+
+`python3 portbench/run.py --workload <name> --seed <n> --seconds <s>
+--trace <0|1>` runs one cell of BENCHMARK.json once (see run.py).
+Nothing here imports JAX or the JAX package.
+"""
